@@ -1,0 +1,34 @@
+"""VGG-16 [Simonyan & Zisserman, ICLR'15] — the paper's own benchmark
+(counterpart of ``repro.configs.vgg16``; same widths and presets).
+
+The config carries a :class:`PlanRequest`, which the trainer resolves to an
+:class:`~repro_torch.exec.plan.ExecutionPlan` through the Planner.  The
+default request (``twophase_h``, N=8) names an engine the port does not
+have yet; pin ``--strategy base`` or ``--strategy overlap``.
+"""
+
+import dataclasses
+
+from repro_torch.exec.plan import PlanRequest
+
+
+@dataclasses.dataclass(frozen=True)
+class CNNConfig:
+    name: str
+    arch: str              # vgg16 | resnet50
+    image: int = 224
+    channels: int = 3
+    n_classes: int = 10
+    batch: int = 32
+    width_mult: float = 1.0
+    plan: PlanRequest = PlanRequest(engine="twophase_h", n_rows=8,
+                                    budget_gb=24.0)
+
+
+CONFIG = CNNConfig(name="vgg16", arch="vgg16")
+
+
+def reduced():
+    return CNNConfig(name="vgg16-reduced", arch="vgg16", image=64,
+                     width_mult=0.125, batch=2,
+                     plan=PlanRequest(engine="twophase", n_rows=2))

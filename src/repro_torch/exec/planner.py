@@ -1,0 +1,276 @@
+"""The Planner, CNN part: Eqs. 7-16 as a policy solver producing
+ExecutionPlans (counterpart of ``repro.exec.planner``).
+
+Ported: estimates for ``base``, ``overlap`` and ``twophase``, explicit
+(engine, N) plans, ``solve`` for those three engines, ``resolve`` of a
+:class:`PlanRequest`, and the kernel pass (:func:`kernelize_plan`) that
+swaps an engine for its CUDA-backed alternate when the kernel can run the
+trunk's layers.  The kernel pass prices what the CUDA kernel needs: one
+CTA's shared memory per conv layer against Hopper's 227 KiB, and fp32
+(:func:`repro_torch.kernels.conv2d_rows.launch_problem`) — where the
+reference priced a VMEM row block against 16 MiB and MXU alignment.
+
+Not ported yet, and raising :class:`NotImplementedError` with what they
+wait for: ``for_budget`` (engine auto-selection), the hybrid engines'
+estimates and solves, ``residencize``, ``stagedize``, the costed chooser,
+the tile autotuner and the sequence/serving planners.
+"""
+
+from __future__ import annotations
+
+from dataclasses import replace as dataclasses_replace
+from typing import Optional, Sequence, Tuple
+
+from repro_torch.core import rowplan as _rp
+from repro_torch.exec.plan import (
+    ExecutionPlan, KernelSpec, MeshSpec, PlanRequest, ResidencySpec,
+)
+from repro_torch.exec.registry import not_ported_message
+from repro_torch.kernels.conv2d_rows import SMEM_LIMIT, launch_problem
+from repro_torch.kernels.ops import candidate_tiles
+
+CNN_ENGINES = ("base", "ckp", "overlap", "twophase", "overlap_h",
+               "twophase_h")
+#: engines the port can estimate and solve (the hybrids wait)
+PORTED_ESTIMATES = ("base", "overlap", "twophase")
+#: plain engine -> its CUDA-backed alternate with the same call signature
+#: (base and overlap both map to overlap_cuda: the kernel's row tiling is
+#: internal, so its full-tensor apply is a drop-in for either)
+CUDA_ALTERNATE = {"base": "overlap_cuda", "overlap": "overlap_cuda"}
+CUDA_ENGINES = ("overlap_cuda",)
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# Kernel-execution policy: plain <-> cuda engine selection
+# ---------------------------------------------------------------------------
+
+
+def _cuda_infeasible(target: str, plan: ExecutionPlan, spec: KernelSpec,
+                     modules: Optional[Sequence],
+                     smem_limit: int) -> Tuple[str, dict]:
+    """``(reason, pricing)``: why ``target`` cannot run ``spec``'s tiling
+    ("" when it can) plus the pricing extras to record on the plan.  A
+    conv layer counts when the halo precondition holds; every counted
+    layer must then pass the kernel's launch limits."""
+    if target != "overlap_cuda":
+        return f"engine {plan.engine!r} has no cuda alternate", {}
+    if plan.in_shape is None:
+        return "plan has no in_shape to tile over", {}
+    if modules is None:
+        return "module list unavailable for shared-memory pricing", {}
+    from repro_torch.exec.kernel_engines import conv_tiles
+    n_ok, worst = 0, 0
+    for m, _, out, eligible, smem in conv_tiles(modules, plan.in_shape,
+                                                spec):
+        if not eligible:
+            continue
+        n_ok += 1
+        worst = max(worst, smem)
+        bh = max(1, min(spec.block_h, out[0]))
+        problem = launch_problem(bh, m.s, m.k, plan.dtype_bytes, smem_limit)
+        if problem:
+            return problem, {}
+    if not n_ok:
+        return (f"no conv layer admits the halo precondition at "
+                f"block_h={spec.block_h}"), {}
+    return "", {"kernel_smem_bytes": worst, "kernel_layers": n_ok}
+
+
+def _tile_candidates(target: str, plan: ExecutionPlan) -> tuple:
+    """The deterministic tile search space for ``target`` against this
+    plan's geometry (``candidate_tiles``, as in the reference)."""
+    h = plan.in_shape[0] if plan.in_shape else 0
+    return candidate_tiles("conv", h_out=h)
+
+
+def _fmt_tiles(tiles: dict) -> str:
+    return " ".join(f"{k}={v}" for k, v in sorted(tiles.items()))
+
+
+def _kernel_fallback(plan: ExecutionPlan, spec: KernelSpec,
+                     reason: str) -> ExecutionPlan:
+    plain = dataclasses_replace(spec, backend="plain")
+    return dataclasses_replace(plan.with_extras(kernel_fallback=reason),
+                               kernel=plain)
+
+
+def kernelize_plan(plan: ExecutionPlan, spec,
+                   modules: Optional[Sequence] = None,
+                   smem_limit: int = SMEM_LIMIT) -> ExecutionPlan:
+    """Apply a kernel-execution policy to a resolved plan.
+
+    ``spec`` is a :class:`KernelSpec` or a bare backend string.  With the
+    plain backend the spec is attached.  With the cuda backend the engine
+    is swapped for its CUDA-backed alternate (:data:`CUDA_ALTERNATE`) when
+    the tiling is feasible; otherwise the plan keeps its engine and records
+    why under the ``kernel_fallback`` extra.  A bare ``"cuda"`` string means
+    "any feasible tiling": when the default tiles are rejected, the
+    ``candidate_tiles`` enumeration is searched and the first feasible
+    candidate wins (``kernel_retile`` extra).  Estimates are untouched."""
+    retile = isinstance(spec, str)
+    if retile:
+        spec = KernelSpec(backend=spec)
+    if spec.backend != "cuda":
+        return dataclasses_replace(plan, kernel=spec)
+    target = CUDA_ALTERNATE.get(plan.engine, plan.engine)
+    if target not in CUDA_ENGINES:
+        return _kernel_fallback(
+            plan, spec, f"engine {plan.engine!r} has no cuda alternate")
+    reason, pricing = _cuda_infeasible(target, plan, spec, modules,
+                                       smem_limit)
+    if reason and retile:
+        for tiles in _tile_candidates(target, plan):
+            cand = dataclasses_replace(spec, **tiles)
+            if cand == spec:
+                continue  # the default already failed above
+            r2, p2 = _cuda_infeasible(target, plan, cand, modules,
+                                      smem_limit)
+            if not r2:
+                out = dataclasses_replace(plan, engine=target, kernel=cand)
+                return out.with_extras(
+                    kernel_retile=(f"default tiling infeasible ({reason}); "
+                                   f"first feasible candidate "
+                                   f"{_fmt_tiles(tiles)}"), **p2)
+        return _kernel_fallback(
+            plan, spec, f"{reason}; no candidate tiling feasible either")
+    if reason:
+        return _kernel_fallback(plan, spec, reason)
+    out = dataclasses_replace(plan, engine=target, kernel=spec)
+    return out.with_extras(**pricing) if pricing else out
+
+
+# ---------------------------------------------------------------------------
+# The Planner
+# ---------------------------------------------------------------------------
+
+
+class Planner:
+    """Solves (engine, N) for a CNN trunk.  ``xi`` is the paper's constant
+    (params + grads + optimizer state) added to every estimate.  A mesh is
+    accepted as plain data and divides batch and budget per device, as in
+    the reference; executing it is not ported yet."""
+
+    def __init__(self, modules: Sequence, in_shape: Tuple[int, int, int],
+                 batch: int, dtype_bytes: int = 4, xi: int = 0,
+                 n_max: int = 64, mesh: Optional[MeshSpec] = None):
+        self.modules = list(modules)
+        self.in_shape = tuple(in_shape)
+        self.batch = batch
+        self.dtype_bytes = dtype_bytes
+        self.xi = xi
+        self.n_max = n_max
+        self.mesh = mesh
+        shards = mesh.batch_extent if mesh is not None else 1
+        if shards > 1 and batch % shards:
+            raise ValueError(f"global batch {batch} does not divide over "
+                             f"the mesh batch axes ({shards})")
+        self.dev_batch = batch // shards
+        self.shards = shards
+
+    def estimate(self, engine: str, n_rows: int,
+                 residency: Optional[ResidencySpec] = None) -> int:
+        """Peak activation bytes ONE device holds, plus ``xi``."""
+        if residency is not None and residency.offloads:
+            raise _not_ported(f"pricing residency {residency.describe()!r}")
+        if engine == "base":
+            return _rp.omega_column(self.modules, self.in_shape,
+                                    self.dev_batch, self.dtype_bytes) + self.xi
+        if engine in ("overlap", "twophase"):
+            return _rp.estimate_bytes(self.modules, self.in_shape,
+                                      self.dev_batch, engine, n_rows,
+                                      self.dtype_bytes, self.xi)
+        if engine in CNN_ENGINES:
+            raise NotImplementedError(
+                f"estimating {engine!r} is not ported yet; "
+                + not_ported_message(engine))
+        raise ValueError(f"unknown CNN engine {engine!r}; known: "
+                         f"{list(CNN_ENGINES)}")
+
+    def plan(self, engine: str, n_rows: int = 1, budget: int = 0,
+             residency: Optional[ResidencySpec] = None,
+             **extras) -> ExecutionPlan:
+        """An explicit (engine, N) request as a full plan with estimates."""
+        n_rows = max(1, n_rows)
+        dev_est = self.estimate(engine, n_rows, residency)
+        return ExecutionPlan(
+            engine=engine, n_rows=n_rows, in_shape=self.in_shape,
+            batch=self.batch, dtype_bytes=self.dtype_bytes,
+            est_bytes=dev_est * self.shards, est_bytes_per_device=dev_est,
+            budget=budget,
+            feasible=(budget == 0 or dev_est < budget // self.shards),
+            mesh=self.mesh, residency=residency,
+            extras=tuple(extras.items()))
+
+    def solve(self, engine: str, budget: int,
+              residency: Optional[ResidencySpec] = None) -> ExecutionPlan:
+        """min N s.t. estimate(engine, N) < budget (Eqs. 9/10/12/16 plus
+        the Sec. IV validity bounds), as a plan."""
+        if engine not in PORTED_ESTIMATES:
+            raise NotImplementedError(
+                f"solving {engine!r} is not ported yet; "
+                + not_ported_message(engine))
+        r = _rp.solve_n(self.modules, self.in_shape, self.dev_batch,
+                        budget // self.shards, engine, self.dtype_bytes,
+                        self.xi, self.n_max)
+        return self.plan(engine, max(1, r.n_rows), budget=budget,
+                         residency=residency)
+
+    def kernelize(self, plan: ExecutionPlan, spec,
+                  smem_limit: int = SMEM_LIMIT) -> ExecutionPlan:
+        """Apply a kernel backend to a plan, priced against this planner's
+        module list — see :func:`kernelize_plan`."""
+        return kernelize_plan(plan, spec, modules=self.modules,
+                              smem_limit=smem_limit)
+
+    def resolve(self, request: PlanRequest) -> ExecutionPlan:
+        """Turn a config-level :class:`PlanRequest` into a plan; its
+        ``kernel`` ("cuda"/"plain") is applied to whatever resolves."""
+        if request.mesh:
+            mesh = MeshSpec.parse(request.mesh)
+            if mesh != self.mesh:
+                return Planner(self.modules, self.in_shape, self.batch,
+                               self.dtype_bytes, self.xi, self.n_max,
+                               mesh=mesh).resolve(
+                                   dataclasses_replace(request, mesh=""))
+        plan = self._resolve(request, ResidencySpec.parse(request.residency))
+        if request.kernel:
+            plan = self.kernelize(plan, request.kernel)
+        return plan
+
+    def _resolve(self, request: PlanRequest,
+                 residency: Optional[ResidencySpec] = None) -> ExecutionPlan:
+        budget = int(request.budget_gb * 2**30)
+        if request.engine and request.n_rows:
+            return self.plan(request.engine, request.n_rows, budget=budget,
+                             residency=residency)
+        if request.engine:
+            return self.solve(request.engine, budget, residency)
+        raise _not_ported("engine auto-selection (Planner.for_budget); "
+                          "pin an engine")
+
+    # -- the reference's other planning passes --------------------------
+    @classmethod
+    def for_budget(cls, *args, **kwargs):
+        raise _not_ported("Planner.for_budget (engine auto-selection "
+                          "under a budget)")
+
+    def residencize(self, *args, **kwargs):
+        raise _not_ported("Planner.residencize (boundary-cache residency)")
+
+    def stagedize(self, *args, **kwargs):
+        raise _not_ported("Planner.stagedize (pipelined stages)")
+
+    def autotune_kernel(self, *args, **kwargs):
+        raise _not_ported("Planner.autotune_kernel (timed tile search)")
+
+    @classmethod
+    def for_model(cls, *args, **kwargs):
+        raise _not_ported("Planner.for_model (sequence-axis plans)")
+
+    @classmethod
+    def for_serve(cls, *args, **kwargs):
+        raise _not_ported("Planner.for_serve (serving plans)")

@@ -1,0 +1,53 @@
+"""The PyTorch port stands alone: no module under ``src/repro_torch/`` (nor
+``chip_smoke.py``) imports ``jax`` or the JAX package ``repro``."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_every_module_imports_with_jax_and_repro_blocked():
+    modules = [".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+               for p in sorted(PORT.rglob("*.py"))]
+    modules = [m[:-len(".__init__")] if m.endswith(".__init__") else m
+               for m in modules]
+    code = (
+        "import importlib, sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        f"        if name.split('.')[0] in {FORBIDDEN!r}:\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print('ok', len(sys.modules))\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.startswith("ok")

@@ -1,0 +1,215 @@
+"""The port's planner integers and plan JSON against the JAX package.
+
+``repro.exec`` cannot be imported where ``jax.sharding`` lacks
+``TransferToMemoryKind``, so the reference's ``exec/plan.py`` (which
+imports only ``dataclasses`` and ``json``) is loaded by file path, and the
+memory model is compared through ``repro.core.rowplan`` / ``twophase``.
+Integers must be equal.
+"""
+
+import dataclasses
+import importlib.util
+import pathlib
+import sys
+
+import pytest
+
+from repro.core import rowplan as ref_rp
+from repro.core import twophase as ref_tp
+from repro.models.cnn.vgg import vgg16_modules as ref_vgg16_modules
+from repro_torch.core import rowplan as pt_rp
+from repro_torch.core import twophase as pt_tp
+from repro_torch.exec import ExecutionPlan, KernelSpec, PlanRequest, Planner
+from repro_torch.exec.planner import kernelize_plan
+from repro_torch.models.cnn.vgg import vgg16_modules
+
+REF_PLAN_PATH = pathlib.Path(__file__).resolve().parents[1] / "src" / \
+    "repro" / "exec" / "plan.py"
+
+
+def _ref_plan_module():
+    name = "_reference_exec_plan"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(name, REF_PLAN_PATH)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod  # dataclasses resolve annotations here
+        spec.loader.exec_module(mod)
+    return sys.modules[name]
+
+
+# (width_mult, n_stages, image): a small trunk and full VGG-16 at 224
+TRUNKS = [(0.125, 3, 32), (0.125, 5, 64), (1.0, 5, 224)]
+
+
+def _mods(width, stages):
+    return ref_vgg16_modules(width, stages), vgg16_modules(width, stages)
+
+
+@pytest.mark.parametrize("width,stages,image", TRUNKS)
+@pytest.mark.parametrize("engine", ["base", "overlap", "twophase"])
+def test_estimate_bytes_equal(width, stages, image, engine):
+    ref_m, pt_m = _mods(width, stages)
+    shape = (image, image, 3)
+    h_last = ref_rp.shape_chain(ref_m, shape)[-1][0]
+    for batch in (1, 2, 32):
+        for n in range(1, min(4, h_last) + 1):
+            if engine == "twophase" and not ref_tp.validate_plan(
+                    ref_tp.module_boundaries(ref_m, image, n)):
+                continue
+            assert pt_rp.estimate_bytes(pt_m, shape, batch, engine, n) \
+                == ref_rp.estimate_bytes(ref_m, shape, batch, engine, n)
+        assert pt_rp.omega_column(pt_m, shape, batch) \
+            == ref_rp.omega_column(ref_m, shape, batch)
+
+
+@pytest.mark.parametrize("width,stages,image", TRUNKS)
+@pytest.mark.parametrize("engine", ["base", "overlap", "twophase"])
+def test_solve_n_equal(width, stages, image, engine):
+    ref_m, pt_m = _mods(width, stages)
+    shape = (image, image, 3)
+    full = ref_rp.omega_column(ref_m, shape, 2)
+    for budget in (full // 8, full // 3, full // 2, full * 2):
+        got = pt_rp.solve_n(pt_m, shape, 2, budget, engine, xi=1000)
+        want = ref_rp.solve_n(ref_m, shape, 2, budget, engine, xi=1000)
+        assert (got.n_rows, got.est_bytes, got.feasible) \
+            == (want.n_rows, want.est_bytes, want.feasible)
+
+
+def test_largest_batch_and_image_equal():
+    ref_m, pt_m = _mods(0.125, 3)
+    budget = 8 * 2**20
+    for engine in ("base", "overlap"):
+        assert pt_rp.largest_batch(pt_m, (32, 32, 3), budget, engine,
+                                   b_max=256) \
+            == ref_rp.largest_batch(ref_m, (32, 32, 3), budget, engine,
+                                    b_max=256)
+        assert pt_rp.largest_image(lambda h: pt_m, (32, 32, 3), 2, budget,
+                                   engine, h_max=256) \
+            == ref_rp.largest_image(lambda h: ref_m, (32, 32, 3), 2, budget,
+                                    engine, h_max=256)
+
+
+@pytest.mark.parametrize("width,stages,image", TRUNKS)
+def test_twophase_planning_equal(width, stages, image):
+    ref_m, pt_m = _mods(width, stages)
+    h_last = ref_rp.shape_chain(ref_m, (image, image, 3))[-1][0]
+    for n in (n for n in (1, 2, 3, 4, 6) if n <= h_last):
+        want = ref_tp.module_boundaries(ref_m, image, n)
+        got = pt_tp.module_boundaries(pt_m, image, n)
+        assert (got.heights, got.bounds, got.need_lo) \
+            == (want.heights, want.bounds, want.need_lo)
+        assert pt_tp.validate_plan(got) == ref_tp.validate_plan(want)
+        assert got.cache_sizes() == want.cache_sizes()
+        assert pt_rp.twophase_cache_bytes(pt_m, (image, image, 3), 2, n) \
+            == ref_rp.twophase_cache_bytes(ref_m, (image, image, 3), 2, n)
+        assert pt_rp.overlap_halo_bytes(pt_m, (image, image, 3), 2, n) \
+            == ref_rp.overlap_halo_bytes(ref_m, (image, image, 3), 2, n)
+    assert pt_tp.max_valid_rows(pt_m, image) \
+        == ref_tp.max_valid_rows(ref_m, image)
+
+
+def test_reference_plan_json_loads_with_name_mapping():
+    R = _ref_plan_module()
+    ref = R.ExecutionPlan(
+        engine="overlap_pallas", n_rows=4, in_shape=(224, 224, 3), batch=32,
+        est_bytes=123456, budget=2**30, feasible=True,
+        mesh=R.MeshSpec.parse("data=1"),
+        kernel=R.KernelSpec(backend="pallas", block_h=16, interpret=True),
+        residency=R.ResidencySpec(default="device",
+                                  placements=(("sd_l3", "device"),)),
+        stage=R.StageSpec.even(31, 2),
+        extras=(("kernel_layers", 13), ("n_rows_bp", 6)))
+    got = ExecutionPlan.from_json(ref.to_json())
+    assert got.engine == "overlap_cuda"
+    assert got.kernel == KernelSpec(backend="cuda", block_h=16)
+    assert (got.n_rows, got.in_shape, got.batch, got.est_bytes, got.budget) \
+        == (4, (224, 224, 3), 32, 123456, 2**30)
+    assert got.mesh.axes == ref.mesh.axes
+    assert got.residency.to_dict() == ref.residency.to_dict()
+    assert got.stage.stages == ref.stage.stages
+    assert got.extras == ref.extras
+    assert ExecutionPlan.from_json(got.to_json()) == got
+    # a reference plan on the lax backend maps to the plain one
+    lax = R.ExecutionPlan(engine="overlap", n_rows=2,
+                          kernel=R.KernelSpec(backend="lax"))
+    assert ExecutionPlan.from_json(lax.to_json()).kernel.backend == "plain"
+
+
+def test_plan_json_roundtrip_and_describe():
+    plan = Planner(vgg16_modules(1.0, 5), (224, 224, 3), 32).plan(
+        "overlap", 4, budget=24 * 2**30)
+    assert ExecutionPlan.from_json(plan.to_json()) == plan
+    assert plan.describe().startswith("ExecutionPlan(engine=overlap N=4")
+    with pytest.raises(ValueError, match="backend"):
+        KernelSpec(backend="pallas")
+
+
+@pytest.mark.parametrize("engine,n", [("base", 1), ("overlap", 2),
+                                      ("overlap", 4), ("twophase", 2)])
+def test_planner_estimates_match_rowplan(engine, n):
+    ref_m, pt_m = _mods(1.0, 5)
+    shape, xi = (224, 224, 3), 12345
+    plan = Planner(pt_m, shape, 32, xi=xi).plan(engine, n, budget=2**33)
+    want = (ref_rp.omega_column(ref_m, shape, 32) + xi) if engine == "base" \
+        else ref_rp.estimate_bytes(ref_m, shape, 32, engine, n, xi=xi)
+    assert plan.est_bytes == plan.est_bytes_per_device == want
+    assert plan.feasible == (want < 2**33)
+    solved = Planner(pt_m, shape, 32, xi=xi).solve(engine, want + 1)
+    assert solved.feasible
+
+
+def test_kernelize_swaps_in_overlap_cuda():
+    mods = vgg16_modules(1.0, 5)
+    planner = Planner(mods, (224, 224, 3), 32)
+    for engine in ("overlap", "base"):
+        plan = planner.kernelize(planner.plan(engine, 4), "cuda")
+        assert plan.engine == "overlap_cuda"
+        assert plan.kernel == KernelSpec(backend="cuda", block_h=8)
+        assert plan.get("kernel_layers") == 13
+        assert plan.get("kernel_smem_bytes") == 24192
+    req = PlanRequest(engine="overlap", n_rows=4, kernel="cuda")
+    assert planner.resolve(req).engine == "overlap_cuda"
+    plain = planner.resolve(dataclasses.replace(req, kernel="plain"))
+    assert plain.engine == "overlap" and plain.kernel.backend == "plain"
+
+
+def test_kernelize_fallbacks_and_retile():
+    mods = vgg16_modules(1.0, 5)
+    planner = Planner(mods, (224, 224, 3), 32)
+    plan = planner.plan("overlap", 4)
+    # a pinned spec never re-tiles: infeasible means fall back, with why
+    pinned = kernelize_plan(plan, KernelSpec(backend="cuda", block_h=2),
+                            mods, smem_limit=25000)
+    assert pinned.engine == "overlap" and pinned.kernel.backend == "plain"
+    assert "shared memory" in pinned.get("kernel_fallback")
+    # a bare "cuda" searches candidate_tiles in order: a k=10 conv fails
+    # the halo rule at the default block_h=8 and fits at the first
+    # candidate, 32 (221,856 B of shared memory)
+    from repro_torch.models.cnn.layers import Conv
+    wide = [Conv(4, k=10, s=1, p=0)]
+    p10 = Planner(wide, (64, 64, 3), 2).plan("overlap", 1)
+    retiled = kernelize_plan(p10, "cuda", wide)
+    assert retiled.engine == "overlap_cuda"
+    assert retiled.kernel.block_h == 32
+    assert "block_h=32" in retiled.get("kernel_retile")
+    assert retiled.get("kernel_smem_bytes") == 221856
+    assert kernelize_plan(p10, "cuda", wide, smem_limit=200000) \
+        .get("kernel_fallback")
+    tp = planner.kernelize(planner.plan("twophase", 2), "cuda")
+    assert tp.engine == "twophase"
+    assert "no cuda alternate" in tp.get("kernel_fallback")
+    half = dataclasses.replace(plan, dtype_bytes=2)
+    assert "fp32" in planner.kernelize(half, "cuda").get("kernel_fallback")
+
+
+def test_unported_planning_raises():
+    planner = Planner(vgg16_modules(0.125, 3), (32, 32, 3), 2)
+    with pytest.raises(NotImplementedError, match="twophase_h"):
+        planner.plan("twophase_h", 8)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        planner.resolve(PlanRequest(budget_gb=1.0))
+    with pytest.raises(NotImplementedError, match="for_budget"):
+        Planner.for_budget(None)
+    with pytest.raises(NotImplementedError, match="residency"):
+        planner.resolve(PlanRequest(engine="overlap", n_rows=2,
+                                    residency="host"))
