@@ -27,6 +27,33 @@ printing one line:
                 steps each: step-0 losses of all three runs agree within
                 1e-4 relative, and OverL's measured peak memory is below
                 base's (the paper's claim).
+6. kernel_swa   ``swa_attention`` against its plain version at Gemma-3 4B's
+                local-layer shape (B 1, H 8 after the GQA repeat, S 4096,
+                D 256, window 1024, bf16, the plan's bq/bk) and at the six
+                shared SWA cases in fp32 and bf16; ``allclose`` at fp32
+                2e-5 / bf16 2e-2.  Times the kernel, the plain version and
+                ``F.scaled_dot_product_attention`` with the same boolean
+                window mask (the library yardstick, never called by the
+                port) at the Gemma shape, beside the card's bound.
+7. kernel_ssd   ``ssd_scan`` against its plain version at Zamba2-7B's
+                Mamba2 widths (H 32, P 224, N 64; Bt 1, S 4096) and the four
+                shared SSD cases, atol 1e-3; times kernel and plain version
+                (no single PyTorch call computes this function); then the
+                ``seq_ssd_cuda`` engine's op, forward and backward, at the
+                Zamba shape with the launch count from 0 (its main path).
+8. train_lm_kernel  the LM main path: ``repro_torch.launch.train --arch
+                gemma3_4b --preset full --batch 1 --seq 4096 --kernel cuda
+                --steps 3`` at published widths, depth cut 34 -> 12 layers
+                (10 local, 2 global); the plan must be ``seq_swa_cuda``
+                with no ``kernel_fallback`` and the kernel must launch once
+                per local layer per forward (30), with finite losses.
+9. train_lm_rows    the same model with ``--kernel plain`` (the halo
+                loop), 2 steps: its step-0 loss within 1e-2 relative of the
+                kernel run's (bf16 activations).  Then a memory probe on
+                one set of 12-layer parameters: ``build_lm_apply`` forward
+                + backward, no optimizer, at the config's ``row_chunks=8``
+                and at ``row_chunks=1``; the row-chunked peak must be below
+                the unchunked one.
 
 Then it prints the card's name and power limit (nvidia-smi), one JSON line
 of per-kernel numbers, and last ``{"ok": true, "device": {...}}``.
@@ -44,8 +71,10 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-#: H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
+#: H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, bf16
+#: dense on the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
 #: the 9 distinct VGG-16/224 conv shapes (H, W, Cin, Cout) with how many of
@@ -77,8 +106,35 @@ LOSS_TOL = 1e-4
 #: VGG-16 without normalisation diverges at the trainer's default 0.05
 TRAIN_LR = 1e-3
 
+#: the shared SWA cases (S, D, window, bq, bk) and SSD cases
+#: (Bt, S, H, P, N) of the kernel tests
+KERNEL_SWA_CASES = [
+    (256, 64, 64, 64, 32),
+    (256, 64, 0, 128, 64),
+    (512, 32, 128, 128, 128),
+    (256, 64, 100, 64, 32),
+    (128, 128, 32, 32, 32),
+    (128, 64, 200, 64, 64),
+]
+KERNEL_SSD_CASES = [
+    (2, 64, 4, 16, 8),
+    (1, 128, 2, 8, 4),
+    (2, 32, 4, 16, 8),
+    (1, 64, 8, 8, 16),
+]
+SWA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+SSD_ATOL = 1e-3
+#: Gemma-3 4B on the card: published widths, 12 of 34 layers (two 5:1
+#: local/global periods), batch 1, seq 4096
+LM_LAYERS, LM_LOCAL_LAYERS, LM_BATCH, LM_SEQ = 12, 10, 1, 4096
+LM_LOSS_TOL = 1e-2
+#: Zamba2-7B's Mamba2 widths (configs/zamba2_7b.py: d_model 3584, expand 2,
+#: 32 heads, state 64) at batch 1, seq 4096
+SSD_SHAPE = (1, 4096, 32, 7168 // 32, 64)
+
 
 def _timed_ms(torch, fn, iters=5, warmup=2):
+    """Mean ms of ``iters`` calls between CUDA events, after ``warmup``."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -280,6 +336,237 @@ def phase_train_rows(torch, out, tmp):
         raise AssertionError("OverL's peak memory is not below base's")
 
 
+def _gemma12(torch):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("gemma3_4b"), n_layers=LM_LAYERS)
+
+
+def _swa_case(torch, B, H, S, D, dtype, seed):
+    """(B, H, S, D) views of (B, S, H, D) tensors: the layout the LM path
+    hands the kernel."""
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn((B, S, H, D), generator=g).to(device="cuda",
+                                                      dtype=dtype)
+            .transpose(1, 2) for _ in range(3)]
+
+
+def phase_kernel_swa(torch, out):
+    import torch.nn.functional as F
+    from repro_torch.exec import Planner
+    from repro_torch.kernels import swa_attention as sw
+
+    cfg = _gemma12(torch)
+    spec = Planner.for_model(cfg, LM_BATCH, LM_SEQ, kernel="cuda").kernel
+    H, S, D, window = cfg.n_heads, LM_SEQ, cfg.head_dim, cfg.sliding_window
+    max_err = 0.0
+
+    def check(q, k, v, window, bq, bk, what):
+        nonlocal max_err
+        got = sw.swa_attention(q, k, v, window=window, bq=bq, bk=bk)
+        torch.cuda.synchronize()
+        want = sw.swa_attention_plain(q, k, v, window, bq, bk)
+        err = (got.float() - want.float()).abs()
+        max_err = max(max_err, float(err.max()))
+        tol = SWA_TOL[str(q.dtype).split(".")[1]]
+        if not bool((err <= tol + tol * want.float().abs()).all()):
+            raise AssertionError(f"{what}: max abs err {float(err.max())}")
+
+    q, k, v = _swa_case(torch, LM_BATCH, H, S, D, torch.bfloat16, 0)
+    check(q, k, v, window, spec.bq, spec.bk, "gemma local layer")
+    for i, (cs, cd, cw, cbq, cbk) in enumerate(KERNEL_SWA_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            qc, kc, vc = _swa_case(torch, 2, 2, cs, cd, dtype, 10 + i)
+            check(qc, kc, vc, cw, cbq, cbk, f"case {(cs, cd, cw, cbq, cbk)} "
+                  f"{dtype}")
+    pos = torch.arange(S, device="cuda")
+    mask = (pos[None, :] <= pos[:, None]) \
+        & (pos[None, :] > pos[:, None] - window)
+    t = {
+        "ms": _timed_ms(torch, lambda: sw.swa_attention(
+            q, k, v, window=window, bq=spec.bq, bk=spec.bk), iters=20),
+        "plain_ms": _timed_ms(torch, lambda: sw.swa_attention_plain(
+            q, k, v, window, spec.bq, spec.bk)),
+        "library_ms": _timed_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask), iters=20),
+    }
+    # the window-clipped work: 2 FMAs per (query, visible key, d)
+    visible = sum(min(i + 1, window) for i in range(S))
+    flops = 4 * LM_BATCH * H * D * visible
+    nbytes = 4 * LM_BATCH * H * S * D * 2
+    t_ops = 1e3 * flops / PEAK_BF16_FLOPS
+    t_bytes = 1e3 * nbytes / PEAK_HBM_BYTES
+    bound_ms, bound_by = _bound(t_ops, t_bytes)
+    out["swa"] = {"max_abs_err": max_err, "bound_ms": bound_ms,
+                  "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+                  "bq": spec.bq, "bk": spec.bk, **t}
+    print(f"kernel_swa: swa_attention matches plain at the Gemma local "
+          f"layer (1x{H}x{S}x{D} bf16, window {window}, bq={spec.bq} "
+          f"bk={spec.bk}) + {len(KERNEL_SWA_CASES)} cases x fp32/bf16 "
+          f"(max abs err {max_err:.3e}); at the Gemma shape: kernel "
+          f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, SDPA+mask "
+          f"{t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+          f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)", flush=True)
+
+
+def _ssd_inputs(torch, Bt, S, H, P, N, seed):
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *shape: torch.randn(shape, generator=g)  # noqa: E731
+    x, B, C = r(Bt, S, H, P) * 0.5, r(Bt, S, N) * 0.5, r(Bt, S, N) * 0.5
+    dt = torch.nn.functional.softplus(r(Bt, S, H))
+    a = torch.exp(-dt * torch.exp(r(Bt, S, H) * 0.1))
+    return [t.cuda() for t in (x, B, C, a, dt)]
+
+
+def phase_kernel_ssd(torch, out):
+    from repro_torch.exec import ExecutionPlan, build_apply
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_chunk as sc
+
+    max_err = 0.0
+    for i, case in enumerate([SSD_SHAPE] + KERNEL_SSD_CASES):
+        ins = _ssd_inputs(torch, *case, seed=20 + i)
+        got = sc.ssd_scan(*ins)
+        torch.cuda.synchronize()
+        err = float((got - sc.ssd_scan_plain(*ins)).abs().max())
+        max_err = max(max_err, err)
+        if not err <= SSD_ATOL:
+            raise AssertionError(f"ssd case {case}: max abs err {err}")
+    ins = _ssd_inputs(torch, *SSD_SHAPE, seed=20)
+    t = {"ms": _timed_ms(torch, lambda: sc.ssd_scan(*ins), iters=5),
+         "plain_ms": _timed_ms(torch, lambda: sc.ssd_scan_plain(*ins),
+                               iters=2, warmup=1)}
+    Bt, S, H, P, N = SSD_SHAPE
+    # per (t, h, p, n): a*h + (x*dt)*B (3 FLOP) and y += C*h (2); x*dt once
+    flops = 5 * Bt * S * H * P * N + Bt * S * H * P
+    nbytes = 4 * (2 * Bt * S * H * P + 2 * Bt * S * N + 2 * Bt * S * H)
+    bound_ms, bound_by = _bound(1e3 * flops / PEAK_FP32_FLOPS,
+                                1e3 * nbytes / PEAK_HBM_BYTES)
+    # the op-level seq_ssd_cuda engine, forward + backward, counted from 0
+    apply = build_apply(None, ExecutionPlan.explicit("seq_ssd_cuda"))
+    leaves = [x.detach().requires_grad_() for x in ins]
+    ops.ssd_scan.launches = 0
+    y = apply(*leaves)
+    grads = torch.autograd.grad(y.square().sum(), leaves)
+    torch.cuda.synchronize()
+    launches = ops.ssd_scan.launches
+    finite = [bool(torch.isfinite(g).all()) for g in grads]
+    if launches != 1 or not all(finite):
+        raise AssertionError(f"seq_ssd_cuda: {launches} launches, finite "
+                             f"grads {finite}")
+    out["ssd"] = {"max_abs_err": max_err, "bound_ms": bound_ms,
+                  "bound_by": bound_by, "launches": launches,
+                  "flops": flops, "bytes": nbytes, **t}
+    print(f"kernel_ssd: ssd_scan matches plain at {SSD_SHAPE} + "
+          f"{len(KERNEL_SSD_CASES)} cases (max abs err {max_err:.3e}); "
+          f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}); seq_ssd_cuda fwd+bwd launched "
+          f"the kernel {launches} time(s)", flush=True)
+
+
+def _train_lm(torch, tmp, name, kernel, steps):
+    from repro_torch.launch import train as T
+    out_dir = os.path.join(tmp, name)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    recs = T.main(["--arch", "gemma3_4b", "--preset", "full", "--batch",
+                   str(LM_BATCH), "--seq", str(LM_SEQ), "--kernel", kernel,
+                   "--steps", str(steps), "--log-every", "1", "--out",
+                   out_dir], cfg=_gemma12(torch))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(out_dir, "train_log.json")) as f:
+        plan = json.load(f)["plan"]
+    losses = [r["loss"] for r in recs]
+    if len(losses) != steps or not all(math.isfinite(l) for l in losses):
+        raise AssertionError(f"{name}: losses {losses}")
+    ends = [r["elapsed_s"] for r in recs]
+    step_s = [b - a for a, b in zip([0.0] + ends, ends)]
+    return {"losses": losses, "peak": peak, "plan": plan, "step_s": step_s}
+
+
+def phase_train_lm_kernel(torch, out, tmp):
+    from repro_torch.kernels import ops
+    ops.swa_attention.launches = 0
+    run = _train_lm(torch, tmp, "lm_kernel", "cuda", 3)
+    launches = ops.swa_attention.launches
+    out["swa_launches"] = launches
+    out["lm_kernel"] = run
+    plan = run["plan"]
+    if plan["engine"] != "seq_swa_cuda" \
+            or "kernel_fallback" in plan["extras"]:
+        raise AssertionError(f"plan engine {plan['engine']} extras "
+                             f"{plan['extras']}")
+    if launches != LM_LOCAL_LAYERS * 3:
+        raise AssertionError(f"swa_attention launched {launches} times, "
+                             f"expected {LM_LOCAL_LAYERS * 3} "
+                             f"({LM_LOCAL_LAYERS} local layers x 3 "
+                             f"forwards)")
+    print(f"train_lm_kernel: engine=seq_swa_cuda launches={launches} "
+          f"losses={run['losses']} peak={run['peak']} "
+          f"est={plan['est_bytes']} step_s={run['step_s']}", flush=True)
+
+
+def _fwd_bwd_peak(torch, cfg, params, row_chunks):
+    """Peak bytes of one forward + backward through ``build_lm_apply``
+    (no optimizer) at ``row_chunks``, and the plan's estimate."""
+    import dataclasses
+    from repro_torch.data.pipeline import TokenDataset, TokenDatasetConfig
+    from repro_torch.exec import Planner
+    from repro_torch.models.lm.rowexec import build_lm_apply
+    from repro_torch.optim.adamw import tree_leaves
+    cfg = dataclasses.replace(cfg, row_chunks=row_chunks)
+    plan = Planner.for_model(cfg, LM_BATCH, LM_SEQ, kernel="cuda")
+    apply = build_lm_apply(cfg, plan)
+    hb = TokenDataset(TokenDatasetConfig(vocab=cfg.vocab, seq_len=LM_SEQ,
+                                         batch=LM_BATCH)).batch_at(0)
+    batch = {k: torch.from_numpy(hb[k]).long().cuda()
+             for k in ("tokens", "labels")}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    loss, _ = apply(params, batch)
+    grads = torch.autograd.grad(loss, tree_leaves(params))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del grads
+    return peak, plan.est_bytes, loss.detach().item()
+
+
+def phase_train_lm_rows(torch, out, tmp):
+    from repro_torch.models.lm.model import init_lm
+    from repro_torch.optim.adamw import tree_leaves
+    run = _train_lm(torch, tmp, "lm_rows", "plain", 2)
+    if run["plan"]["engine"] != "seq_swa_overlap":
+        raise AssertionError(f"plan engine {run['plan']['engine']}")
+    k0 = out["lm_kernel"]["losses"][0]
+    rel = abs(run["losses"][0] - k0) / abs(k0)
+    cfg = _gemma12(torch)
+    params = init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
+    for t in tree_leaves(params):
+        t.requires_grad_()
+    peaks = {rc: _fwd_bwd_peak(torch, cfg, params, rc)
+             for rc in (cfg.row_chunks, 1)}
+    del params
+    out["lm_rows"] = {"losses": run["losses"], "rel": rel,
+                      "step_s": run["step_s"], "peak": run["peak"],
+                      "probe": peaks}
+    (p8, e8, _), (p1, e1, _) = peaks[cfg.row_chunks], peaks[1]
+    print(f"train_lm_rows: step-0 loss kernel={k0} plain="
+          f"{run['losses'][0]} rel diff {rel:.3e}; fwd+bwd peak "
+          f"row_chunks={cfg.row_chunks} {p8} B (est {e8}) vs row_chunks=1 "
+          f"{p1} B (est {e1}); whole-step peak kernel run "
+          f"{out['lm_kernel']['peak']} B, plain run {run['peak']} B; step_s "
+          f"plain={run['step_s']}", flush=True)
+    if not rel <= LM_LOSS_TOL:
+        raise AssertionError(f"step-0 loss of the halo loop differs from "
+                             f"the kernel run's by {rel}")
+    if not p8 < p1:
+        raise AssertionError("the row-chunked fwd+bwd peak is not below "
+                             "the unchunked one")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -300,7 +587,13 @@ def main() -> int:
                   ("kernel", lambda: phase_kernel(torch, out)),
                   ("train_kernel", lambda: phase_train_kernel(torch, out,
                                                               tmp)),
-                  ("train_rows", lambda: phase_train_rows(torch, out, tmp))]
+                  ("train_rows", lambda: phase_train_rows(torch, out, tmp)),
+                  ("kernel_swa", lambda: phase_kernel_swa(torch, out)),
+                  ("kernel_ssd", lambda: phase_kernel_ssd(torch, out)),
+                  ("train_lm_kernel", lambda: phase_train_lm_kernel(
+                      torch, out, tmp)),
+                  ("train_lm_rows", lambda: phase_train_lm_rows(
+                      torch, out, tmp))]
         for name, fn in phases:
             try:
                 fn()
@@ -309,16 +602,24 @@ def main() -> int:
                 traceback.print_exc()
                 print(f"FAILED phase {name}: {e}", flush=True)
                 return 1
-    k = out["kernel"]
+    k, sw, sd = out["kernel"], out["swa"], out["ssd"]
+    csrc = "src/repro_torch/kernels/csrc/"
+
+    def row(name, replaces, launches, r, library_ms):
+        return {"name": name, "route": "cuda", "source": f"{csrc}{name}.cu",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": library_ms}
+
     print(out["smi"])
-    print(json.dumps({"kernels": [{
-        "name": "conv2d_rows", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/conv2d_rows.cu",
-        "replaces": "src/repro/kernels/conv2d_rows.py:101",
-        "launches": out["launches"], "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-        "bound_by": k["bound_by"],
-        "library_ms": k["library_ms"]}]}))
+    print(json.dumps({"kernels": [
+        row("conv2d_rows", "src/repro/kernels/conv2d_rows.py:101",
+            out["launches"], k, k["library_ms"]),
+        row("swa_attention", "src/repro/kernels/swa_attention.py:111",
+            out["swa_launches"], sw, sw["library_ms"]),
+        row("ssd_scan", "src/repro/kernels/ssd_chunk.py:78",
+            sd["launches"], sd, None)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

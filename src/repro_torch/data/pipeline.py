@@ -1,7 +1,7 @@
-"""Deterministic synthetic image data (counterpart of the image half of
-``repro.data.pipeline``).
+"""Deterministic synthetic data (counterpart of ``repro.data.pipeline``):
+token streams for LM training and labelled images for CNN training.
 
-The reference's generator is numpy only, and so is this copy: the same
+The reference's generators are numpy only, and so is this copy: the same
 config and step give bit-identical batches in both packages.  Each batch
 is derived from ``(seed, step)`` alone — no state, perfectly resumable.
 Callers move the numpy arrays to their device.
@@ -10,9 +10,50 @@ Callers move the numpy arrays to their device.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Iterator
 
 import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenDatasetConfig:
+    vocab: int
+    seq_len: int
+    batch: int
+    seed: int = 0
+    n_gram: int = 3         # learnable structure order
+    noise_p: float = 0.15   # fraction of positions replaced by noise
+
+
+class TokenDataset:
+    """Synthetic Markov-style token stream: next token is a deterministic
+    function of the previous ``n_gram`` tokens, corrupted with noise."""
+
+    def __init__(self, cfg: TokenDatasetConfig):
+        self.cfg = cfg
+        rng = np.random.default_rng(cfg.seed)
+        # deterministic transition: hash of context -> next token
+        self._mix = rng.integers(1, cfg.vocab, size=cfg.n_gram, dtype=np.int64)
+
+    def batch_at(self, step: int) -> Dict[str, np.ndarray]:
+        cfg = self.cfg
+        rng = np.random.default_rng((cfg.seed, step))
+        B, S, V = cfg.batch, cfg.seq_len, cfg.vocab
+        toks = np.empty((B, S + 1), dtype=np.int64)
+        toks[:, :cfg.n_gram] = rng.integers(0, V, size=(B, cfg.n_gram))
+        for t in range(cfg.n_gram, S + 1):
+            ctx = toks[:, t - cfg.n_gram:t]
+            toks[:, t] = (ctx * self._mix).sum(axis=1) % V
+        noise = rng.random((B, S + 1)) < cfg.noise_p
+        toks = np.where(noise, rng.integers(0, V, size=(B, S + 1)), toks)
+        return {"tokens": toks[:, :-1].astype(np.int32),
+                "labels": toks[:, 1:].astype(np.int32)}
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        step = 0
+        while True:
+            yield self.batch_at(step)
+            step += 1
 
 
 @dataclasses.dataclass(frozen=True)

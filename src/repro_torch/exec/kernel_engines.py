@@ -1,5 +1,19 @@
 """Kernel-backed engines — counterpart of ``repro.exec.pallas_engines``.
 
+CNN: ``overlap_cuda``.  Sequence: ``seq_swa_cuda`` (sliding-window
+attention through the ``swa_attention`` kernel; the window IS the OverL
+halo) and ``seq_ssd_cuda`` (the Mamba2 SSD recurrence through the
+``ssd_scan`` kernel).  Both sequence engines have the reference's two
+forms: given the LM form ``(params, cfg)`` they return the plan-driven
+stack apply (the local attention layers pull ``seq_swa_cuda``'s op back
+out through :func:`repro_torch.models.lm.rowexec.swa_kernel`), otherwise
+the op-level apply.  The kernels are forward-only; each op is a
+``torch.autograd.Function`` whose backward recomputes the dense oracle
+(``kernels/ref.py``) under ``torch.enable_grad()`` and returns its
+gradient, as the reference's ``custom_vjp`` returns the lax VJP of its
+oracle.  A spec on the plain backend (a kernel fallback) runs the oracle
+forward as well.
+
 ``overlap_cuda`` runs every conv layer whose halo precondition holds
 (:func:`~repro_torch.kernels.conv2d_rows.halo_ok`, the reference's
 eligibility rule) through the hand-written ``conv2d_rows`` CUDA kernel,
@@ -26,6 +40,7 @@ import torch
 from repro_torch.exec.plan import ExecutionPlan, KernelSpec
 from repro_torch.exec.registry import register_engine
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import ssd_scan_ref, swa_attention_ref
 from repro_torch.kernels.conv2d_rows import halo_ok, smem_bytes
 from repro_torch.models.cnn.layers import Conv
 
@@ -116,5 +131,104 @@ def _build_overlap_cuda(modules, plan: ExecutionPlan):
         for fn, p in zip(fns, params):
             x = fn(p, x)
         return x
+
+    return apply
+
+
+# ---------------------------------------------------------------------------
+# Sequence-axis engines
+# ---------------------------------------------------------------------------
+
+
+def _oracle_grads(fn, saved, g):
+    """The gradient of ``fn(*saved)`` against ``g``, recomputed."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in saved]
+        return torch.autograd.grad(fn(*ins), ins, g)
+
+
+def _swa_ref_bshd(window: int):
+    def fn(q, k, v):
+        out = swa_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), window)
+        return out.transpose(1, 2)
+    return fn
+
+
+class _SwaOp(torch.autograd.Function):
+    """(B, S, H, D) sliding-window attention: forward through
+    ``ops.swa_attention`` (the CUDA kernel on the card) on ``(B, H, S,
+    D)`` views, backward through the dense oracle's gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: int, spec: KernelSpec):
+        ctx.window = window
+        ctx.save_for_backward(q, k, v)
+        if spec.backend != "cuda":
+            return _swa_ref_bshd(window)(q, k, v)
+        out = ops.swa_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), window, spec.bq, spec.bk)
+        return out.transpose(1, 2)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = _oracle_grads(_swa_ref_bshd(ctx.window), ctx.saved_tensors,
+                              g)
+        return (*grads, None, None)
+
+
+def _ssd_ref_y(x, B, C, a, dt):
+    return ssd_scan_ref(x, B, C, a, dt)[0]
+
+
+class _SsdOp(torch.autograd.Function):
+    """The SSD recurrence's ``y``: forward through ``ops.ssd_scan``,
+    backward through the sequential oracle's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, B, C, a, dt, spec: KernelSpec):
+        ctx.save_for_backward(x, B, C, a, dt)
+        if spec.backend != "cuda":
+            return _ssd_ref_y(x, B, C, a, dt)
+        return ops.ssd_scan(*(t.contiguous() for t in (x, B, C, a, dt)))
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*_oracle_grads(_ssd_ref_y, ctx.saved_tensors, g), None)
+
+
+@register_engine("seq_swa_cuda", kind="seq",
+                 doc="OverL along the sequence inside the swa_attention "
+                     "CUDA kernel: the window IS the halo (plan.kernel "
+                     "carries bq / bk; op layout (B, S, H, D) as for "
+                     "seq_swa_overlap)")
+def _build_seq_swa_cuda(modules, plan: ExecutionPlan):
+    window = int(plan.get("window", 0))
+    if window <= 0:
+        raise ValueError("seq_swa_cuda plan needs a 'window' extra")
+    from repro_torch.exec.engines import _seq_modules
+    lm = _seq_modules(modules, plan)
+    if lm is not None:
+        return lm
+    spec = plan_kernel(plan)
+
+    def apply(q, k, v):
+        return _SwaOp.apply(q, k, v, window, spec)
+
+    return apply
+
+
+@register_engine("seq_ssd_cuda", kind="seq",
+                 doc="2PS along the sequence inside the ssd_scan CUDA "
+                     "kernel: the carried state stays in registers")
+def _build_seq_ssd_cuda(modules, plan: ExecutionPlan):
+    from repro_torch.exec.engines import _seq_modules
+    lm = _seq_modules(modules, plan)
+    if lm is not None:
+        return lm
+    spec = plan_kernel(plan)
+
+    def apply(x, B, C, a, dt):
+        return _SsdOp.apply(x, B, C, a, dt, spec)
 
     return apply

@@ -6,7 +6,9 @@ plain data, JSON round-trippable and hashable.
 
 Names differ from the reference in one place: kernel backends are
 ``"plain"`` (the reference's ``"lax"``) and ``"cuda"`` (``"pallas"``), and
-the kernel-backed CNN engine is ``overlap_cuda`` (``overlap_pallas``).
+the kernel-backed engines are ``overlap_cuda``, ``seq_swa_cuda`` and
+``seq_ssd_cuda`` (``overlap_pallas``, ``seq_swa_pallas``,
+``seq_ssd_pallas``).
 :data:`REFERENCE_NAMES` is the one mapping; ``from_dict`` applies it, so a
 plan JSON written by the reference loads here.  The reference's
 ``KernelSpec.interpret`` has no role in the port (where a tensor lies picks
@@ -26,7 +28,9 @@ from typing import Any, Optional, Tuple
 
 #: reference name -> port name, for backends and engines
 REFERENCE_NAMES = {"lax": "plain", "pallas": "cuda",
-                   "overlap_pallas": "overlap_cuda"}
+                   "overlap_pallas": "overlap_cuda",
+                   "seq_swa_pallas": "seq_swa_cuda",
+                   "seq_ssd_pallas": "seq_ssd_cuda"}
 
 KERNEL_BACKENDS = ("plain", "cuda")
 
@@ -116,8 +120,9 @@ def batch_shards(mesh: Optional[MeshSpec], batch: int) -> int:
 class KernelSpec:
     """Kernel-execution policy: ``backend`` ``"plain"`` (the reference
     engines) or ``"cuda"`` (the kernel-backed engines), plus per-kernel
-    tiles (``block_h`` for ``conv2d_rows``; ``bq``/``bk``/``chunk`` are
-    carried for the kernels not ported yet)."""
+    tiles (``block_h`` for ``conv2d_rows``, ``bq``/``bk`` for
+    ``swa_attention``; ``chunk`` is carried so reference plans load — the
+    CUDA ``ssd_scan`` takes no chunk)."""
 
     backend: str = "plain"
     block_h: int = 8

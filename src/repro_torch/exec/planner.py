@@ -1,19 +1,22 @@
-"""The Planner, CNN part: Eqs. 7-16 as a policy solver producing
-ExecutionPlans (counterpart of ``repro.exec.planner``).
+"""The Planner: Eqs. 7-16 as a policy solver producing ExecutionPlans
+(counterpart of ``repro.exec.planner``).
 
-Ported: estimates for ``base``, ``overlap`` and ``twophase``, explicit
+Ported: CNN estimates for ``base``, ``overlap`` and ``twophase``, explicit
 (engine, N) plans, ``solve`` for those three engines, ``resolve`` of a
-:class:`PlanRequest`, and the kernel pass (:func:`kernelize_plan`) that
-swaps an engine for its CUDA-backed alternate when the kernel can run the
-trunk's layers.  The kernel pass prices what the CUDA kernel needs: one
-CTA's shared memory per conv layer against Hopper's 227 KiB, and fp32
-(:func:`repro_torch.kernels.conv2d_rows.launch_problem`) — where the
+:class:`PlanRequest`; the sequence side (``seq_estimate``,
+``for_budget_seq``, ``for_model``: Eq. 7 along the token axis); and the
+kernel pass (:func:`kernelize_plan`) that swaps an engine for its
+CUDA-backed alternate when the kernel can run it.  The kernel pass prices
+what each CUDA kernel needs — one CTA's shared memory against Hopper's
+227 KiB and the types it takes
+(:func:`repro_torch.kernels.conv2d_rows.launch_problem`,
+:func:`repro_torch.kernels.swa_attention.launch_problem`) — where the
 reference priced a VMEM row block against 16 MiB and MXU alignment.
 
 Not ported yet, and raising :class:`NotImplementedError` with what they
 wait for: ``for_budget`` (engine auto-selection), the hybrid engines'
 estimates and solves, ``residencize``, ``stagedize``, the costed chooser,
-the tile autotuner and the sequence/serving planners.
+the tile autotuner and the serving planner.
 """
 
 from __future__ import annotations
@@ -24,8 +27,10 @@ from typing import Optional, Sequence, Tuple
 from repro_torch.core import rowplan as _rp
 from repro_torch.exec.plan import (
     ExecutionPlan, KernelSpec, MeshSpec, PlanRequest, ResidencySpec,
+    batch_shards,
 )
 from repro_torch.exec.registry import not_ported_message
+from repro_torch.kernels import swa_attention as _swa
 from repro_torch.kernels.conv2d_rows import SMEM_LIMIT, launch_problem
 from repro_torch.kernels.ops import candidate_tiles
 
@@ -36,8 +41,9 @@ PORTED_ESTIMATES = ("base", "overlap", "twophase")
 #: plain engine -> its CUDA-backed alternate with the same call signature
 #: (base and overlap both map to overlap_cuda: the kernel's row tiling is
 #: internal, so its full-tensor apply is a drop-in for either)
-CUDA_ALTERNATE = {"base": "overlap_cuda", "overlap": "overlap_cuda"}
-CUDA_ENGINES = ("overlap_cuda",)
+CUDA_ALTERNATE = {"base": "overlap_cuda", "overlap": "overlap_cuda",
+                  "seq_swa_overlap": "seq_swa_cuda"}
+CUDA_ENGINES = ("overlap_cuda", "seq_swa_cuda", "seq_ssd_cuda")
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -55,7 +61,12 @@ def _cuda_infeasible(target: str, plan: ExecutionPlan, spec: KernelSpec,
     """``(reason, pricing)``: why ``target`` cannot run ``spec``'s tiling
     ("" when it can) plus the pricing extras to record on the plan.  A
     conv layer counts when the halo precondition holds; every counted
-    layer must then pass the kernel's launch limits."""
+    layer must then pass the kernel's launch limits.  ``seq_swa_cuda`` is
+    priced against the plan's ``seq`` extra (required: the kernel raises on
+    a tiling that does not divide it) and its ``head_dim`` extra;
+    ``seq_ssd_cuda`` has no tiles and needs fp32."""
+    if target in ("seq_swa_cuda", "seq_ssd_cuda"):
+        return _seq_infeasible(target, plan, spec, smem_limit)
     if target != "overlap_cuda":
         return f"engine {plan.engine!r} has no cuda alternate", {}
     if plan.in_shape is None:
@@ -80,9 +91,39 @@ def _cuda_infeasible(target: str, plan: ExecutionPlan, spec: KernelSpec,
     return "", {"kernel_smem_bytes": worst, "kernel_layers": n_ok}
 
 
+def _seq_infeasible(target: str, plan: ExecutionPlan, spec: KernelSpec,
+                    smem_limit: int) -> Tuple[str, dict]:
+    if target == "seq_ssd_cuda":
+        if plan.dtype_bytes != 4:
+            return (f"the CUDA ssd_scan kernel is fp32-only (dtype_bytes="
+                    f"{plan.dtype_bytes})"), {}
+        return "", {}
+    seq = int(plan.get("seq", 0))
+    if not seq:
+        return (f"plan has no 'seq' extra to validate {target!r} tiling "
+                f"against"), {}
+    try:
+        bq, bk, _, _ = _swa.tiles(seq, 0, spec.bq, spec.bk)
+    except ValueError as e:
+        return str(e), {}
+    d = int(plan.get("head_dim", 0))
+    if not d:
+        return "", {}
+    problem = _swa.launch_problem(bq, bk, d, plan.dtype_bytes, smem_limit)
+    if problem:
+        return problem, {}
+    return "", {"kernel_smem_bytes": _swa.smem_bytes(bq, bk, d,
+                                                     plan.dtype_bytes)}
+
+
 def _tile_candidates(target: str, plan: ExecutionPlan) -> tuple:
     """The deterministic tile search space for ``target`` against this
-    plan's geometry (``candidate_tiles``, as in the reference)."""
+    plan's geometry (``candidate_tiles``, as in the reference); the CUDA
+    ``ssd_scan`` has no tiles."""
+    if target == "seq_swa_cuda":
+        return candidate_tiles("swa", seq=int(plan.get("seq", 0)))
+    if target == "seq_ssd_cuda":
+        return ()
     h = plan.in_shape[0] if plan.in_shape else 0
     return candidate_tiles("conv", h_out=h)
 
@@ -146,6 +187,18 @@ def kernelize_plan(plan: ExecutionPlan, spec,
 # ---------------------------------------------------------------------------
 # The Planner
 # ---------------------------------------------------------------------------
+
+
+def _seq_extras(axis: int, seq: int, d_model: int, window: int,
+                head_dim: int) -> tuple:
+    """A sequence plan's extras: ``window`` for the SWA engines and
+    ``head_dim`` so that :func:`kernelize_plan` can price the kernel."""
+    extras = {"axis": axis, "seq": seq, "d_model": d_model}
+    if window:
+        extras["window"] = window
+    if head_dim:
+        extras["head_dim"] = head_dim
+    return tuple(extras.items())
 
 
 class Planner:
@@ -267,9 +320,88 @@ class Planner:
     def autotune_kernel(self, *args, **kwargs):
         raise _not_ported("Planner.autotune_kernel (timed tile search)")
 
+    # -- sequence-side planning (the LM transplant) -----------------------
+    @staticmethod
+    def seq_estimate(seq_len: int, d_model: int, batch: int, n_chunks: int,
+                     d_ff: int = 0, window: int = 0,
+                     dtype_bytes: int = 4) -> int:
+        """Eq. 7 along the token axis: residual stream (always live) + one
+        chunk's widest sub-layer working set (+ the SWA halo)."""
+        width = max(3 * d_model, 2 * (d_ff or 4 * d_model))
+        chunk_tokens = -(-seq_len // n_chunks) + window
+        stream = batch * seq_len * d_model * dtype_bytes
+        return stream + batch * chunk_tokens * width * dtype_bytes
+
     @classmethod
-    def for_model(cls, *args, **kwargs):
-        raise _not_ported("Planner.for_model (sequence-axis plans)")
+    def for_budget_seq(cls, seq_len: int, d_model: int, batch: int,
+                       budget: int, d_ff: int = 0,
+                       engine: str = "seq_chunked", window: int = 0,
+                       axis: int = 1, dtype_bytes: int = 4,
+                       n_max: int = 64, head_dim: int = 0,
+                       mesh: Optional[MeshSpec] = None,
+                       residency: Optional[ResidencySpec] = None
+                       ) -> ExecutionPlan:
+        """Smallest chunk count (dividing ``seq_len``) that fits ``budget``
+        (per device under a mesh); the infeasible plan at the largest
+        divisor otherwise.  ``residency`` rides along on the plan."""
+        shards = batch_shards(mesh, batch)
+        divisors = [n for n in range(1, min(n_max, seq_len) + 1)
+                    if seq_len % n == 0]
+        extras = _seq_extras(axis, seq_len, d_model, window, head_dim)
+        best = None
+        for n in divisors:
+            est = cls.seq_estimate(seq_len, d_model, batch // shards, n,
+                                   d_ff, window, dtype_bytes)
+            plan = ExecutionPlan(
+                engine=engine, n_rows=n, in_shape=None, batch=batch,
+                dtype_bytes=dtype_bytes, est_bytes=est * shards,
+                est_bytes_per_device=est, budget=budget,
+                feasible=(budget == 0 or est < budget // shards),
+                mesh=mesh, residency=residency, extras=extras)
+            if plan.feasible:
+                return plan
+            best = plan
+        return best
+
+    @classmethod
+    def for_model(cls, cfg, batch: int, seq_len: int, budget: int = 0,
+                  mesh: Optional[MeshSpec] = None,
+                  residency: Optional[ResidencySpec] = None,
+                  kernel=None) -> ExecutionPlan:
+        """Sequence plan for a :class:`~repro_torch.models.lm.config.
+        ModelConfig`: engine from the layer pattern, N from the budget (or
+        the config's ``row_chunks`` when unconstrained); ``kernel=`` (spec
+        or backend string) kernelizes the resolved plan, so the KernelSpec
+        lands on the one plan the train path executes."""
+        kinds = set(cfg.layer_kinds())
+        if kinds & {"mamba", "mlstm", "slstm"}:
+            engine, window = "seq_carry_scan", 0
+        elif "local" in kinds and cfg.sliding_window:
+            engine, window = "seq_swa_overlap", cfg.sliding_window
+        else:
+            engine, window = "seq_chunked", 0
+        head_dim = cfg.head_dim if window else 0
+        dtype_bytes = 2 if cfg.dtype == "bfloat16" else 4
+        if budget:
+            plan = cls.for_budget_seq(seq_len, cfg.d_model, batch, budget,
+                                      d_ff=cfg.d_ff, engine=engine,
+                                      window=window, dtype_bytes=dtype_bytes,
+                                      head_dim=head_dim, mesh=mesh,
+                                      residency=residency)
+        else:
+            shards = batch_shards(mesh, batch)
+            n = max(1, cfg.row_chunks)
+            est = cls.seq_estimate(seq_len, cfg.d_model, batch // shards, n,
+                                   cfg.d_ff, window, dtype_bytes)
+            plan = ExecutionPlan(
+                engine=engine, n_rows=n, in_shape=None, batch=batch,
+                dtype_bytes=dtype_bytes, est_bytes=est * shards,
+                est_bytes_per_device=est, mesh=mesh, residency=residency,
+                extras=_seq_extras(1, seq_len, cfg.d_model, window,
+                                   head_dim))
+        if kernel:
+            plan = kernelize_plan(plan, kernel)
+        return plan
 
     @classmethod
     def for_serve(cls, *args, **kwargs):

@@ -26,11 +26,8 @@ NOT_PORTED = {
     "twophase_h": "the 2PS executor (exec/rowprog.py) and core/hybrid.py",
     "pipeline_rows": "exec/pipeline.py",
     "pipeline_seq": "exec/pipeline.py",
-    "seq_chunked": "the sequence engines (core/seqrow.py)",
-    "seq_carry_scan": "the sequence engines (core/seqrow.py)",
-    "seq_swa_overlap": "the sequence engines (core/seqrow.py)",
-    "seq_swa_pallas": "the swa_attention kernel",
-    "seq_ssd_pallas": "the ssd_scan kernel",
+    "seq_carry_scan": "the SSM/xLSTM layers and core/seqrow.py's carried "
+                      "scans",
     "serve_pool": "the serving subsystem",
 }
 
@@ -38,7 +35,7 @@ NOT_PORTED = {
 @dataclasses.dataclass(frozen=True)
 class EngineSpec:
     name: str
-    kind: str           # "cnn" (modules = conv module list)
+    kind: str           # "cnn" (modules = conv module list) | "seq"
     build: Builder
     doc: str = ""
 
@@ -82,7 +79,8 @@ def list_engines(kind: Optional[str] = None) -> List[str]:
 
 def build_apply(modules, plan: ExecutionPlan) -> Callable:
     """Resolve ``plan.engine`` in the registry and build its apply fn
-    (``apply(params, x)`` for CNN engines).  Sharded plans and offloading
+    (``apply(params, x)`` for CNN engines; for seq engines given the LM
+    form ``(params, cfg)``, ``apply(params, batch) -> (loss, aux)``).  Sharded plans and offloading
     residencies are not ported yet and raise here."""
     spec = get_engine(plan.engine)
     if plan.mesh is not None and plan.mesh.n_devices > 1:

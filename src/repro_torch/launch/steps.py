@@ -1,0 +1,44 @@
+"""The LM train step (counterpart of ``repro.launch.steps``; the sharded
+step, prefill and serve steps wait for later slices).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.optim.adamw import (
+    AdamWConfig, adamw_update, tree_leaves, tree_map,
+)
+
+
+def make_train_step(cfg, opt_cfg: Optional[AdamWConfig] = None, plan=None):
+    """fwd + bwd + AdamW: ``step(state, batch) -> (state, metrics)`` with
+    ``state = {"params", "opt"}``.  With an
+    :class:`~repro_torch.exec.plan.ExecutionPlan` the loss is built through
+    ``build_apply((None, cfg), plan)``, so the plan's seq engine and kernel
+    backend run inside the step; without one the config's
+    ``remat``/``row_chunks`` apply directly.  Metrics stay tensors (read
+    them with ``float`` where the host needs them)."""
+    opt_cfg = opt_cfg or AdamWConfig()
+    if plan is not None:
+        from repro_torch.exec import build_apply
+        loss_apply = build_apply((None, cfg), plan)
+    else:
+        from repro_torch.models.lm.model import lm_loss
+        loss_apply = lambda p, b: lm_loss(p, b, cfg)  # noqa: E731
+
+    def train_step(state, batch):
+        p = tree_map(lambda t: t.detach().requires_grad_(), state["params"])
+        loss, aux = loss_apply(p, batch)
+        leaves = iter(torch.autograd.grad(loss, tree_leaves(p)))
+        grads = tree_map(lambda _: next(leaves), p)
+        del p
+        new_p, new_opt, om = adamw_update(state["params"], grads,
+                                          state["opt"], opt_cfg)
+        metrics = {"loss": loss.detach(),
+                   **{k: v.detach() for k, v in aux.items()}, **om}
+        return {"params": new_p, "opt": new_opt}, metrics
+
+    return train_step

@@ -1,19 +1,37 @@
-"""CNN trainer (counterpart of ``repro.launch.train``'s CNN path).
+"""Training driver (counterpart of ``repro.launch.train``).  Two modes:
+
+* CNN::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch vgg16 \\
         --preset full --strategy overlap --rows 4 --kernel cuda --steps 3
 
-resolves the request to an ExecutionPlan (config -> ``Planner.resolve`` ->
-kernel pass), builds the trunk through ``build_apply``, and takes SGD steps
-on the synthetic image data, printing ``plan: ...`` and the loss per step.
-``--kernel cuda`` swaps the engine for ``overlap_cuda``, whose convs run the
-hand-written CUDA kernel.  It runs on ``cuda`` unless ``--device cpu``.
+  resolves the request to an ExecutionPlan (config -> ``Planner.resolve``
+  -> kernel pass), builds the trunk through ``build_apply``, and takes SGD
+  steps on the synthetic image data.  ``--kernel cuda`` swaps the engine
+  for ``overlap_cuda``, whose convs run the hand-written CUDA kernel.
+* LM::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3_4b \\
+        --preset full --batch 1 --seq 4096 --kernel cuda --steps 3
+
+  ``--kernel`` plans the sequence axis (``Planner.for_model``): ``cuda``
+  kernelizes gemma's ``seq_swa_overlap`` plan to ``seq_swa_cuda``, whose
+  local attention layers run the hand-written ``swa_attention`` kernel;
+  ``plain`` keeps the halo chunk loop.  Without ``--kernel`` (or with
+  ``--row-chunks``) the config's own chunking applies.  Then AdamW steps
+  on ``TokenDataset`` batches.
+
+Both print ``plan: ...`` and the loss per step and write ``train_log.json``
+(schema-1 envelope) into ``--out``.  They run on ``cuda`` unless
+``--device cpu``.
 
 Differences from the reference: ``--batch`` defaults to the config's batch
-(32 for the full preset), ``--lr`` to the reference's CNN rate 0.05, and
-the kernel backends are named ``plain``/``cuda``.  ``--budget-gb``,
-``--mesh``, ``--residency``, ``--plan-cache``, ``--trace``,
-``--metrics-out`` and the LM archs are not ported yet and raise.
+for CNNs (32 for the full preset), ``--lr`` to 0.05 for CNNs and 3e-4 for
+LMs, and the kernel backends are named ``plain``/``cuda``.
+``--budget-gb``, ``--mesh``, ``--residency``, ``--plan-cache``,
+``--trace``, ``--metrics-out`` and the archs other than vgg16 and
+gemma3_4b are not ported yet and raise; ``--save`` (checkpoints) is not
+there yet.
 """
 
 from __future__ import annotations
@@ -25,25 +43,35 @@ import time
 
 import torch
 
-from repro_torch.data.pipeline import ImageDataset, ImageDatasetConfig
+from repro_torch.data.pipeline import (
+    ImageDataset, ImageDatasetConfig, TokenDataset, TokenDatasetConfig,
+)
 from repro_torch.obs.steplog import StepLog
 from repro_torch.optim.adamw import (
-    SGDConfig, sgd_init, sgd_update, tree_leaves, tree_map,
+    AdamWConfig, SGDConfig, adamw_init, sgd_init, sgd_update, tree_leaves,
+    tree_map,
 )
 
 #: flags of the reference trainer that wait for later slices of the port
 _NOT_PORTED_FLAGS = ("budget_gb", "mesh", "residency", "plan_cache", "trace",
                      "metrics_out")
+CNN_ARCHS = ("vgg16", "resnet50")
+#: the reference's CNN learning rate; LMs take AdamW's 3e-4
+CNN_LR, LM_LR = 0.05, 3e-4
+
+
+def _check_flags(args) -> None:
+    for name in _NOT_PORTED_FLAGS:
+        if getattr(args, name):
+            raise NotImplementedError(
+                f"--{name.replace('_', '-')} is not ported yet")
 
 
 def _check_ported(args) -> None:
     if args.arch != "vgg16":
         raise NotImplementedError(f"--arch {args.arch} is not ported yet; "
-                                  f"the port trains vgg16")
-    for name in _NOT_PORTED_FLAGS:
-        if getattr(args, name):
-            raise NotImplementedError(
-                f"--{name.replace('_', '-')} is not ported yet")
+                                  f"the port trains vgg16 and gemma3_4b")
+    _check_flags(args)
 
 
 def _device(name: str) -> torch.device:
@@ -98,7 +126,7 @@ def train_cnn(args, params=None):
         logp = torch.log_softmax(logits, dim=-1)
         return -logp.gather(1, labels[:, None]).mean()
 
-    opt_cfg = SGDConfig(lr=args.lr)
+    opt_cfg = SGDConfig(lr=CNN_LR if args.lr is None else args.lr)
     opt = sgd_init(params)
     ds = ImageDataset(ImageDatasetConfig(
         h=ccfg.image, w=ccfg.image, c=ccfg.channels,
@@ -124,6 +152,66 @@ def train_cnn(args, params=None):
     return steplog.records
 
 
+def train_lm(args, cfg=None, params=None):
+    """Train ``args.steps`` AdamW steps of a decoder-only LM; returns the
+    step records.  ``cfg`` (a ModelConfig) replaces the preset's and
+    ``params`` (a tree on the target device) the seeded init: the chip
+    smoke cuts the depth through the first, the parity tests pass the
+    reference's init through the second."""
+    _check_flags(args)
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.exec import Planner
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.lm.model import init_lm
+
+    device = _device(args.device)
+    # fp32 matmuls stay fp32 (bf16 activations are the config's choice)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if cfg is None:
+        cfg = get_reduced(args.arch) if args.preset == "reduced" \
+            else get_config(args.arch)
+    if args.row_chunks:
+        cfg = dataclasses.replace(cfg, row_chunks=args.row_chunks)
+    batch = args.batch or 8
+    plan = None
+    if args.kernel and not args.row_chunks:  # explicit --row-chunks wins
+        plan = Planner.for_model(cfg, batch, args.seq, kernel=args.kernel)
+        print("plan:", plan.describe(), flush=True)
+    if params is None:
+        params = init_lm(torch.Generator(device=device).manual_seed(
+            args.seed), cfg)
+    n_params = sum(l.numel() for l in tree_leaves(params))
+    row_chunks = plan.n_rows if plan is not None else cfg.row_chunks
+    print(f"arch={cfg.name} params={n_params / 1e6:.1f}M "
+          f"row_chunks={row_chunks} remat={cfg.remat} batch={batch} "
+          f"seq={args.seq} device={device}", flush=True)
+
+    opt_cfg = AdamWConfig(lr=LM_LR if args.lr is None else args.lr)
+    state = {"params": params, "opt": adamw_init(params)}
+    del params
+    step_fn = make_train_step(cfg, opt_cfg, plan=plan)
+    ds = TokenDataset(TokenDatasetConfig(vocab=cfg.vocab, seq_len=args.seq,
+                                         batch=batch, seed=args.seed))
+    os.makedirs(args.out, exist_ok=True)
+    steplog = StepLog()
+    t0 = time.time()
+    for step in range(args.steps):
+        hb = ds.batch_at(step)
+        data = {k: torch.from_numpy(hb[k]).long().to(device)
+                for k in ("tokens", "labels")}
+        state, metrics = step_fn(state, data)
+        if step % args.log_every == 0 or step == args.steps - 1:
+            rec = {k: float(v) for k, v in metrics.items()}
+            rec.update(step=step, elapsed_s=round(time.time() - t0, 3))
+            steplog.log(rec)
+    steplog.dump(os.path.join(args.out, "train_log.json"),
+                 arch=cfg.name, mode="lm",
+                 plan=plan.to_dict() if plan is not None else None,
+                 plan_audit=None)
+    return steplog.records
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True)
@@ -131,18 +219,25 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["reduced", "full"])
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=None,
-                    help="global batch (default: the config's)")
-    ap.add_argument("--lr", type=float, default=0.05)
+                    help="global batch (default: the CNN config's, 8 for "
+                         "LMs)")
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=None,
+                    help=f"default {CNN_LR} (CNN) or {LM_LR} (LM)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--strategy", default=None,
                     help="pin the engine: base | overlap (overlap_cuda via "
                          "--kernel cuda)")
     ap.add_argument("--rows", type=int, default=None,
                     help="pin the row granularity N")
+    ap.add_argument("--row-chunks", type=int, default=0,
+                    help="LM: the sequence chunk count (overrides the "
+                         "config's and skips the plan)")
     ap.add_argument("--kernel", default="", choices=["", "plain", "cuda"],
                     help="'cuda' swaps the resolved engine for its "
                          "CUDA-kernel alternate when the kernel can run "
-                         "the trunk, recording kernel_fallback otherwise")
+                         "it, recording kernel_fallback otherwise (LM: "
+                         "plans the sequence axis, then kernelizes)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--out", default="experiments/train")
@@ -152,8 +247,13 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None):
-    return train_cnn(build_parser().parse_args(argv))
+def main(argv=None, **kwargs):
+    """Parse ``argv`` and train; ``kwargs`` go to ``train_cnn`` or
+    ``train_lm`` (``params``, and ``cfg`` for an LM)."""
+    args = build_parser().parse_args(argv)
+    if args.arch in CNN_ARCHS:
+        return train_cnn(args, **kwargs)
+    return train_lm(args, **kwargs)
 
 
 if __name__ == "__main__":

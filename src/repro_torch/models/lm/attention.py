@@ -1,0 +1,131 @@
+"""GQA attention with RoPE, optional QKV bias, sliding-window masking and
+row-centric query chunking — the training forward (counterpart of
+``repro.models.lm.attention``; decode, prefill, KV caches, bidirectional
+and cross-attention wait for the serving slice).
+
+Row-centric notes: full causal attention has a *strong* dependency along
+the sequence, but its score matrix is still the dominant live activation
+in training, so the query axis is chunked with per-chunk recomputation —
+each chunk's (B, H, c, S) score block is built, consumed and released.
+Sliding-window ("local") layers have a genuinely weak dependency: a query
+chunk ``[a, a + c)`` reads only the replicated halo ``[a - window, a + c)``
+of K/V (OverL).  A plan that kernelized to ``seq_swa_cuda`` swaps that loop
+for the engine's op (the hand-written CUDA kernel on the card).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.models.lm import rowexec
+from repro_torch.models.lm.common import dense_init, rope, torch_dtype
+
+NEG_INF = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnDims:
+    d: int
+    n_heads: int
+    n_kv: int
+    head_dim: int
+    qkv_bias: bool = False
+    rope_theta: float = 10_000.0
+    window: int = 0  # 0 = full causal
+
+
+def init_attn(gen, dims: AttnDims, param_dtype, stack: int = 0):
+    d, H, KV, hd = dims.d, dims.n_heads, dims.n_kv, dims.head_dim
+    p = {
+        "wq": dense_init(gen, (d, H, hd), param_dtype, stack=stack),
+        "wk": dense_init(gen, (d, KV, hd), param_dtype, stack=stack),
+        "wv": dense_init(gen, (d, KV, hd), param_dtype, stack=stack),
+        "wo": dense_init(gen, (H, hd, d), param_dtype, stack=stack),
+    }
+    if dims.qkv_bias:
+        lead = (stack,) if stack else ()
+        for name, heads in (("bq", H), ("bk", KV), ("bv", KV)):
+            p[name] = torch.zeros(lead + (heads, hd), device=gen.device,
+                                  dtype=torch_dtype(param_dtype))
+    return p
+
+
+def _qkv(params, x, dims: AttnDims, positions):
+    dt = x.dtype
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(dt))
+    if dims.qkv_bias:
+        q = q + params["bq"].to(dt)
+        k = k + params["bk"].to(dt)
+        v = v + params["bv"].to(dt)
+    return (rope(q, positions, dims.rope_theta),
+            rope(k, positions, dims.rope_theta), v)
+
+
+def _scores_mask(q_pos, k_pos, window: int):
+    """(Sq, Sk) causal (+ window) mask of additive NEG_INF, fp32."""
+    ok = k_pos[None, :] <= q_pos[:, None]
+    if window > 0:
+        ok &= k_pos[None, :] > (q_pos[:, None] - window)
+    return torch.where(ok, 0.0, NEG_INF).float()
+
+
+def _attend(q, k, v, q_pos, k_pos, window: int, n_q_per_kv: int):
+    """q: (B,Sq,Hq,D), k/v: (B,Sk,KV,D) -> (B,Sq,Hq,D); causal."""
+    B, Sq, Hq, D = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, Sq, KV, n_q_per_kv, D)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
+                          k.float()) / math.sqrt(D)
+    scores = scores + _scores_mask(q_pos, k_pos, window)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
+    return out.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def _proj_out(params, attn_out):
+    dt = attn_out.dtype
+    return torch.einsum("bshk,hkd->bsd", attn_out, params["wo"].to(dt))
+
+
+def attn_train(params, x, dims: AttnDims, n_chunks: int = 1):
+    """Training forward over a full sequence, query-chunked.
+
+    Sliding-window layers consult the active plan
+    (:func:`repro_torch.models.lm.rowexec.swa_kernel`): a ``seq_swa_cuda``
+    plan swaps the halo chunk loop below for the engine's op (GQA handled
+    by repeating KV heads, value-identical); other plans keep the loop,
+    which IS the ``seq_swa_overlap`` row lowering.  Each chunk of the loop
+    runs under ``torch.utils.checkpoint``, as the reference wraps it in
+    ``jax.checkpoint``."""
+    B, S, _ = x.shape
+    k_pos = torch.arange(S, device=x.device)
+    positions = k_pos.expand(B, S)
+    q, k, v = _qkv(params, x, dims, positions)
+    g = dims.n_heads // dims.n_kv
+    kernel = rowexec.swa_kernel(dims.window) if dims.window > 0 else None
+    if kernel is not None:
+        kk = k.repeat_interleave(g, dim=2) if g > 1 else k
+        vv = v.repeat_interleave(g, dim=2) if g > 1 else v
+        out = kernel(q, kk, vv).to(q.dtype)
+    elif n_chunks <= 1 or S % n_chunks:
+        out = _attend(q, k, v, k_pos, k_pos, dims.window, g)
+    else:
+        c = S // n_chunks
+        outs = []
+        for i in range(n_chunks):
+            a = i * c
+            # OverL halo: only [a - window, a + c) keys can be attended;
+            # causal: keys [0, a + c)
+            lo = max(0, a - dims.window) if dims.window > 0 else 0
+            outs.append(checkpoint(
+                _attend, q[:, a:a + c], k[:, lo:a + c], v[:, lo:a + c],
+                k_pos[a:a + c], k_pos[lo:a + c], dims.window, g,
+                use_reentrant=False))
+        out = torch.cat(outs, dim=1)
+    return _proj_out(params, out)

@@ -1,0 +1,123 @@
+"""Top-level decoder-only LM: init and the training loss (counterpart of
+``repro.models.lm.model``; the dense family without a vision frontend —
+prefill, decode and the VLM projector wait for later slices).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.models.lm.blocks import init_stack, stack_train
+from repro_torch.models.lm.common import (
+    embed_apply, embed_init, init_rms, rms_norm, torch_dtype, unembed_apply,
+    unembed_init,
+)
+from repro_torch.models.lm.config import ModelConfig
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    if cfg.family != "dense" or cfg.frontend != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} with frontend "
+            f"{cfg.frontend!r} is not ported yet; the port runs dense "
+            f"decoder-only stacks")
+
+
+def init_lm(gen: torch.Generator, cfg: ModelConfig):
+    """Seeded init on ``gen``'s device (the reference's tree layout)."""
+    _check_ported(cfg)
+    params: Dict[str, Any] = {
+        "embed": embed_init(gen, cfg.vocab, cfg.d_model, cfg.param_dtype),
+        "stack": init_stack(gen, cfg),
+        "final_norm": {"scale": init_rms(cfg.d_model, cfg.param_dtype,
+                                         gen)},
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = unembed_init(gen, cfg.d_model, cfg.vocab,
+                                         cfg.param_dtype)
+    return params
+
+
+def params_from_reference(tree, device="cuda"):
+    """A parameter tree of the JAX package (``init_lm``'s, as numpy
+    arrays) as torch tensors on ``device``: dicts, lists and tuples keep
+    their shape and ``None`` stays ``None``, so leaves line up one for
+    one."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: params_from_reference(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_reference(v, device) for v in tree)
+    return torch.from_numpy(np.array(tree, copy=True)).to(device)
+
+
+def _embed_inputs(params, batch, cfg: ModelConfig, dtype):
+    return embed_apply(params["embed"], batch["tokens"].long(), dtype)
+
+
+def _logits(params, x, cfg: ModelConfig, dtype):
+    x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    if cfg.tie_embeddings:
+        return x.to(dtype) @ params["embed"]["table"].to(dtype).T
+    return unembed_apply(params["unembed"], x, dtype)
+
+
+def lm_forward(params, batch, cfg: ModelConfig):
+    _check_ported(cfg)
+    dtype = torch_dtype(cfg.dtype)
+    x = _embed_inputs(params, batch, cfg, dtype)
+    x, aux = stack_train(params["stack"], x, cfg)
+    return _logits(params, x, cfg, dtype), aux
+
+
+def softmax_xent(logits, labels):
+    """CE in fp32 on (possibly bf16) logits: logsumexp minus the label's
+    logit, labels < 0 ignored.  Returns (sum_nll, n_valid).  The reference
+    picks the label's logit with a one-hot contraction (sharding-friendly);
+    a gather gives the same value without a (B, S, V) one-hot."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    picked = lf.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return torch.sum((lse - picked) * mask), torch.sum(mask)
+
+
+def chunked_xent(x, labels, logits_fn, n_chunks: int):
+    """Row-centric loss: the (B, S, V) logits are never whole — per
+    sequence chunk, under ``torch.utils.checkpoint``: project, CE, release
+    (Eq. 7 applied to the classifier head, the single largest activation in
+    LM training)."""
+    S = labels.shape[1]
+    if n_chunks <= 1 or S % n_chunks:
+        return softmax_xent(logits_fn(x), labels)
+    c = S // n_chunks
+    tot = torch.zeros((), device=x.device)
+    cnt = torch.zeros((), device=x.device)
+    for i in range(n_chunks):
+        t, n = checkpoint(lambda xc, lc: softmax_xent(logits_fn(xc), lc),
+                          x[:, i * c:(i + 1) * c],
+                          labels[:, i * c:(i + 1) * c], use_reentrant=False)
+        tot = tot + t
+        cnt = cnt + n
+    return tot, cnt
+
+
+def lm_loss(params, batch, cfg: ModelConfig,
+            lb_coeff: float = 0.01, z_coeff: float = 1e-3):
+    """Next-token CE (labels = batch["labels"], -1 = ignore) + MoE aux
+    (zero for the dense family)."""
+    _check_ported(cfg)
+    dtype = torch_dtype(cfg.dtype)
+    x = _embed_inputs(params, batch, cfg, dtype)
+    x, aux = stack_train(params["stack"], x, cfg)
+    nc = cfg.row_chunks if cfg.remat in ("rows", "block_rows") else 1
+    tot, cnt = chunked_xent(x, batch["labels"],
+                            lambda xc: _logits(params, xc, cfg, dtype), nc)
+    ce = tot / torch.clamp(cnt, min=1.0)
+    loss = ce + lb_coeff * aux["load_balance"] + z_coeff * aux["z_loss"]
+    return loss, {"ce": ce, **aux}

@@ -1,0 +1,95 @@
+"""Plan-aware execution seam for the LM layer stack (counterpart of
+``repro.models.lm.rowexec``).
+
+``build_apply((params, cfg), plan)`` resolves the plan's seq engine, whose
+builder delegates back here (:func:`build_lm_apply`): the stack's row
+structure lives inside the layers (the sliding-window halo loop, the
+chunked MLP and classifier head), so the layers consult the *active plan*
+while they run.  :func:`swa_kernel` is that hook for local attention: it
+hands back the ``seq_swa_cuda`` engine's op when the kernelized plan
+selected it.  ``scan_rows`` (the carried chunk scans) waits for the
+SSM/xLSTM slice.
+
+The active plan is plain Python state, set by :func:`use_plan` around a
+forward.  PyTorch recomputes checkpointed regions during backward, outside
+that block, so a region whose body consults the plan must re-enter it
+(``models/lm/blocks.py`` does for block-level recomputation).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Optional
+
+_ACTIVE_PLAN = None
+
+
+@contextlib.contextmanager
+def use_plan(plan):
+    """Activate ``plan`` for the layer-stack hooks."""
+    global _ACTIVE_PLAN
+    prev = _ACTIVE_PLAN
+    _ACTIVE_PLAN = plan
+    try:
+        yield
+    finally:
+        _ACTIVE_PLAN = prev
+
+
+def current_plan():
+    return _ACTIVE_PLAN
+
+
+def lm_config(modules):
+    """The ModelConfig when ``modules`` is the LM form ``(params, cfg)``
+    that ``build_apply`` receives from the train path; None otherwise."""
+    from repro_torch.models.lm.config import ModelConfig
+    if isinstance(modules, tuple) and len(modules) == 2 \
+            and isinstance(modules[1], ModelConfig):
+        return modules[1]
+    return None
+
+
+def plan_cfg(cfg, plan):
+    """cfg with the plan's chunk count as ``row_chunks`` under a rows-remat
+    policy, so the planned step chunks the MLP / attention / classifier
+    head axes as the reference's does."""
+    remat = {"none": "rows", "block": "block_rows"}.get(cfg.remat, cfg.remat)
+    return dataclasses.replace(cfg, row_chunks=max(1, plan.n_rows),
+                               remat=remat)
+
+
+def build_lm_apply(cfg, plan):
+    """``apply(params, batch) -> (loss, aux)``: the family loss with the
+    plan active for the layer-stack hooks."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"the {cfg.family!r} LM family is not ported yet; the port runs "
+            f"dense local/global attention stacks")
+    from repro_torch.models.lm.model import lm_loss
+    run_cfg = plan_cfg(cfg, plan)
+
+    def apply(params, batch):
+        with use_plan(plan):
+            return lm_loss(params, batch, run_cfg)
+
+    return apply
+
+
+def swa_kernel(window: int) -> Optional[object]:
+    """The plan's sliding-window attention op, or None.
+
+    Returns the op-level ``apply(q, k, v)`` of the ``seq_swa_cuda`` engine
+    — (B, S, H, D) layout, backward through the dense oracle's gradient —
+    when the active plan kernelized to it and its window matches this
+    layer's.  None (plain plans, kernel fallbacks, window mismatch) keeps
+    the model's halo chunk loop, which IS the ``seq_swa_overlap`` row
+    lowering."""
+    plan = _ACTIVE_PLAN
+    if plan is None or plan.engine != "seq_swa_cuda" or window <= 0:
+        return None
+    if int(plan.get("window", 0)) != int(window):
+        return None
+    from repro_torch.exec.registry import get_engine
+    return get_engine("seq_swa_cuda").build(None, plan)

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel and kernel engine on the card.
+"""The port's CUDA kernels and kernel engines on the card.
 
 Every test here needs a CUDA device (marker ``requires_cuda``) and skips
 without one.  The file imports neither JAX nor the JAX package, so it runs
@@ -10,7 +10,9 @@ on a machine that has only PyTorch:
 (``--noconftest``: tests/conftest.py imports JAX.)  The kernel is held
 against its plain version at 1e-4 of the output's largest magnitude (fp32
 sums in another order); the kernel engine's loss and gradients against the
-``base`` engine at 1e-5 relative.
+``base`` engine at 1e-5 relative.  ``swa_attention`` is held against its
+plain version at the reference kernel tests' tolerances (fp32 2e-5, bf16
+2e-2, as ``allclose`` atol and rtol) and ``ssd_scan`` at atol 1e-3.
 """
 
 import numpy as np
@@ -105,3 +107,112 @@ def test_overlap_cuda_matches_base(cuda_device):
     assert abs(lb - lk) / abs(lb) < 1e-5
     for a, b in zip(gb, gk):
         assert float((a - b).abs().max()) <= 1e-5 * float(a.abs().max())
+
+
+#: (S, D, window, bq, bk): the kernel tests' shared SWA cases, then
+#: Gemma-3 4B's local layers (D 256, window 1024) at the plan's tiles
+SWA_CASES = [
+    (256, 64, 64, 64, 32),
+    (256, 64, 0, 128, 64),
+    (512, 32, 128, 128, 128),
+    (256, 64, 100, 64, 32),
+    (128, 128, 32, 32, 32),
+    (128, 64, 200, 64, 64),
+    (4096, 256, 1024, 128, 128),
+]
+#: (Bt, S, H, P, N): the kernel tests' shared SSD cases, then Zamba2-7B's
+#: Mamba2 widths (H 32, P 224, N 64)
+SSD_CASES = [
+    (2, 64, 4, 16, 8),
+    (1, 128, 2, 8, 4),
+    (2, 32, 4, 16, 8),
+    (1, 64, 8, 8, 16),
+    (1, 4096, 32, 224, 64),
+]
+
+
+def _swa_inputs(S, D, dtype, device, B=1, H=8, seed=0):
+    """(B, H, S, D) views of (B, S, H, D) tensors, the layout the LM path
+    hands the kernel."""
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.normal(size=(B, S, H, D)), dtype=torch.float32)
+            .to(device=device, dtype=dtype).transpose(1, 2)
+            for _ in range(3)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", SWA_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_swa_kernel_matches_plain(case, dtype, cuda_device):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.swa_attention import (
+        launch_problem, swa_attention_plain,
+    )
+    S, D, window, bq, bk = case
+    if launch_problem(min(bq, S), min(bk, S), D, dtype.itemsize):
+        bk = 64  # fp32 at D=256: the planner retiles the same way
+    q, k, v = _swa_inputs(S, D, dtype, cuda_device)
+    before = ops.swa_attention.launches
+    got = ops.swa_attention(q, k, v, window, bq, bk)
+    torch.cuda.synchronize()
+    assert ops.swa_attention.launches == before + 1
+    assert got.stride() == q.stride()
+    want = swa_attention_plain(q, k, v, window, bq, bk)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", SSD_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_ssd_kernel_matches_plain(case, cuda_device):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_chunk import ssd_scan_plain
+    Bt, S, H, P, N = case
+    rng = np.random.default_rng(1)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda_device)
+    x = t(rng.normal(size=(Bt, S, H, P)) * 0.5)
+    B = t(rng.normal(size=(Bt, S, N)) * 0.5)
+    C = t(rng.normal(size=(Bt, S, N)) * 0.5)
+    dt = torch.nn.functional.softplus(t(rng.normal(size=(Bt, S, H))))
+    a = torch.exp(-dt * torch.exp(t(rng.normal(size=(Bt, S, H)) * 0.1)))
+    before = ops.ssd_scan.launches
+    got = ops.ssd_scan(x, B, C, a, dt)
+    torch.cuda.synchronize()
+    assert ops.ssd_scan.launches == before + 1
+    want = ssd_scan_plain(x, B, C, a, dt)
+    assert float((got - want).abs().max()) <= 1e-3
+
+
+@pytest.mark.requires_cuda
+def test_new_kernels_raise_rather_than_fall_back(cuda_device):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_chunk, swa_attention
+    q, k, v = _swa_inputs(256, 64, torch.bfloat16, cuda_device)
+    with pytest.raises(ValueError, match="does not tile"):
+        ops.swa_attention(q, k, v, 64, bq=96, bk=32)   # S % bq != 0
+    with pytest.raises(ValueError, match="does not tile"):
+        ops.swa_attention(q, k, v, 64, bq=64, bk=128)  # bk > bq
+    with pytest.raises(TypeError):
+        ops.swa_attention(q.half(), k.half(), v.half(), 64)
+    meta = [torch.empty(1, 2, 64, 64, device="meta") for _ in range(3)]
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        ops.swa_attention(*meta, 16)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        swa_attention.swa_attention(*(t.cpu() for t in (q, k, v)),
+                                    window=64)
+    x = torch.zeros(1, 8, 2, 4, device=cuda_device)
+    bc = torch.zeros(1, 8, 4, device=cuda_device)
+    ad = torch.zeros(1, 8, 2, device=cuda_device)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        ops.ssd_scan(*(t.to("meta") for t in (x, bc, bc, ad, ad)))
+    with pytest.raises(TypeError, match="fp32"):
+        ops.ssd_scan(x.double(), bc, bc, ad, ad)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_chunk.ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3),
+                           bc, bc, ad, ad)
+    lib = swa_attention._lib()
+    assert lib.swa_attention_smem_bytes(128, 256, 2) \
+        == swa_attention.smem_bytes(128, 128, 256, 2)
+    assert ssd_chunk._lib().ssd_scan_group_lanes(64) \
+        == ssd_chunk.group_lanes(64)

@@ -1,0 +1,213 @@
+"""The port's dense LM stack against the JAX package, on the CPU.
+
+``get_reduced("gemma3_4b")`` (fp32, 3 layers: local, local, global;
+window 16), batch 2, seq 64, with the reference's ``init_lm`` parameters
+converted by ``params_from_reference``.  Primitives (``rms_norm``,
+``rope``, ``_attend``, ``attn_train`` for local and global layers,
+``mlp_apply``) are compared at 1e-5 relative; ``lm_loss`` and every
+parameter gradient against ``repro.models.lm.model.lm_loss`` under
+``jax.value_and_grad`` at 1e-5 relative for the loss and 1e-4 of each
+leaf's max |grad|.  Chunk counts 1, 2, 4 and 8 put the chunk (64 to 8
+tokens) above, at and below the 16-token window, and each runs three
+ways: the config's own chunking, the ``seq_swa_overlap`` plan (the halo
+loop) and the ``seq_swa_cuda`` plan (the kernel op, which takes its plain
+version on CPU tensors).  ``repro.exec`` does not import under JAX 0.9, so
+the reference side is the model code without a plan.
+"""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_reduced as ref_get_reduced
+from repro.models.lm import attention as ref_attn
+from repro.models.lm import common as ref_common
+from repro.models.lm import mlp as ref_mlp
+from repro.models.lm import model as ref_model
+from repro_torch.configs import get_reduced
+from repro_torch.exec import Planner, build_apply
+from repro_torch.kernels import ops
+from repro_torch.models.lm import attention, common, mlp, model
+from repro_torch.models.lm.blocks import attn_dims
+from repro_torch.optim.adamw import tree_leaves
+
+B, S = 2, 64
+CHUNKS = [1, 2, 4, 8]
+
+
+def _rel(want, got):
+    want, got = np.asarray(want), np.asarray(got)
+    assert want.shape == got.shape, (want.shape, got.shape)
+    return float(np.abs(want - got).max()) / max(
+        float(np.abs(want).max()), 1e-30)
+
+
+def _np(seed, *shape, scale=1.0):
+    return (np.random.default_rng(seed).normal(size=shape) * scale) \
+        .astype(np.float32)
+
+
+def test_config_is_the_references():
+    ref, cfg = ref_get_reduced("gemma3_4b"), get_reduced("gemma3_4b")
+    assert dataclasses.asdict(ref) == dataclasses.asdict(cfg)
+    assert cfg.layer_kinds() == ["local", "local", "global"]
+    assert cfg.scan_segments() == ref.scan_segments()
+
+
+def test_rms_norm_and_rope():
+    x = _np(0, B, S, 4, 64)
+    scale = _np(1, 64, scale=0.1)
+    assert _rel(ref_common.rms_norm(jnp.asarray(x), jnp.asarray(scale)),
+                common.rms_norm(torch.tensor(x), torch.tensor(scale))) < 1e-5
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S))
+    for theta in (10_000.0, 1_000_000.0):
+        assert _rel(ref_common.rope(jnp.asarray(x), jnp.asarray(pos), theta),
+                    common.rope(torch.tensor(x), torch.tensor(pos), theta)) \
+            < 1e-5
+
+
+@pytest.mark.parametrize("window", [0, 16, 100])
+def test_attend(window):
+    q, k, v = _np(2, B, S, 4, 64), _np(3, B, S, 2, 64), _np(4, B, S, 2, 64)
+    pos = np.arange(S, dtype=np.int32)
+    want = ref_attn._attend(*(jnp.asarray(a) for a in (q, k, v, pos, pos)),
+                            window, 2)
+    got = attention._attend(*(torch.tensor(a) for a in (q, k, v)),
+                            torch.arange(S), torch.arange(S), window, 2)
+    assert _rel(want, got) < 1e-5
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_params():
+    cfg = ref_get_reduced("gemma3_4b")
+    tree = ref_model.init_lm(jax.random.PRNGKey(0), cfg)
+    return jax.tree.map(np.asarray, tree)
+
+
+def _block_params(j):
+    """Layer j of the reduced config's one segment (pattern local, local,
+    global), as numpy."""
+    return jax.tree.map(lambda a: a[0], _ref_params()["stack"]["segments"][0][j])
+
+
+@pytest.mark.parametrize("n_chunks", CHUNKS)
+@pytest.mark.parametrize("kind,j", [("local", 0), ("global", 2)])
+def test_attn_train(kind, j, n_chunks):
+    cfg = get_reduced("gemma3_4b")
+    p = _block_params(j)["attn"]
+    x = _np(5, B, S, cfg.d_model, scale=0.5)
+    want = ref_attn.attn_train(jax.tree.map(jnp.asarray, p), jnp.asarray(x),
+                               ref_attn.AttnDims(**dataclasses.asdict(
+                                   attn_dims(cfg, kind))), n_chunks)
+    got = attention.attn_train(model.params_from_reference(p, "cpu"),
+                               torch.tensor(x), attn_dims(cfg, kind),
+                               n_chunks)
+    assert _rel(want, got.detach()) < 1e-5
+
+
+@pytest.mark.parametrize("n_chunks", [1, 4])
+def test_mlp_apply(n_chunks):
+    p = _block_params(1)["mlp"]
+    x = _np(6, B, S, 256, scale=0.5)
+    want = ref_mlp.mlp_apply(jax.tree.map(jnp.asarray, p), jnp.asarray(x),
+                             n_chunks)
+    got = mlp.mlp_apply(model.params_from_reference(p, "cpu"),
+                        torch.tensor(x), n_chunks)
+    assert _rel(want, got.detach()) < 1e-5
+
+
+def _batch():
+    rng = np.random.default_rng(7)
+    tokens = rng.integers(0, 512, size=(B, S)).astype(np.int32)
+    labels = rng.integers(0, 512, size=(B, S)).astype(np.int32)
+    labels[:, -3:] = -1  # ignored positions
+    return tokens, labels
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_loss_grads(row_chunks):
+    cfg = dataclasses.replace(ref_get_reduced("gemma3_4b"),
+                              row_chunks=row_chunks)
+    tokens, labels = _batch()
+    batch = {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)}
+    params = jax.tree.map(jnp.asarray, _ref_params())
+    (loss, aux), grads = jax.jit(jax.value_and_grad(
+        lambda p: ref_model.lm_loss(p, batch, cfg), has_aux=True))(params)
+    return float(loss), float(aux["ce"]), \
+        [np.asarray(g) for g in jax.tree.leaves(grads)]
+
+
+@pytest.mark.parametrize("mode", ["config", "seq_swa_overlap",
+                                  "seq_swa_cuda"])
+@pytest.mark.parametrize("row_chunks", CHUNKS)
+def test_lm_loss_and_grads(row_chunks, mode):
+    want_loss, want_ce, want_grads = _ref_loss_grads(row_chunks)
+    cfg = dataclasses.replace(get_reduced("gemma3_4b"),
+                              row_chunks=row_chunks)
+    if mode == "config":
+        loss_fn = lambda p, b: model.lm_loss(p, b, cfg)  # noqa: E731
+    else:
+        plan = Planner.for_model(
+            cfg, B, S, kernel="cuda" if mode == "seq_swa_cuda" else "plain")
+        assert plan.engine == mode and plan.n_rows == row_chunks
+        loss_fn = build_apply((None, cfg), plan)
+    params = model.params_from_reference(_ref_params(), "cpu")
+    leaves = tree_leaves(params)
+    assert len(leaves) == len(want_grads)
+    for t in leaves:
+        t.requires_grad_()
+    tokens, labels = _batch()
+    before = ops.swa_attention.launches
+    loss, aux = loss_fn(params, {"tokens": torch.tensor(tokens),
+                                 "labels": torch.tensor(labels)})
+    grads = torch.autograd.grad(loss, leaves)
+    assert ops.swa_attention.launches == before  # CPU tensors: no launch
+    assert abs(loss.item() - want_loss) / abs(want_loss) < 1e-5
+    assert abs(aux["ce"].item() - want_ce) / abs(want_ce) < 1e-5
+    for w, g in zip(want_grads, grads):
+        assert _rel(w, g) < 1e-4
+
+
+def test_params_tree_and_init_match_reference_layout():
+    cfg = get_reduced("gemma3_4b")
+    ours = model.init_lm(torch.Generator().manual_seed(0), cfg)
+    ref = _ref_params()
+    assert [tuple(t.shape) for t in tree_leaves(ours)] \
+        == [a.shape for a in jax.tree.leaves(ref)]
+    assert ours["stack"]["shared"] is None
+    assert sum(t.numel() for t in tree_leaves(ours)) \
+        == sum(a.size for a in jax.tree.leaves(ref))
+    # 1/sqrt(fan_in) scaling as the reference's dense_init
+    wq = ours["stack"]["segments"][0][0]["attn"]["wq"]
+    assert abs(float(wq.std()) - 256 ** -0.5) < 0.01
+
+
+def test_unported_families_raise():
+    import repro_torch.configs as C
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        C.get_reduced("zamba2_7b")
+    with pytest.raises(KeyError, match="unknown arch"):
+        C.get_config("nope")
+    cfg = dataclasses.replace(get_reduced("gemma3_4b"), family="moe")
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        model.init_lm(torch.Generator(), cfg)
+
+
+def test_seq_engine_forms():
+    from repro_torch.exec import ExecutionPlan
+    cfg = get_reduced("gemma3_4b")
+    for name in ("seq_chunked", "seq_swa_overlap"):
+        with pytest.raises(NotImplementedError, match="op-level form"):
+            build_apply(lambda x: x, ExecutionPlan.explicit(name, 2,
+                                                            window=16))
+    for name in ("seq_swa_overlap", "seq_swa_cuda"):
+        with pytest.raises(ValueError, match="'window' extra"):
+            build_apply((None, cfg), ExecutionPlan.explicit(name, 2))
+    moe = dataclasses.replace(cfg, family="moe")
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        build_apply((None, moe), ExecutionPlan.explicit("seq_chunked", 2))

@@ -4,7 +4,10 @@
 ``TransferToMemoryKind``, so the reference's ``exec/plan.py`` (which
 imports only ``dataclasses`` and ``json``) is loaded by file path, and the
 memory model is compared through ``repro.core.rowplan`` / ``twophase``.
-Integers must be equal.
+Integers must be equal.  For the same reason the sequence planner
+(``Planner.for_model``, ``seq_estimate``) is compared with constants
+computed here from the reference's Eq. 7 formula
+(``src/repro/exec/planner.py``, ``Planner.seq_estimate``).
 """
 
 import dataclasses
@@ -210,6 +213,122 @@ def test_unported_planning_raises():
         planner.resolve(PlanRequest(budget_gb=1.0))
     with pytest.raises(NotImplementedError, match="for_budget"):
         Planner.for_budget(None)
+    with pytest.raises(NotImplementedError, match="for_serve"):
+        Planner.for_serve(None)
     with pytest.raises(NotImplementedError, match="residency"):
         planner.resolve(PlanRequest(engine="overlap", n_rows=2,
                                     residency="host"))
+
+
+# ---------------------------------------------------------------------------
+# Sequence planning (Eq. 7 along the token axis) and the swa kernel pass
+# ---------------------------------------------------------------------------
+
+
+def _eq7(seq, d, d_ff, batch, n, window, db):
+    """The reference's seq_estimate: residual stream + one chunk's widest
+    sub-layer working set (+ the SWA halo)."""
+    width = max(3 * d, 2 * (d_ff or 4 * d))
+    return batch * seq * d * db + batch * (-(-seq // n) + window) * width * db
+
+
+def _gemma(preset, **kw):
+    from repro_torch.configs import get_config, get_reduced
+    cfg = get_reduced("gemma3_4b") if preset == "reduced" \
+        else get_config("gemma3_4b")
+    return dataclasses.replace(cfg, **kw)
+
+
+@pytest.mark.parametrize("preset,batch,seq,est,db", [
+    ("reduced", 2, 64, 524288, 4),
+    ("full", 1, 4096, 83886080, 2),
+])
+def test_for_model_gemma(preset, batch, seq, est, db):
+    cfg = _gemma(preset)
+    assert est == _eq7(seq, cfg.d_model, cfg.d_ff, batch, cfg.row_chunks,
+                       cfg.sliding_window, db)
+    plan = Planner.for_model(cfg, batch, seq)
+    assert plan.engine == "seq_swa_overlap"
+    assert (plan.n_rows, plan.est_bytes, plan.est_bytes_per_device,
+            plan.dtype_bytes, plan.batch) \
+        == (cfg.row_chunks, est, est, db, batch)
+    assert dict(plan.extras) == {"axis": 1, "seq": seq,
+                                 "d_model": cfg.d_model,
+                                 "window": cfg.sliding_window,
+                                 "head_dim": cfg.head_dim}
+    assert Planner.seq_estimate(seq, cfg.d_model, batch, cfg.row_chunks,
+                                cfg.d_ff, cfg.sliding_window, db) == est
+    # the depth cut the card runs changes no activation term of Eq. 7
+    assert Planner.for_model(dataclasses.replace(cfg, n_layers=12), batch,
+                             seq).est_bytes == est
+
+
+def test_for_model_kernel_pass():
+    full = _gemma("full", n_layers=12)
+    plan = Planner.for_model(full, 1, 4096, kernel="cuda")
+    assert plan.engine == "seq_swa_cuda"
+    assert plan.kernel == KernelSpec(backend="cuda")
+    assert plan.get("kernel_smem_bytes") == 164352
+    assert plan.get("kernel_fallback") is None
+    assert plan.get("kernel_retile") is None
+    plain = Planner.for_model(full, 1, 4096, kernel="plain")
+    assert plain.engine == "seq_swa_overlap"
+    assert plain.kernel.backend == "plain"
+    # fp32 at head_dim 256: the default 128/128 tiles overflow shared
+    # memory; a bare "cuda" retiles through candidate_tiles
+    f32 = Planner.for_model(_gemma("full", dtype="float32"), 1, 4096,
+                            kernel="cuda")
+    assert f32.engine == "seq_swa_cuda"
+    assert (f32.kernel.bq, f32.kernel.bk) == (256, 64)
+    assert "bk=64 bq=256" in f32.get("kernel_retile")
+    # a pinned spec never retiles: it falls back, saying why
+    pinned = Planner.for_model(_gemma("full", dtype="float32"), 1, 4096,
+                               kernel=KernelSpec(backend="cuda"))
+    assert pinned.engine == "seq_swa_overlap"
+    assert pinned.kernel.backend == "plain"
+    assert "shared memory" in pinned.get("kernel_fallback")
+    bad = kernelize_plan(Planner.for_model(_gemma("reduced"), 2, 96),
+                         KernelSpec(backend="cuda", bq=64, bk=64))
+    assert "does not tile" in bad.get("kernel_fallback")
+    # the reduced config: tiles clamp to seq 64
+    red = Planner.for_model(_gemma("reduced"), 2, 64, kernel="cuda")
+    assert red.engine == "seq_swa_cuda"
+    assert red.get("kernel_smem_bytes") == 41216
+
+
+def test_for_budget_seq_smallest_fitting_chunk_count():
+    cfg = _gemma("full")
+    ests = {n: _eq7(4096, cfg.d_model, cfg.d_ff, 1, n, 1024, 2)
+            for n in (1, 2, 4, 8, 16)}
+    plan = Planner.for_model(cfg, 1, 4096, budget=ests[4] + 1)
+    assert (plan.n_rows, plan.est_bytes, plan.feasible) == (4, ests[4], True)
+    tight = Planner.for_budget_seq(4096, cfg.d_model, 1, 1, d_ff=cfg.d_ff,
+                                   window=1024, dtype_bytes=2)
+    assert not tight.feasible and tight.n_rows == 64
+
+
+def test_seq_kernel_pass_for_ssd_and_unknown_engines():
+    ssd = ExecutionPlan.explicit("seq_ssd_cuda")
+    assert kernelize_plan(ssd, "cuda").engine == "seq_ssd_cuda"
+    half = dataclasses.replace(ssd, dtype_bytes=2)
+    assert "fp32-only" in kernelize_plan(half, "cuda").get("kernel_fallback")
+    chunked = ExecutionPlan.explicit("seq_chunked", 4, seq=64)
+    assert "no cuda alternate" in kernelize_plan(chunked, "cuda") \
+        .get("kernel_fallback")
+
+
+def test_reference_seq_plan_json_loads_as_cuda_engines():
+    R = _ref_plan_module()
+    for ref_engine, engine in (("seq_swa_pallas", "seq_swa_cuda"),
+                               ("seq_ssd_pallas", "seq_ssd_cuda")):
+        ref = R.ExecutionPlan(
+            engine=ref_engine, n_rows=8, batch=1, dtype_bytes=2,
+            est_bytes=83886080,
+            kernel=R.KernelSpec(backend="pallas", bq=64, bk=32,
+                                interpret=False),
+            extras=(("seq", 4096), ("window", 1024), ("head_dim", 256)))
+        got = ExecutionPlan.from_json(ref.to_json())
+        assert got.engine == engine
+        assert got.kernel == KernelSpec(backend="cuda", bq=64, bk=32)
+        assert (got.n_rows, got.est_bytes, got.extras) \
+            == (8, 83886080, ref.extras)
