@@ -11,8 +11,13 @@ the op-level apply.  The kernels are forward-only; each op is a
 ``torch.autograd.Function`` whose backward recomputes the dense oracle
 (``kernels/ref.py``) under ``torch.enable_grad()`` and returns its
 gradient, as the reference's ``custom_vjp`` returns the lax VJP of its
-oracle.  A spec on the plain backend (a kernel fallback) runs the oracle
-forward as well.
+oracle.
+
+Where the tensors lie decides kernel or plain version, whatever the spec's
+backend: a ``*_cuda`` engine launches its kernel on CUDA tensors (or the
+launch raises) and takes the plain version only for CPU tensors.  The
+planner's kernel fallback leaves a plain engine in place rather than
+swapping a ``*_cuda`` one in.
 
 ``overlap_cuda`` runs every conv layer whose halo precondition holds
 (:func:`~repro_torch.kernels.conv2d_rows.halo_ok`, the reference's
@@ -122,7 +127,7 @@ def _build_overlap_cuda(modules, plan: ExecutionPlan):
     spec = plan_kernel(plan)
     fns = []
     for m, _, out, eligible, _ in conv_tiles(modules, plan.in_shape, spec):
-        if spec.backend == "cuda" and eligible:
+        if eligible:
             fns.append(_kernel_conv(m, max(1, min(spec.block_h, out[0]))))
         else:
             fns.append(m.apply)
@@ -164,8 +169,6 @@ class _SwaOp(torch.autograd.Function):
     def forward(ctx, q, k, v, window: int, spec: KernelSpec):
         ctx.window = window
         ctx.save_for_backward(q, k, v)
-        if spec.backend != "cuda":
-            return _swa_ref_bshd(window)(q, k, v)
         out = ops.swa_attention(q.transpose(1, 2), k.transpose(1, 2),
                                 v.transpose(1, 2), window, spec.bq, spec.bk)
         return out.transpose(1, 2)
@@ -186,15 +189,13 @@ class _SsdOp(torch.autograd.Function):
     backward through the sequential oracle's gradient."""
 
     @staticmethod
-    def forward(ctx, x, B, C, a, dt, spec: KernelSpec):
+    def forward(ctx, x, B, C, a, dt):
         ctx.save_for_backward(x, B, C, a, dt)
-        if spec.backend != "cuda":
-            return _ssd_ref_y(x, B, C, a, dt)
         return ops.ssd_scan(*(t.contiguous() for t in (x, B, C, a, dt)))
 
     @staticmethod
     def backward(ctx, g):
-        return (*_oracle_grads(_ssd_ref_y, ctx.saved_tensors, g), None)
+        return _oracle_grads(_ssd_ref_y, ctx.saved_tensors, g)
 
 
 @register_engine("seq_swa_cuda", kind="seq",
@@ -226,9 +227,4 @@ def _build_seq_ssd_cuda(modules, plan: ExecutionPlan):
     lm = _seq_modules(modules, plan)
     if lm is not None:
         return lm
-    spec = plan_kernel(plan)
-
-    def apply(x, B, C, a, dt):
-        return _SsdOp.apply(x, B, C, a, dt, spec)
-
-    return apply
+    return _SsdOp.apply

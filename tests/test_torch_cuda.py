@@ -216,3 +216,43 @@ def test_new_kernels_raise_rather_than_fall_back(cuda_device):
         == swa_attention.smem_bytes(128, 128, 256, 2)
     assert ssd_chunk._lib().ssd_scan_group_lanes(64) \
         == ssd_chunk.group_lanes(64)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("engine", ["overlap_cuda", "seq_swa_cuda",
+                                    "seq_ssd_cuda"])
+def test_cuda_engine_on_plain_spec_still_launches(engine, cuda_device):
+    """A ``*_cuda`` plan carrying a plain-backend spec (as a reference plan
+    on the lax backend loads) launches its kernel on CUDA tensors: the
+    device decides, never the spec."""
+    from repro_torch.exec import ExecutionPlan, KernelSpec, build_apply
+    from repro_torch.kernels import ops
+    from repro_torch.models.cnn.vgg import init_vgg16
+    spec = KernelSpec(backend="plain")
+    if engine == "overlap_cuda":
+        shape = (32, 32, 3)
+        mods, params = init_vgg16(torch.Generator().manual_seed(0), shape,
+                                  0.25, 10, 3, device=cuda_device)
+        plan = ExecutionPlan.explicit(engine, 2, in_shape=shape, kernel=spec)
+        args = (params["trunk"], torch.randn((2,) + shape,
+                                             device=cuda_device))
+        counter, want = ops.conv2d, 7
+    elif engine == "seq_swa_cuda":
+        mods = None
+        plan = ExecutionPlan.explicit(engine, kernel=spec, window=64)
+        args = [t.transpose(1, 2) for t in
+                _swa_inputs(256, 64, torch.bfloat16, cuda_device)]
+        counter, want = ops.swa_attention, 1
+    else:
+        mods = None
+        plan = ExecutionPlan.explicit(engine, kernel=spec)
+        x = torch.randn(1, 64, 2, 8, device=cuda_device)
+        bc = torch.randn(1, 64, 4, device=cuda_device)
+        dt = torch.rand(1, 64, 2, device=cuda_device)
+        args = (x, bc, bc, torch.exp(-dt), dt)
+        counter, want = ops.ssd_scan, 1
+    before = counter.launches
+    out = build_apply(mods, plan)(*args)
+    torch.cuda.synchronize()
+    assert counter.launches == before + want
+    assert bool(torch.isfinite(out.float()).all())
