@@ -9,7 +9,9 @@ CUDA device is present, or when the port is not beside it.  Phases, each
 printing one line:
 
 1. env          torch/CUDA versions; TF32 off for convs and matmuls.
-2. build        compile every kernel from ``src/repro_torch/kernels/csrc``.
+2. build        compile every kernel from ``src/repro_torch/kernels/csrc``;
+                print each instantiation's ``ptxas`` registers and spills
+                and the kernels' dynamic shared memory per CTA.
 3. kernel       ``conv2d_rows`` against its plain version at the 9 distinct
                 VGG-16/224 conv shapes (batch 2 and the main path's batch
                 32) and the geometry cases of the repo's kernel tests;
@@ -191,15 +193,59 @@ def phase_env(torch, out):
           f"count {torch.cuda.device_count()} tf32 off", flush=True)
 
 
+def _ptxas_report(log):
+    """``[(kernel, registers, spill stores, spill loads)]`` from ``nvcc
+    -Xptxas -v`` output, kernel names demangled where c++filt exists."""
+    import re
+    rows, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spills = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), *spills))
+            name = None
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True, timeout=60,
+                               check=True).stdout.splitlines()
+        if len(names) == len(rows):
+            rows = [(n.replace("(anonymous namespace)::", ""), *r[1:])
+                    for n, r in zip(names, rows)]
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return rows
+
+
 def phase_build(torch, out):
     from repro_torch.kernels import build
     t0 = time.time()
     res = build.build_all()
     secs = time.time() - t0
+    ptxas = {}
     for name, r in res.items():
-        for line in r["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}", file=sys.stderr)
+        ptxas[name] = _ptxas_report(r["ptxas"])
+        for fn, regs, st, ld in ptxas[name]:
+            print(f"  ptxas {name}: {fn}: {regs} registers, spill stores "
+                  f"{st} B, spill loads {ld} B", flush=True)
+    out["ptxas"] = ptxas
+    from repro_torch.kernels import conv2d_rows as cr
+    from repro_torch.kernels import swa_attention as sw
+    print(f"  dynamic shared memory per CTA: conv2d_rows at VGG-16 block_h "
+          f"{BLOCK_H}: {cr.smem_bytes(BLOCK_H, 1, 3, 64)} B (Cout 64), "
+          f"{cr.smem_bytes(BLOCK_H, 1, 3, 512)} B (Cout >= 128); "
+          f"swa_attention at the Gemma shape: bf16 "
+          f"{sw.smem_bytes(128, 128, 256, 2)} B (bq=bk=128), fp32 "
+          f"{sw.smem_bytes(*SWA_GEMMA_FP32_TILES, 256, 4)} B "
+          f"(bq={SWA_GEMMA_FP32_TILES[0]} bk={SWA_GEMMA_FP32_TILES[1]})",
+          flush=True)
     print(f"build: {sorted(res)} in {secs:.3f}s "
           f"(fresh: {[n for n, r in res.items() if r['built']]})",
           flush=True)
@@ -257,7 +303,9 @@ def phase_kernel(torch, out):
             print(f"  kernel b={batch} {H}x{W} {cin}->{cout} x{mult}: "
                   f"ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
                   f"library_ms={t['library_ms']:.4f} "
-                  f"bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
+                  f"bound_ms={bound_ms:.4f} ({bound_by}) "
+                  f"kernel/library={t['ms'] / t['library_ms']:.3f} "
+                  f"bound/kernel={bound_ms / t['ms']:.3f}", flush=True)
             if batch == TRAIN_BATCH:
                 for key in totals:
                     totals[key] += mult * t[key]
@@ -275,7 +323,9 @@ def phase_kernel(torch, out):
           f"{worst_rel:.3e}); one batch-{TRAIN_BATCH} forward's 13 convs: "
           f"kernel {totals['ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms,"
           f" F.conv2d {totals['library_ms']:.3f} ms, bound "
-          f"{totals['bound_ms']:.3f} ms", flush=True)
+          f"{totals['bound_ms']:.3f} ms (kernel/F.conv2d "
+          f"{totals['ms'] / totals['library_ms']:.3f}, bound/kernel "
+          f"{totals['bound_ms'] / totals['ms']:.3f})", flush=True)
 
 
 def _train(torch, tmp, name, *flags, steps):
@@ -423,7 +473,9 @@ def phase_kernel_swa(torch, out):
           f"(max abs err {max_err:.3e}); at the Gemma shape: kernel "
           f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, SDPA+mask "
           f"{t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
-          f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)", flush=True)
+          f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); kernel at "
+          f"{100 * bound_ms / t['ms']:.2f} % of its bound, "
+          f"{t['library_ms'] / t['ms']:.3f}x SDPA+mask's speed", flush=True)
 
 
 def _ssd_inputs(torch, Bt, S, H, P, N, seed):

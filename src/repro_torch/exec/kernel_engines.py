@@ -75,7 +75,7 @@ def conv_tiles(modules: Sequence, in_shape: Tuple[int, int, int],
             eligible = h_out >= 1 and w_out >= 1 \
                 and halo_ok(m.k, m.s, spec.block_h, h_out)
             bh = max(1, min(spec.block_h, h_out))
-            smem = smem_bytes(bh, m.s, m.k)
+            smem = smem_bytes(bh, m.s, m.k, m.cout)
         else:
             eligible, smem = False, None
         yield m, shape, out, eligible, smem

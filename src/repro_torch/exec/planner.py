@@ -82,7 +82,8 @@ def _cuda_infeasible(target: str, plan: ExecutionPlan, spec: KernelSpec,
         n_ok += 1
         worst = max(worst, smem)
         bh = max(1, min(spec.block_h, out[0]))
-        problem = launch_problem(bh, m.s, m.k, plan.dtype_bytes, smem_limit)
+        problem = launch_problem(bh, m.s, m.k, m.cout, plan.dtype_bytes,
+                                 smem_limit)
         if problem:
             return problem, {}
     if not n_ok:

@@ -1,8 +1,15 @@
-"""Row-block direct convolution: the CUDA kernel and its plain version.
+"""Row-block convolution: the CUDA kernel and its plain version.
 
-Counterpart of ``repro.kernels.conv2d_rows`` (the Pallas TPU kernel).  The
-kernel itself is ``csrc/conv2d_rows.cu`` (hand-written CUDA C++ for
-``sm_90a``, fp32); its header says what bounds it and how it is tiled.
+Counterpart of ``repro.kernels.conv2d_rows`` (the Pallas TPU kernel,
+``_conv_kernel``).  The kernel itself is ``csrc/conv2d_rows.cu``,
+hand-written CUDA C++ for ``sm_90a`` in fp32.  It is bound by operations
+on the SIMT fp32 pipe (TF32 on the tensor cores would break the 1e-4
+parity), so its design keeps that pipe fed: an implicit GEMM over the
+row-centric tiling, one CTA per (``block_h`` rows x a column tile, 64 or
+128 output channels), 8 x 8 accumulators a thread fed by float4 reads of
+shared memory, and each Cin chunk's halo'd input window and weights
+streamed through a 2-stage ``cp.async`` ring that overlaps the copy of one
+chunk with the FMAs of the one before.  The source header has the details.
 This module holds:
 
 * :func:`conv2d_rows` — launches the kernel on CUDA tensors (and only on
@@ -28,9 +35,13 @@ import torch
 
 #: output pixels one CTA computes (block_h rows x tile_w columns)
 CTA_PIXELS = 128
-#: output channels per CTA, input channels per shared-memory chunk
-CTA_COUT = 64
-CIN_CHUNK = 8
+#: output channels per CTA: the wide tile, and the narrow one for Cout <= 64
+CTA_COUT = 128
+CTA_COUT_NARROW = 64
+#: input channels per shared-memory chunk (the narrow one only where the
+#: wide one overflows shared memory), and chunks in flight
+CIN_CHUNKS = (8, 4)
+STAGES = 2
 #: shared memory one CTA may use on Hopper (227 KiB)
 SMEM_LIMIT = 232448
 
@@ -54,17 +65,36 @@ def tile_w(block_h: int) -> int:
     return max(1, CTA_PIXELS // block_h)
 
 
-def smem_bytes(block_h: int, stride: int, k: int) -> int:
-    """Dynamic shared memory of one CTA: the halo'd input window of one
-    Cin chunk plus that chunk's weights (``conv2d_rows_smem_bytes`` in the
-    CUDA source computes the same)."""
+def cout_tile(cout: int) -> int:
+    """Output channels per CTA: the narrow tile when it covers ``cout``."""
+    return CTA_COUT_NARROW if cout <= CTA_COUT_NARROW else CTA_COUT
+
+
+def _smem(block_h: int, stride: int, k: int, co: int, cc: int) -> int:
     rows = (block_h - 1) * stride + k
     cols = (tile_w(block_h) - 1) * stride + k
-    return 4 * (rows * cols * CIN_CHUNK + k * k * CIN_CHUNK * CTA_COUT)
+    return 4 * (rows * cols + STAGES * (rows * cols * cc + k * k * cc * co))
 
 
-def launch_problem(block_h: int, stride: int, k: int, dtype_bytes: int = 4,
-                   smem_limit: int = SMEM_LIMIT) -> str:
+def cin_chunk(block_h: int, stride: int, k: int, cout: int) -> int:
+    """Input channels per chunk: 8 when that fits a CTA's 227 KiB, else 4
+    (the CUDA source picks the same, whatever limit the planner prices)."""
+    wide, narrow = CIN_CHUNKS
+    return wide if _smem(block_h, stride, k, cout_tile(cout), wide) \
+        <= SMEM_LIMIT else narrow
+
+
+def smem_bytes(block_h: int, stride: int, k: int, cout: int) -> int:
+    """Dynamic shared memory of one CTA: the halo'd window's offset table
+    plus ``STAGES`` x (the input window of one Cin chunk + that chunk's
+    weights) (``conv2d_rows_smem_bytes`` in the CUDA source computes the
+    same)."""
+    return _smem(block_h, stride, k, cout_tile(cout),
+                 cin_chunk(block_h, stride, k, cout))
+
+
+def launch_problem(block_h: int, stride: int, k: int, cout: int,
+                   dtype_bytes: int = 4, smem_limit: int = SMEM_LIMIT) -> str:
     """Why the kernel cannot run this geometry ("" when it can): it takes
     fp32 only, at most ``CTA_PIXELS`` rows per block, and one CTA's shared
     memory must fit ``smem_limit`` (Hopper's 227 KiB by default)."""
@@ -72,7 +102,7 @@ def launch_problem(block_h: int, stride: int, k: int, dtype_bytes: int = 4,
         return f"the CUDA conv kernel is fp32-only (dtype_bytes={dtype_bytes})"
     if not 1 <= block_h <= CTA_PIXELS:
         return f"block_h={block_h} outside 1..{CTA_PIXELS}"
-    smem = smem_bytes(block_h, stride, k)
+    smem = smem_bytes(block_h, stride, k, cout)
     if smem > smem_limit:
         return (f"CTA shared memory {smem} B exceeds the {smem_limit}-byte "
                 f"limit")
@@ -138,7 +168,7 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.conv2d_rows_launch.argtypes = [p, p, p] + [i] * 12 + [p]
         lib.conv2d_rows_launch.restype = i
-        lib.conv2d_rows_smem_bytes.argtypes = [i, i, i, i]
+        lib.conv2d_rows_smem_bytes.argtypes = [i, i, i, i, i]
         lib.conv2d_rows_smem_bytes.restype = ctypes.c_longlong
         lib.conv2d_rows_error_string.argtypes = [i]
         lib.conv2d_rows_error_string.restype = ctypes.c_char_p
@@ -159,7 +189,7 @@ def conv2d_rows(x, w, *, stride: int = 1, padding: int = 0,
                          f"conv2d_rows_plain")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("conv2d_rows needs contiguous NHWC x and HWIO w")
-    problem = launch_problem(bh, stride, k)
+    problem = launch_problem(bh, stride, k, w.shape[3])
     if problem:
         raise ValueError(problem)
     B, H, W, cin = x.shape

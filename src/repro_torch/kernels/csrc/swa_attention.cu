@@ -17,27 +17,43 @@
 // What bounds it on the card: operations.  Gemma-3 4B's local layers
 // (H = 8 after the GQA repeat, S = 4096, D = 256, window 1024) do
 // 4*H*D*sum_i min(i + 1, window) = 30.1 GFLOP per call on 67 MB of q, k, v
-// and o: ~450 FLOP/byte, above the bf16 ridge (~295).  This first version
-// does SIMT fp32 FMAs, not wgmma, so its ceiling is the fp32 pipe (67
-// TFLOP/s) and, below that, shared-memory bandwidth.
+// and o: ~450 FLOP/byte, above the bf16 ridge (~295), so the ceiling is the
+// tensor cores (989 TFLOP/s dense bf16).
 //
-// Design:
-// * One CTA per (q block, b*h), 8 warps.  A pass over the q block keeps 32
-//   query rows in flight, 4 per warp; each warp holds its rows' acc
-//   (4 x D/32 fp32 per lane: lane owns d = lane + 32t), m and l in registers.
-//   q rows are staged in shared memory in fp32, pre-scaled by 1/sqrt(D).
-// * Per key block visit the CTA loads the K and V tiles (bk x D, input type)
-//   into shared memory; K rows are padded by one 32-bit word so that lanes
-//   reading different keys at the same d hit different banks.
-// * Scores: lane owns keys j = lane + 32u (u < bk/32), 4 rows at once, so
-//   every K word feeds 4-8 FMAs.  Row max and sum are warp shuffles.  PV:
-//   each p_j is broadcast with a shuffle and V rows are read along d.
-// * Visits that no row of the current pass can attend to (all before the
-//   window, after the diagonal, or front padding) are skipped whole: they
-//   add nothing the reference keeps (its alpha = 0 wipes them).
-// Shared memory: 4 * (bk*(D/w + 1) + bk*D/w + 32*D) bytes with w elements per
-// 32-bit word (1 fp32, 2 bf16) — swa_attention_smem_bytes, priced by the
-// planner (repro_torch/kernels/swa_attention.py::smem_bytes).
+// bf16 (the LM path): a FlashAttention-2-style forward on the tensor cores.
+// * One CTA per (q block, b*h) with bq/16 warps (bq a multiple of 16 up to
+//   128); each warp owns 16 query rows.  The whole q block sits in shared
+//   memory; its fragments are re-read with ldmatrix at every stage, so the
+//   registers hold only O (16 x D fp32 per warp: D/2 per thread), m and l.
+// * Keys stream through shared memory in stages of kKeys = 64 rows, K and V
+//   in bf16, in a 2-stage cp.async ring (16-byte copies, zero-fill for the
+//   front padding) with one barrier per stage: the copy of stage t + 1 runs
+//   under the math of stage t.  Rows are XOR-swizzled in 16-byte chunks so
+//   that ldmatrix reads no bank twice.
+// * S = Q K^T and O += P V are mma.sync.m16n8k16 with bf16 inputs and fp32
+//   accumulation (V through ldmatrix.trans).  Scores are scaled in fp32
+//   (1/sqrt(D) = 1/16 at D = 256, exact); P goes to bf16 only as the A
+//   operand of P V, while l sums the fp32 p.
+// * The masks are positional, so the visits of the reference's index map
+//   compute the same function when cut into stages: the stages cover the
+//   keys [max(0, q0 - window + 1), q0 + bq) that some row of the block can
+//   see, aligned to end at the diagonal (bk only has to tile S).  A warp
+//   skips a stage none of its rows sees and masks only stages on its
+//   diagonal, its window edge or the front padding.
+// * Shared memory: 2 * D * (bq + 2 * 2 * kKeys) bytes, 196,608 at the
+//   Gemma tiles (bq = 128, D = 256): one CTA of 8 warps per SM.
+//
+// fp32: a SIMT kernel, the port's first design, kept.  A tensor-core fp32
+// product would be TF32, which rounds the inputs to 10 mantissa bits and
+// cannot hold the port's 2e-5 fp32 parity.  One CTA per (q block, b*h), 8 warps; a pass
+// keeps 32 query rows in flight, 4 per warp, each lane owning d = lane + 32t
+// of their fp32 acc; q rows are staged in fp32, pre-scaled; per key block
+// visit the CTA loads K (rows padded one word against bank conflicts) and V;
+// scores are lane-per-key FMAs, P V broadcasts each p with a shuffle.
+// Shared memory: 4 * (bk*(D + 1) + bk*D + 32*D) bytes.
+//
+// swa_attention_smem_bytes gives both layouts; the planner prices the same
+// (repro_torch/kernels/swa_attention.py::smem_bytes).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,6 +68,11 @@ constexpr int kPassRows = kWarps * kRows;  // query rows per pass
 constexpr int kMaxGroups = 8;              // bk <= 256 keys = 8 x 32 lanes
 constexpr float kNegInf = -1e30f;
 constexpr size_t kSmemLimit = 232448;
+// tensor-core (bf16) kernel
+constexpr int kKeys = 64;                  // keys per shared-memory stage
+constexpr int kStages = 2;
+constexpr int kMaxBq = 16 * kWarps;        // one warp per 16 query rows
+constexpr float kLog2e = 1.4426950408889634f;
 
 template <typename T>
 struct Elem;
@@ -62,18 +83,6 @@ struct Elem<float> {
   __device__ static float to_float(float v) { return v; }
   __device__ static float from_float(float v) { return v; }
   __device__ static void unpack(uint32_t w, float* f) { f[0] = __uint_as_float(w); }
-};
-
-template <>
-struct Elem<__nv_bfloat16> {
-  static constexpr int kPerWord = 2;
-  __device__ static float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-  __device__ static __nv_bfloat16 from_float(float v) { return __float2bfloat16(v); }
-  // element 0 sits in the low half of the little-endian word
-  __device__ static void unpack(uint32_t w, float* f) {
-    f[0] = __uint_as_float(w << 16);
-    f[1] = __uint_as_float(w & 0xffff0000u);
-  }
 };
 
 struct SwaArgs {
@@ -88,9 +97,11 @@ struct SwaArgs {
   float scale;
 };
 
-size_t smem_bytes(int bk, int d, int dtype_bytes) {
-  const size_t words = (size_t)d * dtype_bytes / 4;
-  return 4 * ((size_t)bk * (words + 1) + (size_t)bk * words + (size_t)kPassRows * d);
+// Dynamic shared memory of one CTA: the bf16 tensor-core layout (q block
+// whole, kStages stages of K and V at kKeys rows) or the fp32 SIMT one.
+size_t smem_bytes(int bq, int bk, int d, int dtype_bytes) {
+  if (dtype_bytes == 2) return (size_t)2 * d * (bq + 2 * kStages * kKeys);
+  return 4 * ((size_t)bk * (d + 1) + (size_t)bk * d + (size_t)kPassRows * d);
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -255,28 +266,272 @@ __global__ void __launch_bounds__(kThreads) swa_kernel(const SwaArgs a) {
   }
 }
 
-template <typename T, int DT>
-int launch_t(const SwaArgs& a, int BH, cudaStream_t stream) {
-  const size_t smem = smem_bytes(a.bk, 32 * DT, sizeof(T));
-  cudaError_t e = cudaFuncSetAttribute(swa_kernel<T, DT>,
+// ---- bf16 on the tensor cores -------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16-byte global -> shared copy; src_bytes = 0 writes zeros and reads nothing
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c += a (16x16 bf16, row) * b (16x8 bf16, col), fp32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Element offset of 16-byte chunk c of row r in a [rows][D] bf16 tile whose
+// chunks are XOR-swizzled by the row: the 8 rows one ldmatrix phase reads
+// at a fixed logical chunk land in 8 different bank groups (4 when D/8 is
+// not a multiple of 8).
+template <int D>
+__device__ __forceinline__ int swz(int r, int c) {
+  constexpr int kSw = (D / 8) % 8 == 0 ? 7 : 3;
+  return r * D + ((c ^ (r & kSw)) << 3);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1) swa_tc_kernel(const SwaArgs a) {
+  using bf16 = __nv_bfloat16;
+  constexpr int kChunks = D / 8;  // 16-byte chunks per row
+  constexpr int kNt = D / 8;      // 8-wide n tiles of O
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [bq][D]
+  bf16* Ks = Qs + a.bq * D;                      // [kStages][kKeys][D]
+  bf16* Vs = Ks + kStages * kKeys * D;           // [kStages][kKeys][D]
+
+  // heaviest q blocks (a full window of keys) first, the short front last
+  const int qi = gridDim.x - 1 - blockIdx.x;
+  const int b = blockIdx.y / a.H;
+  const int h = blockIdx.y % a.H;
+  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.sq[0] + h * a.sq[1];
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.sk[0] + h * a.sk[1];
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.sv[0] + h * a.sv[1];
+  bf16* ob = static_cast<bf16*>(a.o) + b * a.so[0] + h * a.so[1];
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int window = a.window;
+
+  // the keys some row of the block can see: [lo_vis, hi), in stages of
+  // kKeys that end at hi; keys below 0 are the zero front padding
+  const int q0 = qi * a.bq;
+  const int hi = q0 + a.bq;
+  const int lo_vis = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int n_st = (hi - lo_vis + kKeys - 1) / kKeys;
+  const int first = hi - n_st * kKeys;
+
+  for (int i = tid; i < a.bq * kChunks; i += nthreads) {
+    const int r = i / kChunks, c = i % kChunks;
+    cp_async16(smem_addr(Qs + swz<D>(r, c)), qb + (long long)(q0 + r) * a.sq[2] + c * 8, 16);
+  }
+  auto load_kv = [&](int st) {
+    const int k0 = first + st * kKeys;
+    bf16* kd = Ks + (st & 1) * kKeys * D;
+    bf16* vd = Vs + (st & 1) * kKeys * D;
+    for (int i = tid; i < kKeys * kChunks; i += nthreads) {
+      const int r = i / kChunks, c = i % kChunks;
+      const int pos = k0 + r;
+      const long long p = pos >= 0 ? pos : 0;
+      const int n = pos >= 0 ? 16 : 0;
+      cp_async16(smem_addr(kd + swz<D>(r, c)), kb + p * a.sk[2] + c * 8, n);
+      cp_async16(smem_addr(vd + swz<D>(r, c)), vb + p * a.sv[2] + c * 8, n);
+    }
+  };
+  load_kv(0);
+  cp_async_commit();
+
+  // mma fragment coordinates: this thread holds rows g and g + 8 of the
+  // warp's 16, columns 2t and 2t + 1 of every 8-wide tile
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int qw0 = q0 + warp * 16;
+  const int qp[2] = {qw0 + g, qw0 + g + 8};
+  float o[kNt][4];
+#pragma unroll
+  for (int n = 0; n < kNt; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};
+
+  for (int st = 0; st < n_st; ++st) {
+    cp_async_wait_all();
+    __syncthreads();  // stage st has landed; stage st - 1 is consumed
+    if (st + 1 < n_st) load_kv(st + 1);
+    cp_async_commit();
+    const int k0 = first + st * kKeys;
+    if (k0 > qw0 + 15 || (window > 0 && k0 + kKeys - 1 <= qw0 - window))
+      continue;  // no row of this warp sees a key of the stage
+    const bf16* kbuf = Ks + (st & 1) * kKeys * D;
+    const bf16* vbuf = Vs + (st & 1) * kKeys * D;
+
+    // S = Q K^T: 16 rows x kKeys keys per warp
+    float s[kKeys / 8][4];
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qa[4];
+      ldmatrix_x4(smem_addr(Qs + swz<D>(warp * 16 + (lane & 15), 2 * kk + (lane >> 4))), qa);
+#pragma unroll
+      for (int np = 0; np < kKeys / 16; ++np) {
+        uint32_t kf[4];
+        ldmatrix_x4(smem_addr(kbuf + swz<D>(np * 16 + (lane & 7) + ((lane >> 4) << 3),
+                                            2 * kk + ((lane >> 3) & 1))),
+                    kf);
+        mma_bf16(s[2 * np], qa, kf[0], kf[1]);
+        mma_bf16(s[2 * np + 1], qa, kf[2], kf[3]);
+      }
+    }
+
+    const bool edge = k0 < 0 || k0 + kKeys - 1 > qw0 ||
+                      (window > 0 && k0 <= qw0 + 15 - window);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * a.scale;
+        if (edge) {
+          const int kp = k0 + j * 8 + 2 * t + (e & 1);
+          const int q = qp[e >> 1];
+          if (!(kp >= 0 && kp <= q && (window <= 0 || kp > q - window))) x = kNegInf;
+        }
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float alpha[2], ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = exp2f((m[r] - m_new) * kLog2e);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f((s[j][e] - m[e >> 1]) * kLog2e);
+        s[j][e] = p;
+        ps[e >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], 1);
+      ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], 2);
+      l[r] = alpha[r] * l[r] + ps[r];
+    }
+#pragma unroll
+    for (int n = 0; n < kNt; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+
+    // O += P V: P's accumulator layout is the A fragment of a 16-key step
+#pragma unroll
+    for (int ks = 0; ks < kKeys / 16; ++ks) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * ks][0], s[2 * ks][1]),
+                              pack_bf16(s[2 * ks][2], s[2 * ks][3]),
+                              pack_bf16(s[2 * ks + 1][0], s[2 * ks + 1][1]),
+                              pack_bf16(s[2 * ks + 1][2], s[2 * ks + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < kNt / 2; ++dp) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(smem_addr(vbuf + swz<D>(ks * 16 + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                                  2 * dp + (lane >> 4))),
+                          vf);
+        mma_bf16(o[2 * dp], pa, vf[0], vf[1]);
+        mma_bf16(o[2 * dp + 1], pa, vf[2], vf[3]);
+      }
+    }
+  }
+  cp_async_wait_all();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float den = fmaxf(l[r], 1e-30f);
+    bf16* orow = ob + (long long)qp[r] * a.so[2] + 2 * t;
+#pragma unroll
+    for (int n = 0; n < kNt; ++n) {
+      const __nv_bfloat162 v = __floats2bfloat162_rn(o[n][2 * r] / den, o[n][2 * r + 1] / den);
+      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) = v;
+    }
+  }
+}
+
+template <int DT>
+int launch_simt(const SwaArgs& a, int BH, cudaStream_t stream) {
+  const size_t smem = smem_bytes(a.bq, a.bk, 32 * DT, 4);
+  cudaError_t e = cudaFuncSetAttribute(swa_kernel<float, DT>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(a.S / a.bq, BH);
-  swa_kernel<T, DT><<<grid, kThreads, smem, stream>>>(a);
+  swa_kernel<float, DT><<<grid, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_d(const SwaArgs& a, int D, int BH, cudaStream_t stream) {
+template <int D>
+int launch_tc(const SwaArgs& a, int BH, cudaStream_t stream) {
+  const size_t smem = smem_bytes(a.bq, a.bk, D, 2);
+  cudaError_t e = cudaFuncSetAttribute(swa_tc_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(a.S / a.bq, BH);
+  swa_tc_kernel<D><<<grid, 32 * (a.bq / 16), smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+int launch_d(const SwaArgs& a, bool bf16, int D, int BH, cudaStream_t stream) {
   switch (D / 32) {
-    case 1: return launch_t<T, 1>(a, BH, stream);
-    case 2: return launch_t<T, 2>(a, BH, stream);
-    case 3: return launch_t<T, 3>(a, BH, stream);
-    case 4: return launch_t<T, 4>(a, BH, stream);
-    case 5: return launch_t<T, 5>(a, BH, stream);
-    case 6: return launch_t<T, 6>(a, BH, stream);
-    case 7: return launch_t<T, 7>(a, BH, stream);
-    case 8: return launch_t<T, 8>(a, BH, stream);
+#define SWA_CASE(n)                                                                 \
+  case n:                                                                           \
+    return bf16 ? launch_tc<32 * n>(a, BH, stream) : launch_simt<n>(a, BH, stream);
+    SWA_CASE(1)
+    SWA_CASE(2)
+    SWA_CASE(3)
+    SWA_CASE(4)
+    SWA_CASE(5)
+    SWA_CASE(6)
+    SWA_CASE(7)
+    SWA_CASE(8)
+#undef SWA_CASE
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -285,10 +540,11 @@ int launch_d(const SwaArgs& a, int D, int BH, cudaStream_t stream) {
 
 extern "C" {
 
-// Dynamic shared memory one CTA takes (bq does not enter: a pass stages 32
-// query rows whatever the q block).
-long long swa_attention_smem_bytes(int bk, int d, int dtype_bytes) {
-  return (long long)smem_bytes(bk, d, dtype_bytes);
+// Dynamic shared memory one CTA takes (dtype_bytes 2: the bf16 tensor-core
+// layout, where bq enters and bk does not; 4: the fp32 SIMT layout, where
+// bk enters and bq does not).
+long long swa_attention_smem_bytes(int bq, int bk, int d, int dtype_bytes) {
+  return (long long)smem_bytes(bq, bk, d, dtype_bytes);
 }
 
 const char* swa_attention_error_string(int code) {
@@ -297,16 +553,25 @@ const char* swa_attention_error_string(int code) {
 
 // dtype: 0 fp32, 1 bf16.  strides: 12 element strides, (batch, head, seq) of
 // q, k, v, o in that order.  Launches on `stream`; returns the cudaError_t of
-// the launch (0 = success).
+// the launch (0 = success).  bf16 needs bq a multiple of 16 up to 128 and
+// q, k, v rows on 16-byte boundaries (pointers and strides).
 int swa_attention_launch(const void* q, const void* k, const void* v, void* o, int dtype,
                          int B, int H, int S, int D, const long long* strides, int window,
                          int bq, int bk, int n_kv, float scale, void* stream) {
-  const int bytes = dtype == 0 ? 4 : 2;
+  const bool bf16 = dtype == 1;
   if ((dtype != 0 && dtype != 1) || B < 1 || H < 1 || (long long)B * H > 65535 ||
-      D % 32 || D < 32 || D > 256 || bk < 1 || bk > 32 * kMaxGroups || bq < bk || bq % bk ||
-      S % bq || S % bk || n_kv < 1 || n_kv * bk < bq || window < 0 ||
-      smem_bytes(bk, D, bytes) > kSmemLimit)
+      D % 32 || D < 32 || D > 256 || bk < 1 || bq < bk || bq % bk || S % bq || S % bk ||
+      n_kv < 1 || n_kv * bk < bq || window < 0 ||
+      smem_bytes(bq, bk, D, bf16 ? 2 : 4) > kSmemLimit)
     return (int)cudaErrorInvalidValue;
+  if (bf16) {
+    bool aligned = bq % 16 == 0 && bq <= kMaxBq;
+    aligned = aligned && ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
+    for (int i = 0; i < 9; ++i) aligned = aligned && strides[i] % 8 == 0;
+    if (!aligned) return (int)cudaErrorInvalidValue;
+  } else if (bk > 32 * kMaxGroups) {
+    return (int)cudaErrorInvalidValue;
+  }
   SwaArgs a;
   a.q = q;
   a.k = k;
@@ -325,9 +590,7 @@ int swa_attention_launch(const void* q, const void* k, const void* v, void* o, i
   a.bk = bk;
   a.n_kv = n_kv;
   a.scale = scale;
-  cudaStream_t st = (cudaStream_t)stream;
-  return dtype == 0 ? launch_d<float>(a, D, B * H, st)
-                    : launch_d<__nv_bfloat16>(a, D, B * H, st);
+  return launch_d(a, bf16, D, B * H, (cudaStream_t)stream);
 }
 
 }  // extern "C"

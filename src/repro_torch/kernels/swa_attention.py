@@ -1,10 +1,22 @@
 """Causal sliding-window flash attention: the CUDA kernel and its plain
 version.
 
-Counterpart of ``repro.kernels.swa_attention`` (the Pallas TPU kernel).  The
-kernel is ``csrc/swa_attention.cu`` (hand-written CUDA C++ for ``sm_90a``,
-fp32 and bf16); its header says what bounds it and how it is tiled.  This
-module holds:
+Counterpart of ``repro.kernels.swa_attention`` (the Pallas TPU kernel,
+``_swa_kernel``).  The kernel is ``csrc/swa_attention.cu``, hand-written
+CUDA C++ for ``sm_90a``.  It is bound by operations: at Gemma-3 4B's local
+layers it does ~450 FLOP per byte of q, k, v and o, above the H100's bf16
+ridge, so its ceiling is the tensor cores.  Two instantiations:
+
+* **bf16** (the LM path): a FlashAttention-2-style forward on the tensor
+  cores.  One CTA per (q block, batch*head), one warp per 16 query rows;
+  the q block stays in shared memory, keys stream through a 2-stage
+  ``cp.async`` ring of ``STAGE_KEYS``-row K/V stages, S = QKᵀ and O += PV
+  are ``mma.sync`` m16n8k16 products with fp32 accumulators, and m, l, O
+  stay in fp32 registers (P is rounded to bf16 only as PV's operand).
+* **fp32**: a SIMT kernel (fp32 FMAs).  A tensor-core fp32 product
+  is TF32, which cannot hold the 2e-5 fp32 parity.
+
+This module holds:
 
 * :func:`swa_attention` — launches the kernel on CUDA tensors (and only on
   CUDA tensors; it raises on anything else and on a failed launch);
@@ -31,11 +43,17 @@ import torch
 NEG_INF = -1e30
 #: shared memory one CTA may use on Hopper (227 KiB)
 SMEM_LIMIT = 232448
-#: query rows one pass of a CTA keeps in flight (8 warps x 4 rows)
+#: fp32 (SIMT) kernel: query rows one pass of a CTA keeps in flight (8
+#: warps x 4 rows), and its largest key block
 PASS_ROWS = 32
-#: the kernel's head-dim and key-block range
-MAX_HEAD_DIM = 256
 MAX_BK = 256
+#: bf16 (tensor-core) kernel: keys per shared-memory stage, stages in the
+#: ring, and the largest q block (8 warps of 16 rows)
+STAGE_KEYS = 64
+KV_STAGES = 2
+MAX_BQ_BF16 = 128
+#: the kernel's head-dim range
+MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -53,25 +71,33 @@ def tiles(S: int, window: int, bq: int, bk: int):
 
 
 def smem_bytes(bq: int, bk: int, d: int, dtype_bytes: int) -> int:
-    """Dynamic shared memory of one CTA: the K tile (rows padded by one
-    32-bit word), the V tile, and ``PASS_ROWS`` fp32 q rows
-    (``swa_attention_smem_bytes`` in the CUDA source computes the same).
-    ``bq`` does not enter: a pass stages 32 rows whatever the q block."""
-    words = d * dtype_bytes // 4
-    return 4 * (bk * (words + 1) + bk * words + PASS_ROWS * d)
+    """Dynamic shared memory of one CTA (``swa_attention_smem_bytes`` in
+    the CUDA source computes the same).  bf16: the whole q block plus
+    ``KV_STAGES`` stages of K and V at ``STAGE_KEYS`` rows (``bk`` does not
+    enter).  fp32: the K tile (rows padded by one 32-bit word), the V tile
+    and ``PASS_ROWS`` fp32 q rows (``bq`` does not enter)."""
+    if dtype_bytes == 2:
+        return 2 * d * (bq + 2 * KV_STAGES * STAGE_KEYS)
+    return 4 * (bk * (d + 1) + bk * d + PASS_ROWS * d)
 
 
 def launch_problem(bq: int, bk: int, d: int, dtype_bytes: int,
                    smem_limit: int = SMEM_LIMIT) -> str:
     """Why the kernel cannot run this geometry ("" when it can): fp32 or
-    bf16, ``d`` a multiple of 32 up to 256, ``bk <= 256``, and one CTA's
-    shared memory within ``smem_limit`` (Hopper's 227 KiB by default)."""
+    bf16, ``d`` a multiple of 32 up to 256; bf16 needs ``bq`` a multiple
+    of 16 in 16..128 (one warp per 16 query rows, at most 8 warps), fp32
+    ``bk <= 256``; and one CTA's shared memory within ``smem_limit``
+    (Hopper's 227 KiB by default)."""
     if dtype_bytes not in (2, 4):
         return f"the CUDA swa kernel takes fp32 or bf16 (dtype_bytes=" \
                f"{dtype_bytes})"
     if d % 32 or not 32 <= d <= MAX_HEAD_DIM:
         return f"head_dim={d} is not a multiple of 32 in 32..{MAX_HEAD_DIM}"
-    if bk > MAX_BK:
+    if dtype_bytes == 2 and (bq % 16 or not 16 <= bq <= MAX_BQ_BF16):
+        return (f"bq={bq}: the bf16 tensor-core kernel runs one warp per "
+                f"16 query rows, at most 8 (bq a multiple of 16 in "
+                f"16..{MAX_BQ_BF16})")
+    if dtype_bytes == 4 and bk > MAX_BK:
         return f"bk={bk} exceeds {MAX_BK}"
     smem = smem_bytes(bq, bk, d, dtype_bytes)
     if smem > smem_limit:
@@ -141,7 +167,7 @@ def _lib():
         lib.swa_attention_launch.argtypes = [p, p, p, p] + [i] * 5 + [
             ctypes.POINTER(ctypes.c_longlong)] + [i] * 4 + [ctypes.c_float, p]
         lib.swa_attention_launch.restype = i
-        lib.swa_attention_smem_bytes.argtypes = [i, i, i]
+        lib.swa_attention_smem_bytes.argtypes = [i, i, i, i]
         lib.swa_attention_smem_bytes.restype = ctypes.c_longlong
         lib.swa_attention_error_string.argtypes = [i]
         lib.swa_attention_error_string.restype = ctypes.c_char_p
@@ -151,9 +177,9 @@ def _lib():
 
 def swa_attention(q, k, v, *, window: int, bq: int = 128, bk: int = 128):
     """Launch the CUDA kernel: ``(B, H, S, D)`` q, k, v of one type (fp32 or
-    bf16) on one CUDA device, ``D`` contiguous, any other strides (each a
-    whole number of 32-bit words).  The output has ``q``'s strides.  The
-    launch goes on the current stream and is checked with
+    bf16) on one CUDA device, ``D`` contiguous, any other strides (whole
+    16-byte units in bf16, 32-bit words in fp32).  The output has ``q``'s
+    strides.  The launch goes on the current stream and is checked with
     ``cudaGetLastError``; a refused launch raises."""
     _check(q, k, v)
     if q.device.type != "cuda":
@@ -169,14 +195,18 @@ def swa_attention(q, k, v, *, window: int, bq: int = 128, bk: int = 128):
     if problem:
         raise ValueError(problem)
     o = torch.empty_like(q)
+    # bf16 rows are copied in 16-byte pieces: q, k, v rows must start on
+    # 16-byte boundaries; fp32 reads 32-bit words
+    align = 16 if nbytes == 2 else 4
     strides = []
     for t in (q, k, v, o):
         if t.stride(3) != 1:
             raise ValueError("swa_attention needs a contiguous head dim")
         st = (t.stride(0), t.stride(1), t.stride(2))
-        if any(s * nbytes % 4 for s in st) or t.data_ptr() % 4:
-            raise ValueError(f"strides {st} of a {t.dtype} tensor are not "
-                             f"whole 32-bit words")
+        a = 4 if t is o else align
+        if any(s * nbytes % a for s in st) or t.data_ptr() % a:
+            raise ValueError(f"strides {st} of a {t.dtype} tensor (or its "
+                             f"pointer) are not whole {a}-byte units")
         strides.extend(st)
     lib = _lib()
     arr = (ctypes.c_longlong * 12)(*strides)

@@ -75,14 +75,36 @@ def test_halo_ok_equal():
 
 
 def test_launch_limits():
-    # VGG-16 at the default block: 24,960 B of shared memory per CTA
-    assert cr.smem_bytes(8, 1, 3) == 4 * (10 * 18 * 8 + 9 * 8 * 64)
-    assert cr.launch_problem(8, 1, 3) == ""
-    assert "fp32" in cr.launch_problem(8, 1, 3, dtype_bytes=2)
-    assert "block_h" in cr.launch_problem(cr.CTA_PIXELS + 1, 1, 3)
-    assert "shared memory" in cr.launch_problem(8, 1, 3, smem_limit=1000)
+    # VGG-16 at the default block (10 x 18 window): the offset table + 2
+    # stages of an 8-channel chunk's window and weights, at the wide Cout
+    # tile (85,968 B) and at the narrow one for Cout <= 64 (49,104 B)
+    assert cr.smem_bytes(8, 1, 3, 128) \
+        == 4 * (180 + 2 * (180 * 8 + 9 * 8 * 128)) == 85968
+    assert cr.smem_bytes(8, 1, 3, 64) \
+        == 4 * (180 + 2 * (180 * 8 + 9 * 8 * 64)) == 49104
+    assert cr.smem_bytes(8, 1, 3, 512) == cr.smem_bytes(8, 1, 3, 65)
+    assert cr.launch_problem(8, 1, 3, 512) == ""
+    assert "fp32" in cr.launch_problem(8, 1, 3, 64, dtype_bytes=2)
+    assert "block_h" in cr.launch_problem(cr.CTA_PIXELS + 1, 1, 3, 64)
+    assert "shared memory" in cr.launch_problem(8, 1, 3, 64, smem_limit=1000)
     for bh in ops.CONV_BLOCK_HS:
         assert bh * cr.tile_w(bh) <= cr.CTA_PIXELS
+
+
+@pytest.mark.parametrize("bh,s,k,cout,cc", [
+    (8, 1, 3, 512, 8),    # VGG-16
+    (16, 1, 3, 64, 8),
+    (1, 1, 3, 128, 8),    # one row of 128 columns
+    (8, 1, 5, 128, 8),    # 221,120 B: still fits
+    (8, 1, 7, 512, 4),    # 8 channels would overflow a CTA's 227 KiB
+    (4, 2, 7, 8, 4),      # the k=7 stride-2 geometry case
+    (32, 1, 10, 4, 4),    # the planner's k=10 retile case
+])
+def test_cin_chunk_fits_shared_memory(bh, s, k, cout, cc):
+    assert cr.cin_chunk(bh, s, k, cout) == cc
+    assert cr.smem_bytes(bh, s, k, cout) <= cr.SMEM_LIMIT
+    if cc == 4:
+        assert cr._smem(bh, s, k, cr.cout_tile(cout), 8) > cr.SMEM_LIMIT
 
 
 def test_wrapper_rejects_bad_inputs():

@@ -12,7 +12,9 @@ against its plain version at 1e-4 of the output's largest magnitude (fp32
 sums in another order); the kernel engine's loss and gradients against the
 ``base`` engine at 1e-5 relative.  ``swa_attention`` is held against its
 plain version at the reference kernel tests' tolerances (fp32 2e-5, bf16
-2e-2, as ``allclose`` atol and rtol) and ``ssd_scan`` at atol 1e-3.
+2e-2, as ``allclose`` atol and rtol), and at Gemma-3 4B's local-layer
+shape in bf16 at ``chip_smoke.py``'s atol 4e-3 / rtol 1e-2; ``ssd_scan``
+at atol 1e-3.
 """
 
 import numpy as np
@@ -20,7 +22,9 @@ import pytest
 import torch
 
 #: (H, W, Cin, Cout, k, s, p, block_h): the kernel tests' shared geometry
-#: cases, then VGG-16/224 shapes (ragged H_out % 8 at 14, Cin = 3)
+#: cases, then VGG-16/224 shapes (ragged H_out % 8 at 14, Cin = 3), then
+#: the 28^2 and 14^2 layers with a ragged Cout (500: 16-byte weight copies,
+#: a partial 128-wide tile; 510: 4-byte copies)
 CASES = [
     (16, 16, 8, 16, 3, 1, 1, 4),
     (17, 13, 4, 8, 3, 1, 0, 8),
@@ -33,6 +37,9 @@ CASES = [
     (224, 224, 3, 64, 3, 1, 1, 8),
     (56, 56, 128, 256, 3, 1, 1, 8),
     (14, 14, 512, 512, 3, 1, 1, 8),
+    (28, 28, 256, 512, 3, 1, 1, 8),
+    (28, 28, 256, 500, 3, 1, 1, 8),
+    (14, 14, 512, 510, 3, 1, 1, 8),
 ]
 
 
@@ -75,8 +82,10 @@ def test_kernel_rejects_what_it_cannot_run(cuda_device):
     with pytest.raises(TypeError):
         cr.conv2d_rows(x.half(), w.half())
     lib = cr._lib()
-    assert lib.conv2d_rows_smem_bytes(3, 1, 8, cr.tile_w(8)) \
-        == cr.smem_bytes(8, 1, 3)
+    for bh, st, kk, cout in ((8, 1, 3, 64), (8, 1, 3, 512), (4, 2, 7, 8),
+                             (32, 1, 10, 4)):
+        assert lib.conv2d_rows_smem_bytes(kk, st, bh, cr.tile_w(bh), cout) \
+            == cr.smem_bytes(bh, st, kk, cout)
 
 
 @pytest.mark.requires_cuda
@@ -120,6 +129,8 @@ SWA_CASES = [
     (128, 64, 200, 64, 64),
     (4096, 256, 1024, 128, 128),
 ]
+#: (atol, rtol) of chip_smoke.py's bf16 check at the Gemma shape
+SWA_GEMMA_BF16_TOL = (4e-3, 1e-2)
 #: (Bt, S, H, P, N): the kernel tests' shared SSD cases, then Zamba2-7B's
 #: Mamba2 widths (H 32, P 224, N 64)
 SSD_CASES = [
@@ -159,8 +170,33 @@ def test_swa_kernel_matches_plain(case, dtype, cuda_device):
     assert ops.swa_attention.launches == before + 1
     assert got.stride() == q.stride()
     want = swa_attention_plain(q, k, v, window, bq, bk)
-    tol = 2e-5 if dtype == torch.float32 else 2e-2
-    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    atol = rtol = 2e-5 if dtype == torch.float32 else 2e-2
+    if dtype == torch.bfloat16 and case == SWA_CASES[-1]:
+        atol, rtol = SWA_GEMMA_BF16_TOL
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32-simt", "bf16-tensor-core"])
+@pytest.mark.parametrize("D", [64, 256])
+def test_swa_each_instantiation_launches_and_matches(D, dtype, cuda_device):
+    """The bf16 (tensor-core) and fp32 (SIMT) kernels at a narrow and at
+    Gemma's head dim, over a window that spans several 64-key stages."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.swa_attention import swa_attention_plain
+    S, window, bq, bk = 512, 200, 128, 64
+    q, k, v = _swa_inputs(S, D, dtype, cuda_device, B=2, H=2, seed=D)
+    before = ops.swa_attention.launches
+    got = ops.swa_attention(q, k, v, window, bq, bk)
+    torch.cuda.synchronize()
+    assert ops.swa_attention.launches == before + 1
+    want = swa_attention_plain(q, k, v, window, bq, bk)
+    atol, rtol = (2e-5, 2e-5) if dtype == torch.float32 \
+        else SWA_GEMMA_BF16_TOL
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
 
 
 @pytest.mark.requires_cuda
@@ -211,9 +247,15 @@ def test_new_kernels_raise_rather_than_fall_back(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         ssd_chunk.ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3),
                            bc, bc, ad, ad)
+    base = torch.zeros(1, 2, 256, 68, dtype=torch.bfloat16,
+                       device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.swa_attention(*(base[..., :64],) * 3, 64)  # 136-byte rows
     lib = swa_attention._lib()
-    assert lib.swa_attention_smem_bytes(128, 256, 2) \
-        == swa_attention.smem_bytes(128, 128, 256, 2)
+    for bq, bk, d, db in ((128, 128, 256, 2), (32, 32, 64, 2),
+                          (256, 64, 256, 4), (64, 32, 64, 4)):
+        assert lib.swa_attention_smem_bytes(bq, bk, d, db) \
+            == swa_attention.smem_bytes(bq, bk, d, db)
     assert ssd_chunk._lib().ssd_scan_group_lanes(64) \
         == ssd_chunk.group_lanes(64)
 

@@ -169,7 +169,9 @@ def test_kernelize_swaps_in_overlap_cuda():
         assert plan.engine == "overlap_cuda"
         assert plan.kernel == KernelSpec(backend="cuda", block_h=8)
         assert plan.get("kernel_layers") == 13
-        assert plan.get("kernel_smem_bytes") == 24192
+        # the wide Cout tile's layout at block_h=8 (85,968 B; the Cout=64
+        # layers take 49,104 B)
+        assert plan.get("kernel_smem_bytes") == 85968
     req = PlanRequest(engine="overlap", n_rows=4, kernel="cuda")
     assert planner.resolve(req).engine == "overlap_cuda"
     plain = planner.resolve(dataclasses.replace(req, kernel="plain"))
@@ -187,7 +189,8 @@ def test_kernelize_fallbacks_and_retile():
     assert "shared memory" in pinned.get("kernel_fallback")
     # a bare "cuda" searches candidate_tiles in order: a k=10 conv fails
     # the halo rule at the default block_h=8 and fits at the first
-    # candidate, 32 (221,856 B of shared memory)
+    # candidate, 32 (223,988 B of shared memory: 4-channel chunks, one
+    # CTA per SM)
     from repro_torch.models.cnn.layers import Conv
     wide = [Conv(4, k=10, s=1, p=0)]
     p10 = Planner(wide, (64, 64, 3), 2).plan("overlap", 1)
@@ -195,7 +198,7 @@ def test_kernelize_fallbacks_and_retile():
     assert retiled.engine == "overlap_cuda"
     assert retiled.kernel.block_h == 32
     assert "block_h=32" in retiled.get("kernel_retile")
-    assert retiled.get("kernel_smem_bytes") == 221856
+    assert retiled.get("kernel_smem_bytes") == 223988
     assert kernelize_plan(p10, "cuda", wide, smem_limit=200000) \
         .get("kernel_fallback")
     tp = planner.kernelize(planner.plan("twophase", 2), "cuda")
@@ -268,7 +271,7 @@ def test_for_model_kernel_pass():
     plan = Planner.for_model(full, 1, 4096, kernel="cuda")
     assert plan.engine == "seq_swa_cuda"
     assert plan.kernel == KernelSpec(backend="cuda")
-    assert plan.get("kernel_smem_bytes") == 164352
+    assert plan.get("kernel_smem_bytes") == 196608  # tensor-core layout
     assert plan.get("kernel_fallback") is None
     assert plan.get("kernel_retile") is None
     plain = Planner.for_model(full, 1, 4096, kernel="plain")
@@ -293,7 +296,31 @@ def test_for_model_kernel_pass():
     # the reduced config: tiles clamp to seq 64
     red = Planner.for_model(_gemma("reduced"), 2, 64, kernel="cuda")
     assert red.engine == "seq_swa_cuda"
-    assert red.get("kernel_smem_bytes") == 41216
+    assert red.get("kernel_smem_bytes") == 41216  # fp32: the SIMT layout
+
+
+def test_bf16_kernel_rules_retile_or_fall_back():
+    """The bf16 tensor-core kernel's own rules (bq a multiple of 16 up to
+    128; shared memory grows with bq) drive the retile."""
+    full = _gemma("full", n_layers=12)
+    base = Planner.for_model(full, 1, 4096)
+    # a pinned q block of 256 rows needs 16 warps: fall back, saying why
+    pinned = kernelize_plan(base, KernelSpec(backend="cuda", bq=256, bk=128))
+    assert pinned.engine == "seq_swa_overlap"
+    assert "bq=256" in pinned.get("kernel_fallback")
+    # below the default tiles' 196,608 B: every bq=256 and bq=128 candidate
+    # is refused, bq=64 (163,840 B) too; the first that fits is 32/32
+    tight = kernelize_plan(base, "cuda", smem_limit=150000)
+    assert tight.engine == "seq_swa_cuda"
+    assert (tight.kernel.bq, tight.kernel.bk) == (32, 32)
+    assert "196608 B" in tight.get("kernel_retile")
+    assert tight.get("kernel_smem_bytes") == 2 * 256 * (32 + 256) == 147456
+    # a 8-token sequence clamps bq to 8 < 16 and has no other candidate
+    short = kernelize_plan(
+        Planner.for_model(_gemma("reduced", dtype="bfloat16"), 2, 8), "cuda")
+    assert short.engine == "seq_swa_overlap"
+    assert "bq=8" in short.get("kernel_fallback")
+    assert "no candidate tiling feasible" in short.get("kernel_fallback")
 
 
 def test_for_budget_seq_smallest_fitting_chunk_count():

@@ -94,14 +94,34 @@ def test_tiles_follow_the_reference_contract():
 
 
 def test_smem_pricing():
-    # Gemma-3 4B at the default tiles: K (padded) + V in bf16 + 32 q rows
+    # Gemma-3 4B at the default tiles, bf16 (tensor-core layout): the whole
+    # q block + 2 stages of 64-row K and V tiles; bk does not enter
     assert sw.smem_bytes(128, 128, 256, 2) \
-        == 4 * (128 * 129 + 128 * 128 + 32 * 256) == 164352
+        == 2 * 256 * (128 + 2 * 2 * 64) == 196608
+    assert sw.smem_bytes(128, 32, 256, 2) == 196608
     assert sw.launch_problem(128, 128, 256, 2) == ""
+    # fp32 (SIMT layout): K (padded) + V + 32 fp32 q rows; bq does not enter
+    assert sw.smem_bytes(256, 64, 256, 4) \
+        == 4 * (64 * 257 + 64 * 256 + 32 * 256) == 164096
     assert "exceeds" in sw.launch_problem(128, 128, 256, 4)
     assert sw.launch_problem(256, 64, 256, 4) == ""
     assert "multiple of 32" in sw.launch_problem(64, 64, 80, 4)
     assert "fp32 or bf16" in sw.launch_problem(64, 64, 64, 8)
+
+
+@pytest.mark.parametrize("bq,bk,d,db,problem", [
+    (128, 128, 256, 2, ""),
+    (16, 8, 64, 2, ""),           # the smallest q block: one warp
+    (256, 128, 64, 2, "bq=256"),  # more than 8 warps
+    (8, 8, 64, 2, "bq=8"),        # fewer than 16 query rows
+    (48, 16, 64, 2, ""),
+    (40, 8, 64, 2, "bq=40"),      # not a whole number of warps
+    (256, 64, 64, 4, ""),         # fp32 takes any bq
+    (512, 512, 32, 4, "bk=512 exceeds"),  # fp32: lanes own 8 key groups
+])
+def test_launch_problem_bf16_tensor_core_rules(bq, bk, d, db, problem):
+    got = sw.launch_problem(bq, bk, d, db)
+    assert (problem in got) if problem else got == ""
 
 
 def test_wrapper_raises_on_bad_input():
