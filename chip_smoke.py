@@ -39,12 +39,18 @@ printing one line:
                 version and ``F.scaled_dot_product_attention`` with the same
                 boolean window mask (the library yardstick, never called by
                 the port) at the Gemma shape, beside the card's bound.
-7. kernel_ssd   ``ssd_scan`` against its plain version at Zamba2-7B's
-                Mamba2 widths (H 32, P 224, N 64; Bt 1, S 4096) and the four
-                shared SSD cases, atol 1e-3; times kernel and plain version
-                (no single PyTorch call computes this function); then the
-                ``seq_ssd_cuda`` engine's op, forward and backward, at the
-                Zamba shape with the launch count from 0 (its main path).
+7. kernel_ssd   ``ssd_scan`` (the chunked SSD) against its chunked plain
+                version at Zamba2-7B's Mamba2 widths (H 32, P 224, N 64; Bt
+                1, S 4096) at every chunk of ``SSD_CHUNKS`` whose shared
+                memory fits, and at the four shared SSD cases at their own
+                chunk, atol 1e-3; against the sequential oracle once at the
+                Zamba shape; times the kernel at each fitting chunk and the
+                plain version at the plan's (no single PyTorch call computes
+                this function); then the ``seq_ssd_cuda`` engine's op,
+                forward and backward, at the Zamba shape through a plan with
+                ``seq`` 4096 kernelized to ``"cuda"`` (so the plan's chunk is
+                what launches), with the launch count from 0 (its main
+                path).
 8. train_lm_kernel  the LM main path: ``repro_torch.launch.train --arch
                 gemma3_4b --preset full --batch 1 --seq 4096 --kernel cuda
                 --steps 3`` at published widths, depth cut 34 -> 12 layers
@@ -78,6 +84,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 #: H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, bf16
 #: dense on the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
@@ -111,7 +118,7 @@ LOSS_TOL = 1e-4
 TRAIN_LR = 1e-3
 
 #: the shared SWA cases (S, D, window, bq, bk) and SSD cases
-#: (Bt, S, H, P, N) of the kernel tests
+#: (Bt, S, H, P, N, chunk) of the kernel tests
 KERNEL_SWA_CASES = [
     (256, 64, 64, 64, 32),
     (256, 64, 0, 128, 64),
@@ -121,10 +128,10 @@ KERNEL_SWA_CASES = [
     (128, 64, 200, 64, 64),
 ]
 KERNEL_SSD_CASES = [
-    (2, 64, 4, 16, 8),
-    (1, 128, 2, 8, 4),
-    (2, 32, 4, 16, 8),
-    (1, 64, 8, 8, 16),
+    (2, 64, 4, 16, 8, 16),
+    (1, 128, 2, 8, 4, 32),
+    (2, 32, 4, 16, 8, 32),
+    (1, 64, 8, 8, 16, 8),
 ]
 SWA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 #: (atol, rtol) of the bf16 check at the Gemma shape: a few bf16 ulps of
@@ -237,14 +244,19 @@ def phase_build(torch, out):
                   f"{st} B, spill loads {ld} B", flush=True)
     out["ptxas"] = ptxas
     from repro_torch.kernels import conv2d_rows as cr
+    from repro_torch.kernels import ssd_chunk as sc
     from repro_torch.kernels import swa_attention as sw
+    n = SSD_SHAPE[-1]
     print(f"  dynamic shared memory per CTA: conv2d_rows at VGG-16 block_h "
           f"{BLOCK_H}: {cr.smem_bytes(BLOCK_H, 1, 3, 64)} B (Cout 64), "
           f"{cr.smem_bytes(BLOCK_H, 1, 3, 512)} B (Cout >= 128); "
           f"swa_attention at the Gemma shape: bf16 "
           f"{sw.smem_bytes(128, 128, 256, 2)} B (bq=bk=128), fp32 "
           f"{sw.smem_bytes(*SWA_GEMMA_FP32_TILES, 256, 4)} B "
-          f"(bq={SWA_GEMMA_FP32_TILES[0]} bk={SWA_GEMMA_FP32_TILES[1]})",
+          f"(bq={SWA_GEMMA_FP32_TILES[0]} bk={SWA_GEMMA_FP32_TILES[1]}); "
+          f"ssd_scan at N {n}: "
+          + ", ".join(f"chunk {c} {sc.smem_bytes(c, n)} B"
+                      for c in (256, 128, 64, 32)),
           flush=True)
     print(f"build: {sorted(res)} in {secs:.3f}s "
           f"(fresh: {[n for n, r in res.items() if r['built']]})",
@@ -487,32 +499,75 @@ def _ssd_inputs(torch, Bt, S, H, P, N, seed):
     return [t.cuda() for t in (x, B, C, a, dt)]
 
 
+def _ssd_flops(Bt, S, H, P, N, c):
+    """FLOPs of the chunked SSD at chunk ``c``: the ``C Bᵀ`` Gram matrix,
+    its causal half times ``dt x``, and the carried state's two products
+    (``y`` from ``h`` and the update of ``h``), once each."""
+    n_chunks = S // c
+    gram = 2 * c * c * N
+    intra = c * (c + 1) * H * P
+    carry = 2 * (2 * c * N * H * P)
+    return Bt * n_chunks * (gram + intra + carry)
+
+
 def phase_kernel_ssd(torch, out):
     from repro_torch.exec import ExecutionPlan, build_apply
+    from repro_torch.exec.planner import kernelize_plan
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.kernels.ref import ssd_scan_ref
 
+    Bt, S, H, P, N = SSD_SHAPE
+    # the plan the op runs: seq and state size as extras, kernelized to
+    # "cuda" (the plan's chunk, or a retiled one, is what launches)
+    plan = kernelize_plan(ExecutionPlan.explicit("seq_ssd_cuda", seq=S,
+                                                 ssm_state=N), "cuda")
+    if plan.engine != "seq_ssd_cuda" or plan.get("kernel_fallback"):
+        raise AssertionError(f"seq_ssd_cuda plan: {plan.engine} "
+                             f"{plan.extras}")
+    chunk = min(plan.kernel.chunk, S)
+    fitting = [c for c in ops.SSD_CHUNKS if not sc.launch_problem(c, N)]
     max_err = 0.0
-    for i, case in enumerate([SSD_SHAPE] + KERNEL_SSD_CASES):
-        ins = _ssd_inputs(torch, *case, seed=20 + i)
-        got = sc.ssd_scan(*ins)
+
+    def check(ins, c, what):
+        nonlocal max_err
+        got = sc.ssd_scan(*ins, chunk=c)
         torch.cuda.synchronize()
-        err = float((got - sc.ssd_scan_plain(*ins)).abs().max())
+        err = float((got - sc.ssd_scan_plain(*ins, chunk=c)).abs().max())
         max_err = max(max_err, err)
         if not err <= SSD_ATOL:
-            raise AssertionError(f"ssd case {case}: max abs err {err}")
+            raise AssertionError(f"ssd {what}: max abs err {err}")
+        return got, err
+
     ins = _ssd_inputs(torch, *SSD_SHAPE, seed=20)
-    t = {"ms": _timed_ms(torch, lambda: sc.ssd_scan(*ins), iters=5),
-         "plain_ms": _timed_ms(torch, lambda: sc.ssd_scan_plain(*ins),
-                               iters=2, warmup=1)}
-    Bt, S, H, P, N = SSD_SHAPE
-    # per (t, h, p, n): a*h + (x*dt)*B (3 FLOP) and y += C*h (2); x*dt once
-    flops = 5 * Bt * S * H * P * N + Bt * S * H * P
+    errs = {c: check(ins, c, f"zamba chunk {c}")[1] for c in fitting}
+    for i, (*case, c) in enumerate(KERNEL_SSD_CASES):
+        check(_ssd_inputs(torch, *case, seed=21 + i), c, f"case {case} "
+              f"chunk {c}")
+    got = sc.ssd_scan(*ins, chunk=chunk)
+    oracle_err = float((got - ssd_scan_ref(*ins)[0]).abs().max())
+    del got
+    if not oracle_err <= SSD_ATOL:
+        raise AssertionError(f"ssd against the sequential oracle: max abs "
+                             f"err {oracle_err}")
+    max_err = max(max_err, oracle_err)
+    per_chunk = {c: _timed_ms(torch, lambda c=c: sc.ssd_scan(*ins, chunk=c),
+                              iters=20) for c in fitting}
+    t = {"ms": per_chunk[chunk],
+         "plain_ms": _timed_ms(torch, lambda: sc.ssd_scan_plain(
+             *ins, chunk=chunk), iters=3, warmup=1)}
+    # the bound: each input read once and y written once, or the chunked
+    # form's FLOPs as three TF32 products each (3xTF32) at the TF32 peak
+    flops = _ssd_flops(Bt, S, H, P, N, chunk)
     nbytes = 4 * (2 * Bt * S * H * P + 2 * Bt * S * N + 2 * Bt * S * H)
-    bound_ms, bound_by = _bound(1e3 * flops / PEAK_FP32_FLOPS,
+    bound_ms, bound_by = _bound(1e3 * 3 * flops / PEAK_TF32_FLOPS,
                                 1e3 * nbytes / PEAK_HBM_BYTES)
+    # the step-by-step recurrence's bound: ~5 FLOP per (t, h, p, n) in fp32
+    # SIMT
+    simt_flops = 5 * Bt * S * H * P * N + Bt * S * H * P
+    simt_ms = 1e3 * simt_flops / PEAK_FP32_FLOPS
     # the op-level seq_ssd_cuda engine, forward + backward, counted from 0
-    apply = build_apply(None, ExecutionPlan.explicit("seq_ssd_cuda"))
+    apply = build_apply(None, plan)
     leaves = [x.detach().requires_grad_() for x in ins]
     ops.ssd_scan.launches = 0
     y = apply(*leaves)
@@ -525,12 +580,25 @@ def phase_kernel_ssd(torch, out):
                              f"grads {finite}")
     out["ssd"] = {"max_abs_err": max_err, "bound_ms": bound_ms,
                   "bound_by": bound_by, "launches": launches,
-                  "flops": flops, "bytes": nbytes, **t}
-    print(f"kernel_ssd: ssd_scan matches plain at {SSD_SHAPE} + "
-          f"{len(KERNEL_SSD_CASES)} cases (max abs err {max_err:.3e}); "
-          f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by}); seq_ssd_cuda fwd+bwd launched "
-          f"the kernel {launches} time(s)", flush=True)
+                  "flops": flops, "bytes": nbytes, "chunk": chunk,
+                  "per_chunk_ms": per_chunk, "per_chunk_err": errs,
+                  "oracle_err": oracle_err, "simt_bound_ms": simt_ms, **t}
+    print(f"kernel_ssd: ssd_scan matches its chunked plain version at "
+          f"{SSD_SHAPE} at chunks {fitting} (max abs err "
+          + ", ".join(f"{c}: {e:.3e}" for c, e in errs.items())
+          + f") + {len(KERNEL_SSD_CASES)} cases (max abs err over all "
+          f"{max_err:.3e}), the sequential oracle at chunk {chunk} "
+          f"({oracle_err:.3e}); plan chunk {chunk} "
+          f"(kernel_smem_bytes={plan.get('kernel_smem_bytes')}): kernel "
+          f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}; {nbytes} B, "
+          f"{3 * flops / 1e9:.2f} GFLOP as 3xTF32), kernel at "
+          f"{100 * bound_ms / t['ms']:.2f} % of its bound; the fp32-SIMT "
+          f"step-by-step recurrence's bound {simt_ms:.4f} ms; kernel ms by "
+          f"chunk " + ", ".join(f"{c}: {v:.4f}" for c, v in
+                                 per_chunk.items())
+          + f"; seq_ssd_cuda fwd+bwd launched the kernel {launches} "
+          f"time(s)", flush=True)
 
 
 def _train_lm(torch, tmp, name, kernel, steps):

@@ -185,17 +185,18 @@ def _ssd_ref_y(x, B, C, a, dt):
 
 
 class _SsdOp(torch.autograd.Function):
-    """The SSD recurrence's ``y``: forward through ``ops.ssd_scan``,
-    backward through the sequential oracle's gradient."""
+    """The SSD recurrence's ``y``: forward through ``ops.ssd_scan`` at the
+    plan's chunk, backward through the sequential oracle's gradient."""
 
     @staticmethod
-    def forward(ctx, x, B, C, a, dt):
+    def forward(ctx, x, B, C, a, dt, chunk):
         ctx.save_for_backward(x, B, C, a, dt)
-        return ops.ssd_scan(*(t.contiguous() for t in (x, B, C, a, dt)))
+        return ops.ssd_scan(*(t.contiguous() for t in (x, B, C, a, dt)),
+                            chunk=chunk)
 
     @staticmethod
     def backward(ctx, g):
-        return _oracle_grads(_ssd_ref_y, ctx.saved_tensors, g)
+        return (*_oracle_grads(_ssd_ref_y, ctx.saved_tensors, g), None)
 
 
 @register_engine("seq_swa_cuda", kind="seq",
@@ -221,10 +222,16 @@ def _build_seq_swa_cuda(modules, plan: ExecutionPlan):
 
 @register_engine("seq_ssd_cuda", kind="seq",
                  doc="2PS along the sequence inside the ssd_scan CUDA "
-                     "kernel: the carried state stays in registers")
+                     "kernel: SSD chunks with the carried state kept on "
+                     "chip (plan.kernel carries chunk)")
 def _build_seq_ssd_cuda(modules, plan: ExecutionPlan):
     from repro_torch.exec.engines import _seq_modules
     lm = _seq_modules(modules, plan)
     if lm is not None:
         return lm
-    return _SsdOp.apply
+    chunk = plan_kernel(plan).chunk
+
+    def apply(x, B, C, a, dt):
+        return _SsdOp.apply(x, B, C, a, dt, chunk)
+
+    return apply

@@ -121,8 +121,7 @@ class KernelSpec:
     """Kernel-execution policy: ``backend`` ``"plain"`` (the reference
     engines) or ``"cuda"`` (the kernel-backed engines), plus per-kernel
     tiles (``block_h`` for ``conv2d_rows``, ``bq``/``bk`` for
-    ``swa_attention``; ``chunk`` is carried so reference plans load — the
-    CUDA ``ssd_scan`` takes no chunk)."""
+    ``swa_attention``, ``chunk`` for ``ssd_scan``)."""
 
     backend: str = "plain"
     block_h: int = 8

@@ -10,7 +10,8 @@ CUDA-backed alternate when the kernel can run it.  The kernel pass prices
 what each CUDA kernel needs — one CTA's shared memory against Hopper's
 227 KiB and the types it takes
 (:func:`repro_torch.kernels.conv2d_rows.launch_problem`,
-:func:`repro_torch.kernels.swa_attention.launch_problem`) — where the
+:func:`repro_torch.kernels.swa_attention.launch_problem`,
+:func:`repro_torch.kernels.ssd_chunk.launch_problem`) — where the
 reference priced a VMEM row block against 16 MiB and MXU alignment.
 
 Not ported yet, and raising :class:`NotImplementedError` with what they
@@ -30,6 +31,7 @@ from repro_torch.exec.plan import (
     batch_shards,
 )
 from repro_torch.exec.registry import not_ported_message
+from repro_torch.kernels import ssd_chunk as _ssd
 from repro_torch.kernels import swa_attention as _swa
 from repro_torch.kernels.conv2d_rows import SMEM_LIMIT, launch_problem
 from repro_torch.kernels.ops import candidate_tiles
@@ -61,10 +63,11 @@ def _cuda_infeasible(target: str, plan: ExecutionPlan, spec: KernelSpec,
     """``(reason, pricing)``: why ``target`` cannot run ``spec``'s tiling
     ("" when it can) plus the pricing extras to record on the plan.  A
     conv layer counts when the halo precondition holds; every counted
-    layer must then pass the kernel's launch limits.  ``seq_swa_cuda`` is
-    priced against the plan's ``seq`` extra (required: the kernel raises on
-    a tiling that does not divide it) and its ``head_dim`` extra;
-    ``seq_ssd_cuda`` has no tiles and needs fp32."""
+    layer must then pass the kernel's launch limits.  The sequence engines
+    are priced against the plan's ``seq`` extra (required: the kernels
+    raise on a tiling that does not divide it); ``seq_swa_cuda`` against
+    its ``head_dim`` extra too, ``seq_ssd_cuda`` against fp32 and its
+    ``ssm_state`` extra (the state size N)."""
     if target in ("seq_swa_cuda", "seq_ssd_cuda"):
         return _seq_infeasible(target, plan, spec, smem_limit)
     if target != "overlap_cuda":
@@ -94,15 +97,12 @@ def _cuda_infeasible(target: str, plan: ExecutionPlan, spec: KernelSpec,
 
 def _seq_infeasible(target: str, plan: ExecutionPlan, spec: KernelSpec,
                     smem_limit: int) -> Tuple[str, dict]:
-    if target == "seq_ssd_cuda":
-        if plan.dtype_bytes != 4:
-            return (f"the CUDA ssd_scan kernel is fp32-only (dtype_bytes="
-                    f"{plan.dtype_bytes})"), {}
-        return "", {}
     seq = int(plan.get("seq", 0))
     if not seq:
         return (f"plan has no 'seq' extra to validate {target!r} tiling "
                 f"against"), {}
+    if target == "seq_ssd_cuda":
+        return _ssd_infeasible(plan, spec, seq, smem_limit)
     try:
         bq, bk, _, _ = _swa.tiles(seq, 0, spec.bq, spec.bk)
     except ValueError as e:
@@ -117,14 +117,32 @@ def _seq_infeasible(target: str, plan: ExecutionPlan, spec: KernelSpec,
                                                      plan.dtype_bytes)}
 
 
+def _ssd_infeasible(plan: ExecutionPlan, spec: KernelSpec, seq: int,
+                    smem_limit: int) -> Tuple[str, dict]:
+    """The reference's chunk-divides-seq rule, then the kernel's own:
+    fp32 only, and one CTA's shared memory at the plan's state size."""
+    chunk = min(spec.chunk, seq)
+    if seq % chunk:
+        return f"ssd chunk={chunk} does not divide seq={seq}", {}
+    if plan.dtype_bytes != 4:
+        return (f"the CUDA ssd_scan kernel is fp32-only (dtype_bytes="
+                f"{plan.dtype_bytes})"), {}
+    n = int(plan.get("ssm_state", 0))
+    if not n:
+        return "", {}
+    problem = _ssd.launch_problem(chunk, n, smem_limit)
+    if problem:
+        return problem, {}
+    return "", {"kernel_smem_bytes": _ssd.smem_bytes(chunk, n)}
+
+
 def _tile_candidates(target: str, plan: ExecutionPlan) -> tuple:
     """The deterministic tile search space for ``target`` against this
-    plan's geometry (``candidate_tiles``, as in the reference); the CUDA
-    ``ssd_scan`` has no tiles."""
+    plan's geometry (``candidate_tiles``, as in the reference)."""
     if target == "seq_swa_cuda":
         return candidate_tiles("swa", seq=int(plan.get("seq", 0)))
     if target == "seq_ssd_cuda":
-        return ()
+        return candidate_tiles("ssd", seq=int(plan.get("seq", 0)))
     h = plan.in_shape[0] if plan.in_shape else 0
     return candidate_tiles("conv", h_out=h)
 

@@ -19,6 +19,7 @@ from repro_torch.kernels import swa_attention as _swa
 #: doubles as the tie-break order (identical to the reference's)
 CONV_BLOCK_HS = (32, 16, 8, 4, 2, 1)
 SWA_BLOCKS = (256, 128, 64, 32, 16, 8)
+SSD_CHUNKS = (256, 128, 64, 32, 16, 8)
 
 
 def candidate_tiles(kind: str, *, h_out: int = 0, seq: int = 0) -> tuple:
@@ -28,10 +29,9 @@ def candidate_tiles(kind: str, *, h_out: int = 0, seq: int = 0) -> tuple:
     ``"conv"`` yields ``{"block_h"}`` candidates, clamped to ``h_out`` when
     given and deduplicated in order; ``"swa"`` yields ``{"bq", "bk"}``
     pairs satisfying the kernel's divisibility contract against ``seq``
-    (``seq % bq == seq % bk == bq % bk == 0, bk <= bq``).  Geometry only —
-    feasibility stays with the planner's pricers.  The reference's
-    ``"ssd"`` space has no counterpart: the CUDA ``ssd_scan`` runs the
-    recurrence step by step and takes no chunk."""
+    (``seq % bq == seq % bk == bq % bk == 0, bk <= bq``); ``"ssd"`` yields
+    ``{"chunk"}`` divisors of ``seq``.  Geometry only — feasibility stays
+    with the planner's pricers."""
     if kind == "conv":
         out, seen = [], set()
         for b in CONV_BLOCK_HS:
@@ -50,7 +50,11 @@ def candidate_tiles(kind: str, *, h_out: int = 0, seq: int = 0) -> tuple:
                     continue
                 out.append({"bq": bq, "bk": bk})
         return tuple(out)
-    raise ValueError(f"unknown tile kind {kind!r}; known: 'conv', 'swa'")
+    if kind == "ssd":
+        return tuple({"chunk": c} for c in SSD_CHUNKS
+                     if not seq or (c <= seq and seq % c == 0))
+    raise ValueError(f"unknown tile kind {kind!r}; "
+                     f"known: 'conv', 'swa', 'ssd'")
 
 
 def _device_kind(t, name: str) -> str:
@@ -89,13 +93,13 @@ def swa_attention(q, k, v, window: int, bq: int = 128, bk: int = 128):
 swa_attention.launches = 0
 
 
-def ssd_scan(x, B, C, a, dt):
-    """The Mamba2 SSD recurrence's ``y``: the CUDA kernel for CUDA tensors
-    (counted in ``ssd_scan.launches``), its plain version for CPU
-    tensors."""
+def ssd_scan(x, B, C, a, dt, chunk: int = 128):
+    """The Mamba2 SSD scan's ``y`` in chunks of ``min(chunk, S)`` rows: the
+    CUDA kernel for CUDA tensors (counted in ``ssd_scan.launches``), its
+    plain version for CPU tensors."""
     if _device_kind(x, "ssd_scan") == "cpu":
-        return _ssd.ssd_scan_plain(x, B, C, a, dt)
-    y = _ssd.ssd_scan(x, B, C, a, dt)
+        return _ssd.ssd_scan_plain(x, B, C, a, dt, chunk)
+    y = _ssd.ssd_scan(x, B, C, a, dt, chunk=chunk)
     ssd_scan.launches += 1
     return y
 

@@ -59,10 +59,10 @@ def test_wrapper_on_cpu_takes_plain_and_counts_nothing(conv_case):
 def test_candidate_tiles_equal(h_out):
     assert ops.candidate_tiles("conv", h_out=h_out) \
         == ref_ops.candidate_tiles("conv", h_out=h_out)
-    # the CUDA ssd_scan takes no chunk, so the reference's "ssd" space has
-    # no counterpart
-    with pytest.raises(ValueError, match="unknown tile kind 'ssd'"):
-        ops.candidate_tiles("ssd")
+    # the chunked CUDA ssd_scan takes the reference's "ssd" space as it is
+    assert ops.candidate_tiles("ssd") == ref_ops.candidate_tiles("ssd")
+    with pytest.raises(ValueError, match="unknown tile kind 'mlp'"):
+        ops.candidate_tiles("mlp")
 
 
 def test_halo_ok_equal():

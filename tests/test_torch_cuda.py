@@ -14,6 +14,7 @@ sums in another order); the kernel engine's loss and gradients against the
 plain version at the reference kernel tests' tolerances (fp32 2e-5, bf16
 2e-2, as ``allclose`` atol and rtol), and at Gemma-3 4B's local-layer
 shape in bf16 at ``chip_smoke.py``'s atol 4e-3 / rtol 1e-2; ``ssd_scan``
+against its chunked plain version (and once against the sequential oracle)
 at atol 1e-3.
 """
 
@@ -131,15 +132,19 @@ SWA_CASES = [
 ]
 #: (atol, rtol) of chip_smoke.py's bf16 check at the Gemma shape
 SWA_GEMMA_BF16_TOL = (4e-3, 1e-2)
-#: (Bt, S, H, P, N): the kernel tests' shared SSD cases, then Zamba2-7B's
-#: Mamba2 widths (H 32, P 224, N 64)
+#: (Bt, S, H, P, N, chunk): the kernel tests' shared SSD cases, then
+#: Zamba2-7B's Mamba2 widths (H 32, P 224, N 64) at the default chunk, then
+#: a ragged P and N (partial P tile, N padded to 8, 4-byte copies)
 SSD_CASES = [
-    (2, 64, 4, 16, 8),
-    (1, 128, 2, 8, 4),
-    (2, 32, 4, 16, 8),
-    (1, 64, 8, 8, 16),
-    (1, 4096, 32, 224, 64),
+    (2, 64, 4, 16, 8, 16),
+    (1, 128, 2, 8, 4, 32),
+    (2, 32, 4, 16, 8, 32),
+    (1, 64, 8, 8, 16, 8),
+    (1, 4096, 32, 224, 64, 128),
+    (1, 256, 3, 45, 13, 64),
 ]
+#: every chunk the planner may pick (candidate_tiles("ssd"))
+SSD_CHUNKS = (256, 128, 64, 32, 16, 8)
 
 
 def _swa_inputs(S, D, dtype, device, B=1, H=8, seed=0):
@@ -199,25 +204,89 @@ def test_swa_each_instantiation_launches_and_matches(D, dtype, cuda_device):
                                rtol=rtol)
 
 
-@pytest.mark.requires_cuda
-@pytest.mark.parametrize("case", SSD_CASES, ids=lambda c: "x".join(map(str, c)))
-def test_ssd_kernel_matches_plain(case, cuda_device):
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.ssd_chunk import ssd_scan_plain
-    Bt, S, H, P, N = case
-    rng = np.random.default_rng(1)
-    t = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda_device)
+def _ssd_inputs(Bt, S, H, P, N, device, seed=1):
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
     x = t(rng.normal(size=(Bt, S, H, P)) * 0.5)
     B = t(rng.normal(size=(Bt, S, N)) * 0.5)
     C = t(rng.normal(size=(Bt, S, N)) * 0.5)
     dt = torch.nn.functional.softplus(t(rng.normal(size=(Bt, S, H))))
     a = torch.exp(-dt * torch.exp(t(rng.normal(size=(Bt, S, H)) * 0.1)))
+    return x, B, C, a, dt
+
+
+def _ssd_check(ins, chunk):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_chunk import ssd_scan_plain
     before = ops.ssd_scan.launches
-    got = ops.ssd_scan(x, B, C, a, dt)
+    got = ops.ssd_scan(*ins, chunk=chunk)
     torch.cuda.synchronize()
     assert ops.ssd_scan.launches == before + 1
-    want = ssd_scan_plain(x, B, C, a, dt)
+    want = ssd_scan_plain(*ins, chunk=chunk)
+    assert bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) <= 1e-3
+    return got
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", SSD_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_ssd_kernel_matches_plain(case, cuda_device):
+    *shape, chunk = case
+    _ssd_check(_ssd_inputs(*shape, cuda_device), chunk)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("chunk", SSD_CHUNKS)
+def test_ssd_kernel_at_every_fitting_chunk(chunk, cuda_device):
+    """Zamba2's head widths (P 224, N 64) over four heads at each chunk
+    whose shared memory fits; the sequential oracle agrees too."""
+    from repro_torch.kernels import ssd_chunk
+    from repro_torch.kernels.ref import ssd_scan_ref
+    ins = _ssd_inputs(1, 512, 4, 224, 64, cuda_device, seed=chunk)
+    if ssd_chunk.launch_problem(chunk, 64):
+        with pytest.raises(ValueError, match="shared memory"):
+            ssd_chunk.ssd_scan(*ins, chunk=chunk)
+        return
+    got = _ssd_check(ins, chunk)
+    want = ssd_scan_ref(*ins)[0]
+    assert float((got - want).abs().max()) <= 1e-3
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("chunk", [128, 256])
+def test_ssd_kernel_single_chunk(chunk, cuda_device):
+    """chunk == S, and a chunk above S (clamped to S, as the reference
+    does): one chunk, no carried state."""
+    _ssd_check(_ssd_inputs(2, 128, 2, 40, 16, cuda_device), chunk)
+
+
+@pytest.mark.requires_cuda
+def test_ssd_kernel_no_nan_at_tiny_decay(cuda_device):
+    """a down to 1e-30 at chunk 256 (N 16: chunk 256 fits): cum falls by ~28 a step, so an
+    unmasked exp(cum_t - cum_s) above the diagonal overflows; the mask
+    before exp keeps the output finite.  cum reaches about -2,300, where an
+    fp32 ulp is 2.4e-4, so each decay of either chunked form carries ~1e-4
+    relative error: held at 1e-3 of the output's largest magnitude."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_chunk import ssd_scan_plain
+    x, B, C, a, dt = _ssd_inputs(1, 512, 2, 64, 16, cuda_device)
+    a = a.clone()
+    a[:, ::3] = 1e-30
+    got = ops.ssd_scan(x, B, C, a, dt, chunk=256)
+    torch.cuda.synchronize()
+    want = ssd_scan_plain(x, B, C, a, dt, chunk=256)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
+
+
+@pytest.mark.requires_cuda
+def test_ssd_kernel_raises_when_chunk_does_not_divide(cuda_device):
+    from repro_torch.kernels import ops
+    ins = _ssd_inputs(1, 96, 2, 32, 16, cuda_device)
+    before = ops.ssd_scan.launches
+    with pytest.raises(ValueError, match="does not divide"):
+        ops.ssd_scan(*ins, chunk=64)
+    assert ops.ssd_scan.launches == before
 
 
 @pytest.mark.requires_cuda
@@ -256,8 +325,13 @@ def test_new_kernels_raise_rather_than_fall_back(cuda_device):
                           (256, 64, 256, 4), (64, 32, 64, 4)):
         assert lib.swa_attention_smem_bytes(bq, bk, d, db) \
             == swa_attention.smem_bytes(bq, bk, d, db)
-    assert ssd_chunk._lib().ssd_scan_group_lanes(64) \
-        == ssd_chunk.group_lanes(64)
+    ssd_lib = ssd_chunk._lib()
+    for chunk, n in ((128, 64), (64, 64), (8, 4), (256, 13), (64, 128),
+                     (256, 64)):
+        assert ssd_lib.ssd_scan_smem_bytes(chunk, n) \
+            == ssd_chunk.smem_bytes(chunk, n)
+        assert ssd_lib.ssd_scan_workspace_floats(2, 4096, chunk) \
+            == ssd_chunk.gram_floats(2, 4096, chunk)
 
 
 @pytest.mark.requires_cuda

@@ -335,7 +335,10 @@ def test_for_budget_seq_smallest_fitting_chunk_count():
 
 
 def test_seq_kernel_pass_for_ssd_and_unknown_engines():
-    ssd = ExecutionPlan.explicit("seq_ssd_cuda")
+    # as in the reference, a plan needs a 'seq' extra to be checked against
+    bare = kernelize_plan(ExecutionPlan.explicit("seq_ssd_cuda"), "cuda")
+    assert "no 'seq' extra" in bare.get("kernel_fallback")
+    ssd = ExecutionPlan.explicit("seq_ssd_cuda", seq=4096)
     assert kernelize_plan(ssd, "cuda").engine == "seq_ssd_cuda"
     half = dataclasses.replace(ssd, dtype_bytes=2)
     assert "fp32-only" in kernelize_plan(half, "cuda").get("kernel_fallback")
@@ -359,3 +362,50 @@ def test_reference_seq_plan_json_loads_as_cuda_engines():
         assert got.kernel == KernelSpec(backend="cuda", bq=64, bk=32)
         assert (got.n_rows, got.est_bytes, got.extras) \
             == (8, 83886080, ref.extras)
+
+
+def test_ssd_kernelize_checks_in_the_reference_order():
+    """seq extra, then chunk divides seq (``min(chunk, seq)``), then fp32,
+    then the kernel's shared memory at the ``ssm_state`` extra."""
+    pinned = KernelSpec(backend="cuda", chunk=48)
+    plan = ExecutionPlan.explicit("seq_ssd_cuda", seq=64)
+    assert "chunk=48 does not divide seq=64" in kernelize_plan(
+        plan, pinned).get("kernel_fallback")
+    # a chunk above seq clamps to it, as in the reference
+    short = kernelize_plan(ExecutionPlan.explicit("seq_ssd_cuda", seq=64),
+                           KernelSpec(backend="cuda", chunk=256))
+    assert short.engine == "seq_ssd_cuda"
+    # both faults: the divisibility rule speaks first
+    half = dataclasses.replace(plan, dtype_bytes=2)
+    assert "does not divide" in kernelize_plan(half, pinned) \
+        .get("kernel_fallback")
+    # Zamba2's N 64 at the default chunk 128: priced, no retile
+    zamba = kernelize_plan(ExecutionPlan.explicit(
+        "seq_ssd_cuda", seq=4096, ssm_state=64), "cuda")
+    assert (zamba.engine, zamba.kernel.chunk) == ("seq_ssd_cuda", 128)
+    assert zamba.get("kernel_smem_bytes") == 114688
+    assert zamba.get("kernel_retile") is None
+
+
+def test_ssd_retiles_to_a_fitting_chunk_or_falls_back():
+    plan = ExecutionPlan.explicit("seq_ssd_cuda", seq=4096, ssm_state=128)
+    # N 128 at chunk 128 needs 196,608 B (one stage): above a 150,000 B
+    # limit a bare "cuda" walks candidate_tiles("ssd") (256: 358,400 B,
+    # then 64: 115,712 B) to the first that fits
+    assert kernelize_plan(plan, "cuda").kernel.chunk == 128
+    auto = kernelize_plan(plan, "cuda", smem_limit=150000)
+    assert (auto.engine, auto.kernel.chunk) == ("seq_ssd_cuda", 64)
+    assert "196608 B" in auto.get("kernel_retile")
+    assert "chunk=64" in auto.get("kernel_retile")
+    assert auto.get("kernel_smem_bytes") == 115712
+    # a pinned spec does not retile
+    pinned = kernelize_plan(plan, KernelSpec(backend="cuda", chunk=256))
+    assert "358400 B" in pinned.get("kernel_fallback")
+    # too tight for any chunk: fall back, saying so
+    tight = kernelize_plan(plan, "cuda", smem_limit=10000)
+    assert "no candidate tiling feasible" in tight.get("kernel_fallback")
+    # a sequence no candidate divides keeps the default's reason
+    odd = kernelize_plan(ExecutionPlan.explicit("seq_ssd_cuda", seq=4100),
+                         "cuda")
+    assert "chunk=128 does not divide seq=4100" in odd.get(
+        "kernel_fallback")
