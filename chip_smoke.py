@@ -19,7 +19,8 @@ printing one line:
                 up to 4608 terms in another order).  Times the kernel, the
                 plain version and ``F.conv2d`` (the library yardstick,
                 never called by the port) at each VGG shape, beside the
-                card's bound.
+                card's bound; then the same at ResNet-50's stem (batch 32,
+                224² x 3 -> 112² x 64, k 7, s 2, p 3).
 4. train_kernel the main path: ``repro_torch.launch.train --arch vgg16
                 --preset full --strategy overlap --rows 4 --kernel cuda
                 --steps 3`` (full width, batch 32); the plan must be
@@ -29,6 +30,27 @@ printing one line:
                 steps each: step-0 losses of all three runs agree within
                 1e-4 relative, and OverL's measured peak memory is below
                 base's (the paper's claim).
+   train_2ps    VGG-16 with no ``--strategy``: the config's own request
+                must resolve to ``twophase_h`` at N=8 with the Planner's
+                segments and ``est_bytes`` (``VGG_PLANS``), 3 steps; then
+                ``twophase`` N=2, ``overlap_h`` N=8 and ``ckp``, 2 steps
+                each.  Every step-0 loss within 1e-4 relative of base's;
+                each run's peak printed beside its estimate, with its step
+                times.
+   residency    the same ``twophase_h`` N=8 under ``--residency host``
+                (pinned host memory, prefetch 1) and ``recompute``, 2 steps
+                each: step-0 loss within 1e-6 relative of device
+                residency's, ``est_bytes`` 1,087,145,848, host's peak no
+                higher than device's; step times printed.
+   budget       ``--budget-gb 1.0``: ``Planner.for_budget`` must pick
+                ``twophase_h`` N=11, 2 steps, peak beside the estimate.
+   train_resnet ResNet-50 at published widths (224², batch 32, lr 1e-5):
+                the config's request (``twophase_h`` N=8 and its segments,
+                ``RESNET_PLAN``) and ``base``, 2 steps each, then
+                ``--strategy overlap --rows 4 --kernel cuda``, 3 steps: the
+                engine must be ``overlap_cuda`` and ``conv2d_rows`` (the
+                stem) must launch 3 times; step-0 losses within 1e-4 of
+                base's.
 6. kernel_swa   ``swa_attention`` against its plain version at Gemma-3 4B's
                 local-layer shape (B 1, H 8 after the GQA repeat, S 4096,
                 D 256, window 1024): bf16 at the plan's bq/bk, ``allclose``
@@ -66,7 +88,8 @@ printing one line:
                 the unchunked one.
 
 Then it prints the card's name and power limit (nvidia-smi), one JSON line
-of per-kernel numbers, and last ``{"ok": true, "device": {...}}``.
+of per-kernel numbers (``conv2d_rows``' launches are train_kernel's 39 plus
+train_resnet's 3), and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -145,6 +168,26 @@ SSD_ATOL = 1e-3
 #: local/global periods), batch 1, seq 4096
 LM_LAYERS, LM_LOCAL_LAYERS, LM_BATCH, LM_SEQ = 12, 10, 1, 4096
 LM_LOSS_TOL = 1e-4
+#: the Planner's answers at full width (224², batch 32, xi = 3 * 4 *
+#: n_params), which equal the JAX package's (tests/test_torch_planner.py):
+#: (engine, N, est_bytes) by run, and the hybrids' segments
+VGG_PLANS = {"twophase_h": ("twophase_h", 8, 1115531128),
+             "twophase": ("twophase", 2, 2043471736),
+             "overlap_h": ("overlap_h", 8, 1110112120),
+             "ckp": ("ckp", 8, 2604353400),
+             "host": ("twophase_h", 8, 1087145848),
+             "recompute": ("twophase_h", 8, 1087145848)}
+VGG_SEGMENTS = [[0, 6, 8], [6, 11, 8], [11, 16, 8], [16, 21, 8],
+                [21, 26, 7], [26, 31, 3]]
+RESNET_PLAN = ("twophase_h", 8, 657321336)
+RESNET_SEGMENTS = [[0, 5, 8], [5, 10, 7], [10, 15, 3], [15, 20, 1]]
+#: --budget-gb 1.0 on VGG-16: Planner.for_budget's pick
+BUDGET_GB, BUDGET_PLAN = 1.0, ("twophase_h", 11)
+#: host and recompute residency move bytes, never values
+RESIDENCY_TOL = 1e-6
+#: ResNet-50 at random init with BatchNorm at its running statistics
+#: starts near loss 800 and diverges at VGG-16's 1e-3
+RESNET_LR = 1e-5
 #: Zamba2-7B's Mamba2 widths (configs/zamba2_7b.py: d_model 3584, expand 2,
 #: 32 heads, state 64) at batch 1, seq 4096
 SSD_SHAPE = (1, 4096, 32, 7168 // 32, 64)
@@ -327,10 +370,34 @@ def phase_kernel(torch, out):
     # the function timed is one batch-32 forward's 13 convs: its bound
     # counts all their FLOPs and all their bytes
     totals["bound_ms"], bound_by = _bound(ops_ms, bytes_ms)
-    out["kernel"] = {"max_abs_err": max_err, "rows": rows,
+    # ResNet-50's stem, which overlap_cuda runs through the kernel: k 7,
+    # s 2, p 3, Cin 3 -> 64, 224² -> 112²
+    for batch in (CHECK_BATCH, TRAIN_BATCH):
+        x, w = _inputs(torch, batch, 224, 224, 3, 64, 7, 300 + batch)
+        check(x, w, 2, 3, BLOCK_H, f"resnet stem b{batch}")
+    xc, wc = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+    stem = {
+        "ms": _timed_ms(torch, lambda: cr.conv2d_rows(
+            x, w, stride=2, padding=3, block_h=BLOCK_H), iters=20),
+        "plain_ms": _timed_ms(torch, lambda: cr.conv2d_rows_plain(
+            x, w, 2, 3, BLOCK_H)),
+        "library_ms": _timed_ms(torch, lambda: F.conv2d(
+            xc, wc, stride=2, padding=3), iters=20),
+    }
+    stem["bound_ms"], stem["bound_by"] = _bound(*_bound_parts(
+        TRAIN_BATCH, 224, 224, 3, 64, k=7, s=2, p=3))
+    del x, w, xc, wc
+    print(f"  kernel resnet stem b={TRAIN_BATCH} 224x224 3->64 k7 s2 p3: "
+          f"ms={stem['ms']:.4f} plain_ms={stem['plain_ms']:.4f} "
+          f"library_ms={stem['library_ms']:.4f} "
+          f"bound_ms={stem['bound_ms']:.4f} ({stem['bound_by']}) "
+          f"kernel/library={stem['ms'] / stem['library_ms']:.3f} "
+          f"bound/kernel={stem['bound_ms'] / stem['ms']:.3f}", flush=True)
+    out["kernel"] = {"max_abs_err": max_err, "rows": rows, "stem": stem,
                      "bound_by": bound_by, **totals}
     print(f"kernel: conv2d_rows matches plain at {len(VGG_SHAPES)} VGG "
-          f"shapes + {len(KERNEL_CONV_CASES)} geometry cases "
+          f"shapes + {len(KERNEL_CONV_CASES)} geometry cases + the ResNet "
+          f"stem "
           f"(max abs err {max_err:.3e}, worst err/max|plain| "
           f"{worst_rel:.3e}); one batch-{TRAIN_BATCH} forward's 13 convs: "
           f"kernel {totals['ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms,"
@@ -340,14 +407,14 @@ def phase_kernel(torch, out):
           f"{totals['bound_ms'] / totals['ms']:.3f})", flush=True)
 
 
-def _train(torch, tmp, name, *flags, steps):
+def _train(torch, tmp, name, *flags, steps, arch="vgg16", lr=TRAIN_LR):
     from repro_torch.launch import train as T
     out_dir = os.path.join(tmp, name)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    recs = T.main(["--arch", "vgg16", "--preset", "full", "--steps",
-                   str(steps), "--lr", str(TRAIN_LR), "--log-every", "1",
+    recs = T.main(["--arch", arch, "--preset", "full", "--steps",
+                   str(steps), "--lr", str(lr), "--log-every", "1",
                    "--out", out_dir, *flags])
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
@@ -404,6 +471,132 @@ def phase_train_rows(torch, out, tmp):
         raise AssertionError(f"step-0 loss differs from base: {bad}")
     if not runs["overlap"]["peak"] < runs["base"]["peak"]:
         raise AssertionError("OverL's peak memory is not below base's")
+
+
+def _check_plan(name, run, engine, n_rows, est=None, segments=None):
+    plan = run["plan"]
+    got = (plan["engine"], plan["n_rows"], plan["est_bytes"],
+           plan["segments"])
+    want = (engine, n_rows, plan["est_bytes"] if est is None else est,
+            plan["segments"] if segments is None else segments)
+    if got != want:
+        raise AssertionError(f"{name}: plan (engine, N, est_bytes, "
+                             f"segments) {got}, expected {want}")
+
+
+def _rel0(run, ref):
+    return abs(run["losses"][0] - ref) / abs(ref)
+
+
+def _report(name, run, rel):
+    plan = run["plan"]
+    print(f"  {name}: engine={plan['engine']} N={plan['n_rows']} "
+          f"residency={(plan.get('residency') or {}).get('default')} "
+          f"peak={run['peak']} est={plan['est_bytes']} "
+          f"peak-est={run['peak'] - plan['est_bytes']} "
+          f"step_s={run['step_s']} step-0 loss {run['losses'][0]} "
+          f"(rel {rel:.3e})", flush=True)
+
+
+def phase_train_2ps(torch, out, tmp):
+    """VGG-16's own plan request (no --strategy: twophase_h at N=8), then
+    twophase N=2, overlap_h N=8 and ckp."""
+    runs = {"twophase_h": _train(torch, tmp, "twophase_h", steps=3)}
+    for name, flags in (("twophase", ["--rows", "2"]),
+                        ("overlap_h", []), ("ckp", [])):
+        runs[name] = _train(torch, tmp, name, "--strategy", name, *flags,
+                            steps=2)
+    base0 = out["rows"]["base"]["losses"][0]
+    rel = {}
+    for name, run in runs.items():
+        _check_plan(name, run, *VGG_PLANS[name],
+                    VGG_SEGMENTS if name == "twophase_h" else None)
+        rel[name] = _rel0(run, base0)
+        _report(name, run, rel[name])
+    out["2ps"] = runs
+    print(f"train_2ps: the config's request resolved to twophase_h N=8 "
+          f"(est {VGG_PLANS['twophase_h'][2]}, segments {VGG_SEGMENTS}); "
+          f"step-0 losses vs base {base0}: {rel}", flush=True)
+    bad = {n: r for n, r in rel.items() if not r <= LOSS_TOL}
+    if bad:
+        raise AssertionError(f"step-0 loss differs from base: {bad}")
+
+
+def phase_residency(torch, out, tmp):
+    """twophase_h N=8 with its boundary caches in pinned host memory
+    (prefetch 1) and regenerated (recompute), against device residency."""
+    dev = out["2ps"]["twophase_h"]
+    runs, rel = {}, {}
+    for policy in ("host", "recompute"):
+        runs[policy] = run = _train(torch, tmp, f"res_{policy}",
+                                    "--residency", policy, steps=2)
+        _check_plan(policy, run, *VGG_PLANS[policy], VGG_SEGMENTS)
+        if run["plan"]["residency"]["default"] != policy:
+            raise AssertionError(f"{policy}: plan residency "
+                                 f"{run['plan']['residency']}")
+        rel[policy] = _rel0(run, dev["losses"][0])
+        _report(policy, run, rel[policy])
+    out["residency"] = runs
+    print(f"residency: step-0 loss vs device residency {rel}; peak device "
+          f"{dev['peak']} host {runs['host']['peak']} recompute "
+          f"{runs['recompute']['peak']}; steady step_s device "
+          f"{dev['step_s'][-1]:.4f} host {runs['host']['step_s'][-1]:.4f} "
+          f"recompute {runs['recompute']['step_s'][-1]:.4f}", flush=True)
+    bad = {n: r for n, r in rel.items() if not r <= RESIDENCY_TOL}
+    if bad:
+        raise AssertionError(f"residency changed the loss: {bad}")
+    if not runs["host"]["peak"] <= dev["peak"]:
+        raise AssertionError("host residency's peak is above device "
+                             "residency's")
+
+
+def phase_budget(torch, out, tmp):
+    run = _train(torch, tmp, "budget", "--budget-gb", str(BUDGET_GB),
+                 steps=2)
+    _check_plan("budget", run, *BUDGET_PLAN)
+    if not run["plan"]["feasible"]:
+        raise AssertionError(f"budget plan infeasible: {run['plan']}")
+    rel = _rel0(run, out["rows"]["base"]["losses"][0])
+    _report("budget", run, rel)
+    out["budget"] = run
+    print(f"budget: --budget-gb {BUDGET_GB} resolved to "
+          f"{BUDGET_PLAN[0]} N={BUDGET_PLAN[1]}", flush=True)
+    if not rel <= LOSS_TOL:
+        raise AssertionError(f"step-0 loss differs from base by {rel}")
+
+
+def phase_train_resnet(torch, out, tmp):
+    """ResNet-50 at published widths: its config's request, base, and
+    overlap N=4 kernelized to overlap_cuda (the stem runs conv2d_rows)."""
+    from repro_torch.kernels import ops
+    kw = dict(arch="resnet50", lr=RESNET_LR)
+    runs = {"config": _train(torch, tmp, "resnet_config", steps=2, **kw),
+            "base": _train(torch, tmp, "resnet_base", "--strategy", "base",
+                           steps=2, **kw)}
+    _check_plan("resnet config", runs["config"], *RESNET_PLAN,
+                RESNET_SEGMENTS)
+    ops.conv2d.launches = 0
+    runs["overlap_cuda"] = _train(torch, tmp, "resnet_kernel", "--strategy",
+                                  "overlap", "--rows", "4", "--kernel",
+                                  "cuda", steps=3, **kw)
+    launches = ops.conv2d.launches
+    out["resnet_launches"] = launches
+    _check_plan("resnet overlap_cuda", runs["overlap_cuda"], "overlap_cuda",
+                4)
+    base0 = runs["base"]["losses"][0]
+    rel = {n: _rel0(r, base0) for n, r in runs.items()}
+    for name, run in runs.items():
+        _report(f"resnet {name}", run, rel[name])
+    out["resnet"] = runs
+    print(f"train_resnet: overlap_cuda launched conv2d_rows {launches} "
+          f"times in 3 steps; step-0 losses vs base {base0}: {rel}",
+          flush=True)
+    if launches != 3:
+        raise AssertionError(f"conv2d_rows launched {launches} times, "
+                             f"expected 3 (the stem x 3 forwards)")
+    bad = {n: r for n, r in rel.items() if not r <= LOSS_TOL}
+    if bad:
+        raise AssertionError(f"step-0 loss differs from base: {bad}")
 
 
 def _gemma12(torch):
@@ -725,6 +918,11 @@ def main() -> int:
                   ("train_kernel", lambda: phase_train_kernel(torch, out,
                                                               tmp)),
                   ("train_rows", lambda: phase_train_rows(torch, out, tmp)),
+                  ("train_2ps", lambda: phase_train_2ps(torch, out, tmp)),
+                  ("residency", lambda: phase_residency(torch, out, tmp)),
+                  ("budget", lambda: phase_budget(torch, out, tmp)),
+                  ("train_resnet", lambda: phase_train_resnet(torch, out,
+                                                              tmp)),
                   ("kernel_swa", lambda: phase_kernel_swa(torch, out)),
                   ("kernel_ssd", lambda: phase_kernel_ssd(torch, out)),
                   ("train_lm_kernel", lambda: phase_train_lm_kernel(
@@ -732,8 +930,11 @@ def main() -> int:
                   ("train_lm_rows", lambda: phase_train_lm_rows(
                       torch, out, tmp))]
         for name, fn in phases:
+            t0 = time.time()
             try:
                 fn()
+                print(f"  ({name} took {time.time() - t0:.1f} s)",
+                      flush=True)
             except Exception as e:  # report which phase failed, then stop
                 import traceback
                 traceback.print_exc()
@@ -752,7 +953,7 @@ def main() -> int:
     print(out["smi"])
     print(json.dumps({"kernels": [
         row("conv2d_rows", "src/repro/kernels/conv2d_rows.py:101",
-            out["launches"], k, k["library_ms"]),
+            out["launches"] + out["resnet_launches"], k, k["library_ms"]),
         row("swa_attention", "src/repro/kernels/swa_attention.py:111",
             out["swa_launches"], sw, sw["library_ms"]),
         row("ssd_scan", "src/repro/kernels/ssd_chunk.py:78",

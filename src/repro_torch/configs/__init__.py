@@ -5,7 +5,7 @@ architecture, each citing its source in its docstring.
 ``get_reduced(name)`` the smoke-test variant.  The registry knows every
 architecture the reference has; those whose layers the port does not run
 yet raise ``NotImplementedError`` saying so.  The CNN configs live in their
-own modules (``configs/vgg16.py``).
+own modules (``configs/vgg16.py``, ``configs/resnet50.py``).
 """
 
 from __future__ import annotations

@@ -2,9 +2,12 @@
 (counterpart of ``repro.configs.vgg16``; same widths and presets).
 
 The config carries a :class:`PlanRequest`, which the trainer resolves to an
-:class:`~repro_torch.exec.plan.ExecutionPlan` through the Planner.  The
-default request (``twophase_h``, N=8) names an engine the port does not
-have yet; pin ``--strategy base`` or ``--strategy overlap``.
+:class:`~repro_torch.exec.plan.ExecutionPlan` through the Planner: the full
+preset asks for ``twophase_h`` at N=8 under a 24 GB budget, the reduced one
+for ``twophase`` at N=2.  The reduced request is kept verbatim although it
+exceeds 2PS's granularity bound at 64² (``max_valid_rows`` is 1 there), so
+it raises ``ValueError`` in the port as in the reference; pin another
+engine (``--strategy``) or a budget (``--budget-gb``) to train that preset.
 """
 
 import dataclasses

@@ -136,3 +136,22 @@ def make_column_apply(modules: Sequence):
         return apply_trunk(modules, params, x)
 
     return apply
+
+
+def make_splitcnn_apply(modules: Sequence, h0: int, n_rows: int):
+    """Split-CNN [22]-style broken baseline for the Fig. 11 ablation: rows
+    are processed independently with *closed* padding at seams and no halo
+    — the paper's "feature loss" / "padding redundancy" pathologies.  The
+    output height differs from the reference; callers need an H-agnostic
+    head (e.g. global average pooling)."""
+
+    def apply(params, x):
+        outs = []
+        for a, b in split_even(h0, n_rows):
+            y = x[:, a:b]
+            for m, p in zip(modules, params):
+                y = m.apply(p, y)  # full padding everywhere == seam padding
+            outs.append(y)
+        return torch.cat(outs, dim=1)
+
+    return apply

@@ -14,9 +14,10 @@ plan JSON written by the reference loads here.  The reference's
 ``KernelSpec.interpret`` has no role in the port (where a tensor lies picks
 kernel or plain version) and is dropped on load.
 
-:class:`MeshSpec`, :class:`ResidencySpec` and :class:`StageSpec` are kept
-as plain data so such plans load; executing a plan with a multi-device
-mesh, an offloading residency or stages is not ported yet, and
+:class:`ResidencySpec` is executed by the row-program executor
+(:mod:`repro_torch.exec.rowprog`).  :class:`MeshSpec` and
+:class:`StageSpec` are kept as plain data so such plans load; executing a
+plan with a multi-device mesh or stages is not ported yet, and
 :func:`repro_torch.exec.registry.build_apply` says so.
 """
 
@@ -68,6 +69,11 @@ class MeshSpec:
         for _, s in self.axes:
             n *= s
         return n
+
+    @property
+    def model(self) -> int:
+        """Extent of the model axis (1 when the mesh has none)."""
+        return dict(self.axes).get(self.model_axis, 1)
 
     @property
     def batch_extent(self) -> int:
@@ -180,6 +186,13 @@ class ResidencySpec:
     def parse(cls, s: str) -> Optional["ResidencySpec"]:
         s = s.strip()
         return cls(default=s) if s else None
+
+    def placement(self, name: str) -> str:
+        """Policy for the boundary cache called ``name``."""
+        for n, p in self.placements:
+            if n == name:
+                return p
+        return self.default
 
     @property
     def offloads(self) -> bool:

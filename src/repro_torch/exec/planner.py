@@ -1,9 +1,13 @@
 """The Planner: Eqs. 7-16 as a policy solver producing ExecutionPlans
 (counterpart of ``repro.exec.planner``).
 
-Ported: CNN estimates for ``base``, ``overlap`` and ``twophase``, explicit
-(engine, N) plans, ``solve`` for those three engines, ``resolve`` of a
-:class:`PlanRequest`; the sequence side (``seq_estimate``,
+Ported: CNN estimates, explicit (engine, N) plans and solves for all six
+CNN engines — the checkpointed ones (Ckp / 2PS-H / OverL-H) priced as
+segment-input checkpoints plus the worst segment's inner-strategy peak —
+under a :class:`ResidencySpec` (an offloading one re-prices 2PS's SD caches
+as a transit buffer); ``resolve`` of a :class:`PlanRequest` with an
+automatic engine or a pinned N; ``for_budget`` in the static Table I order
+with the ``residencize`` fallback; the sequence side (``seq_estimate``,
 ``for_budget_seq``, ``for_model``: Eq. 7 along the token axis); and the
 kernel pass (:func:`kernelize_plan`) that swaps an engine for its
 CUDA-backed alternate when the kernel can run it.  The kernel pass prices
@@ -15,9 +19,9 @@ what each CUDA kernel needs — one CTA's shared memory against Hopper's
 reference priced a VMEM row block against 16 MiB and MXU alignment.
 
 Not ported yet, and raising :class:`NotImplementedError` with what they
-wait for: ``for_budget`` (engine auto-selection), the hybrid engines'
-estimates and solves, ``residencize``, ``stagedize``, the costed chooser,
-the tile autotuner and the serving planner.
+wait for: the costed chooser (``for_budget`` with a ``cost_table``),
+``stagedize`` where it would have to stage, the tile autotuner and the
+serving planner.
 """
 
 from __future__ import annotations
@@ -26,11 +30,12 @@ from dataclasses import replace as dataclasses_replace
 from typing import Optional, Sequence, Tuple
 
 from repro_torch.core import rowplan as _rp
+from repro_torch.core import twophase as _tp
+from repro_torch.core.hybrid import auto_segments, max_rows_per_segment
 from repro_torch.exec.plan import (
     ExecutionPlan, KernelSpec, MeshSpec, PlanRequest, ResidencySpec,
     batch_shards,
 )
-from repro_torch.exec.registry import not_ported_message
 from repro_torch.kernels import ssd_chunk as _ssd
 from repro_torch.kernels import swa_attention as _swa
 from repro_torch.kernels.conv2d_rows import SMEM_LIMIT, launch_problem
@@ -38,8 +43,16 @@ from repro_torch.kernels.ops import candidate_tiles
 
 CNN_ENGINES = ("base", "ckp", "overlap", "twophase", "overlap_h",
                "twophase_h")
-#: engines the port can estimate and solve (the hybrids wait)
-PORTED_ESTIMATES = ("base", "overlap", "twophase")
+#: auto-selection order under a budget (least runtime overhead first)
+BUDGET_PREFERENCE = ("base", "twophase", "overlap", "twophase_h",
+                     "overlap_h", "ckp")
+#: per-segment strategy of each checkpointed engine
+INNER_STRATEGY = {"ckp": "column", "overlap_h": "overlap",
+                  "twophase_h": "twophase"}
+#: engines whose device-byte estimate changes under an offloading
+#: ResidencySpec — the carry-based CNN engines (OverL replicates its halo
+#: instead of carrying it, so residency cannot shrink it)
+RESIDENCY_ENGINES = ("twophase", "twophase_h")
 #: plain engine -> its CUDA-backed alternate with the same call signature
 #: (base and overlap both map to overlap_cuda: the kernel's row tiling is
 #: internal, so its full-tensor apply is a drop-in for either)
@@ -50,6 +63,39 @@ CUDA_ENGINES = ("overlap_cuda", "seq_swa_cuda", "seq_ssd_cuda")
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet")
+
+
+def _offloads(residency: Optional[ResidencySpec]) -> bool:
+    """True when the spec moves EVERY cache off-device (default host /
+    recompute with no per-cache override back to device).  A spec that
+    pins some caches on device keeps the full device-resident estimate:
+    pricing is never optimistic."""
+    return residency is not None and residency.default != "device" \
+        and all(p != "device" for _, p in residency.placements)
+
+
+def derive_segments(modules: Sequence, h0: int, inner: str, n_rows: int,
+                    n_segments: Optional[int]
+                    ) -> Tuple[Tuple[int, int, int], ...]:
+    """The one segmentation rule shared by planner estimates and engine
+    builders: sqrt(L) even cuts with per-segment granularity caps
+    (Table I).  Returns (start, end, n_rows) triples."""
+    cuts = auto_segments(len(modules), n_segments)
+    if inner == "column":
+        return tuple((a, b, 1) for a, b in cuts)
+    caps = max_rows_per_segment(modules, h0, cuts, inner)
+    return tuple((a, b, max(1, min(n_rows, cap)))
+                 for (a, b), cap in zip(cuts, caps))
+
+
+def segment_row_capacity(modules: Sequence, h0: int, inner: str,
+                         n_segments: Optional[int] = None
+                         ) -> Tuple[Tuple[int, int, int], ...]:
+    """Per-segment granularity caps under sqrt(L) segmentation — the
+    Table I counters, as plan-shaped (start, end, cap) triples."""
+    cuts = auto_segments(len(modules), n_segments)
+    caps = max_rows_per_segment(modules, h0, cuts, inner)
+    return tuple((a, b, cap) for (a, b), cap in zip(cuts, caps))
 
 
 # ---------------------------------------------------------------------------
@@ -243,34 +289,104 @@ class Planner:
         self.dev_batch = batch // shards
         self.shards = shards
 
+    # -- estimates ---------------------------------------------------------
+    def _shapes(self):
+        return _rp.shape_chain(self.modules, self.in_shape)
+
+    def _segments(self, n_rows: int, inner: str,
+                  n_segments: Optional[int]
+                  ) -> Tuple[Tuple[int, int, int], ...]:
+        return derive_segments(self.modules, self.in_shape[0], inner,
+                               n_rows, n_segments)
+
+    def _twophase_offloaded(self, modules, in_shape, n_rows: int,
+                            residency: ResidencySpec) -> int:
+        """Device bytes of a 2PS block whose SD caches leave device
+        memory: the Eq. 8 BP baseline plus the transit buffer — the
+        largest single row's caches times the rows' worth concurrently on
+        the device (``1 + prefetch_depth`` fetches for host residency;
+        producer + consumer of the recompute chain for recompute; summed
+        for a mixed spec, capped at the N-1 importing rows)."""
+        base = _rp.omega_bp(modules, in_shape, self.dev_batch, n_rows,
+                            self.dtype_bytes)
+        rows = _rp.twophase_cache_row_bytes(modules, in_shape,
+                                            self.dev_batch, n_rows,
+                                            self.dtype_bytes)
+        buf = max(rows) if rows else 0
+        policies = {residency.default} | {p for _, p in
+                                          residency.placements}
+        mult = 0
+        if "host" in policies:
+            mult += 1 + residency.prefetch_depth
+        if "recompute" in policies:
+            mult += 2
+        mult = min(mult, max(1, n_rows - 1))
+        return base + mult * buf
+
+    def _estimate_segmented(self, segments, inner: str,
+                            residency: Optional[ResidencySpec] = None
+                            ) -> int:
+        """Checkpoint bytes (segment-input maps stay live FP->BP) + the
+        worst per-segment peak under the inner strategy."""
+        shapes = self._shapes()
+        db, B = self.dtype_bytes, self.dev_batch
+        ckpt = sum(B * shapes[a][0] * shapes[a][1] * shapes[a][2] * db
+                   for a, _, _ in segments if a > 0)
+        worst = 0
+        for a, b, n in segments:
+            sub = self.modules[a:b]
+            if inner == "column":
+                est = _rp.omega_column(sub, shapes[a], B, db)
+            elif inner == "twophase" and _offloads(residency):
+                est = self._twophase_offloaded(sub, shapes[a], n, residency)
+            else:
+                est = _rp.estimate_bytes(sub, shapes[a], B, inner, n, db)
+            worst = max(worst, est)
+        return ckpt + worst
+
     def estimate(self, engine: str, n_rows: int,
+                 n_segments: Optional[int] = None,
+                 segments: Tuple[Tuple[int, int, int], ...] = (),
                  residency: Optional[ResidencySpec] = None) -> int:
-        """Peak activation bytes ONE device holds, plus ``xi``."""
-        if residency is not None and residency.offloads:
-            raise _not_ported(f"pricing residency {residency.describe()!r}")
+        """Peak activation bytes ONE device holds, plus ``xi``.
+        ``residency`` re-prices the carry-based engines' SD caches; the
+        other engines carry nothing, so theirs is residency-invariant."""
         if engine == "base":
             return _rp.omega_column(self.modules, self.in_shape,
                                     self.dev_batch, self.dtype_bytes) + self.xi
         if engine in ("overlap", "twophase"):
+            if engine == "twophase" and _offloads(residency):
+                return self._twophase_offloaded(
+                    self.modules, self.in_shape, n_rows, residency) + self.xi
             return _rp.estimate_bytes(self.modules, self.in_shape,
                                       self.dev_batch, engine, n_rows,
                                       self.dtype_bytes, self.xi)
-        if engine in CNN_ENGINES:
-            raise NotImplementedError(
-                f"estimating {engine!r} is not ported yet; "
-                + not_ported_message(engine))
+        if engine in INNER_STRATEGY:
+            inner = INNER_STRATEGY[engine]
+            segs = segments or self._segments(n_rows, inner, n_segments)
+            return self._estimate_segmented(segs, inner, residency) + self.xi
         raise ValueError(f"unknown CNN engine {engine!r}; known: "
                          f"{list(CNN_ENGINES)}")
 
-    def plan(self, engine: str, n_rows: int = 1, budget: int = 0,
+    # -- plans ---------------------------------------------------------------
+    def plan(self, engine: str, n_rows: int = 1,
+             n_segments: Optional[int] = None, budget: int = 0,
              residency: Optional[ResidencySpec] = None,
              **extras) -> ExecutionPlan:
-        """An explicit (engine, N) request as a full plan with estimates."""
+        """An explicit (engine, N) request as a full plan with estimates
+        and, for the checkpointed engines, pinned segments; ``residency``
+        is priced and recorded on the plan."""
         n_rows = max(1, n_rows)
-        dev_est = self.estimate(engine, n_rows, residency)
+        segments: Tuple[Tuple[int, int, int], ...] = ()
+        if engine in INNER_STRATEGY:
+            segments = self._segments(n_rows, INNER_STRATEGY[engine],
+                                      n_segments)
+        dev_est = self.estimate(engine, n_rows, n_segments, segments,
+                                residency)
         return ExecutionPlan(
             engine=engine, n_rows=n_rows, in_shape=self.in_shape,
             batch=self.batch, dtype_bytes=self.dtype_bytes,
+            n_segments=n_segments, segments=segments,
             est_bytes=dev_est * self.shards, est_bytes_per_device=dev_est,
             budget=budget,
             feasible=(budget == 0 or dev_est < budget // self.shards),
@@ -278,18 +394,140 @@ class Planner:
             extras=tuple(extras.items()))
 
     def solve(self, engine: str, budget: int,
+              n_segments: Optional[int] = None,
               residency: Optional[ResidencySpec] = None) -> ExecutionPlan:
         """min N s.t. estimate(engine, N) < budget (Eqs. 9/10/12/16 plus
-        the Sec. IV validity bounds), as a plan."""
-        if engine not in PORTED_ESTIMATES:
-            raise NotImplementedError(
-                f"solving {engine!r} is not ported yet; "
-                + not_ported_message(engine))
-        r = _rp.solve_n(self.modules, self.in_shape, self.dev_batch,
-                        budget // self.shards, engine, self.dtype_bytes,
-                        self.xi, self.n_max)
-        return self.plan(engine, max(1, r.n_rows), budget=budget,
-                         residency=residency)
+        the Sec. IV validity bounds), as a plan; per device under a
+        mesh."""
+        if engine == "twophase" and _offloads(residency):
+            # the validity-bounded scan solve_n does, against the
+            # offloaded estimate
+            return self._scan_n(engine, self._valid_twophase_ns(), budget,
+                                residency=residency)
+        if engine in ("base", "overlap", "twophase"):
+            r = _rp.solve_n(self.modules, self.in_shape, self.dev_batch,
+                            budget // self.shards, engine, self.dtype_bytes,
+                            self.xi, self.n_max)
+            return self.plan(engine, max(1, r.n_rows), budget=budget,
+                             residency=residency)
+        if engine == "ckp":  # granularity-free: one estimate
+            return self.plan(engine, 1, n_segments, budget=budget,
+                             residency=residency)
+        if engine not in INNER_STRATEGY:
+            raise ValueError(f"unknown CNN engine {engine!r}; known: "
+                             f"{list(CNN_ENGINES)}")
+        # hybrid engines: per-segment granularity caps bound the search
+        caps = [cap for _, _, cap in segment_row_capacity(
+            self.modules, self.in_shape[0], INNER_STRATEGY[engine],
+            n_segments)]
+        return self._scan_n(engine,
+                            range(1, min(self.n_max, max(caps)) + 1),
+                            budget, n_segments, residency)
+
+    def _valid_twophase_ns(self):
+        """N = 1, 2, ... while the 2PS granularity bound admits N."""
+        for n in range(1, self.n_max + 1):
+            if n > 1:
+                try:
+                    if not _tp.validate_plan(_tp.module_boundaries(
+                            self.modules, self.in_shape[0], n)):
+                        return
+                except ValueError:
+                    return
+            yield n
+
+    def _scan_n(self, engine: str, ns, budget: int,
+                n_segments: Optional[int] = None,
+                residency: Optional[ResidencySpec] = None
+                ) -> Optional[ExecutionPlan]:
+        """First feasible plan over the granularities ``ns``, else the
+        smallest-estimate loser (estimates need not be monotonic in N)."""
+        best: Optional[ExecutionPlan] = None
+        for n in ns:
+            p = self.plan(engine, n, n_segments, budget=budget,
+                          residency=residency)
+            if p.feasible:
+                return p
+            if best is None or p.est_bytes < best.est_bytes:
+                best = p
+        return best
+
+    def residencize(self, plan: ExecutionPlan,
+                    budget: Optional[int] = None) -> ExecutionPlan:
+        """Fit a device-infeasible plan by moving boundary caches off
+        device: retry the carry-based engines (the plan's own first when
+        it is one) under ``host`` then ``recompute`` residency; the first
+        feasible re-solve wins and records why under the ``residencized``
+        extra.  Otherwise the plan comes back unchanged."""
+        budget = plan.budget if budget is None else budget
+        if plan.feasible or not budget or _offloads(plan.residency):
+            return plan
+        candidates = list(RESIDENCY_ENGINES)
+        if plan.engine in candidates:
+            candidates.remove(plan.engine)
+            candidates.insert(0, plan.engine)
+        dev_budget = budget // self.shards
+        for policy in ("host", "recompute"):
+            spec = ResidencySpec(default=policy)
+            for engine in candidates:
+                p = self.solve(engine, budget, residency=spec)
+                if p is not None and p.feasible:
+                    return p.with_extras(residencized=(
+                        f"device-only solve infeasible (best "
+                        f"{plan.engine} needs {plan.est_bytes_per_device} "
+                        f"B/device > budget {dev_budget}); {policy} "
+                        f"residency of {engine} boundary caches fits at "
+                        f"N={p.n_rows}"))
+        return plan
+
+    def stagedize(self, plan: Optional[ExecutionPlan],
+                  budget: Optional[int] = None,
+                  residency: Optional[ResidencySpec] = None
+                  ) -> Optional[ExecutionPlan]:
+        """The model-axis fallback: a feasible plan, a zero budget or a
+        mesh with no model extent come back unchanged, as in the
+        reference; pipelining stages over a model axis is not ported
+        yet."""
+        if plan is None or plan.feasible:
+            return plan
+        budget = plan.budget if budget is None else budget
+        model = self.mesh.model if self.mesh is not None else 1
+        if not budget or model <= 1:
+            return plan
+        raise _not_ported("Planner.stagedize over a model axis (pipelined "
+                          "stages, exec/pipeline.py)")
+
+    @classmethod
+    def for_budget(cls, modules: Sequence, in_shape: Tuple[int, int, int],
+                   batch: int, budget: int, dtype_bytes: int = 4,
+                   xi: int = 0, n_max: int = 64,
+                   candidates: Sequence[str] = BUDGET_PREFERENCE,
+                   mesh: Optional[MeshSpec] = None,
+                   residency: Optional[ResidencySpec] = None,
+                   cost_table=None) -> ExecutionPlan:
+        """Auto-select strategy *and* granularity under a byte budget:
+        ``candidates`` in order of increasing runtime overhead (Table I /
+        Fig. 8), the first feasible plan wins.  If none fits and no
+        residency is pinned, :meth:`residencize` retries the carry-based
+        engines with their caches off device, then :meth:`stagedize`
+        (a no-op without a model axis).  Failing everything, the
+        infeasible plan with the smallest estimate.  Per device under a
+        mesh."""
+        if cost_table is not None:
+            raise _not_ported("the costed chooser (Planner.for_budget with "
+                              "a cost_table, exec/costmodel.py)")
+        planner = cls(modules, in_shape, batch, dtype_bytes, xi, n_max,
+                      mesh=mesh)
+        best: Optional[ExecutionPlan] = None
+        for engine in candidates:
+            p = planner.solve(engine, budget, residency=residency)
+            if p.feasible:
+                return p
+            if best is None or p.est_bytes < best.est_bytes:
+                best = p
+        if residency is None:
+            best = planner.residencize(best, budget)
+        return planner.stagedize(best, budget, residency)
 
     def kernelize(self, plan: ExecutionPlan, spec,
                   smem_limit: int = SMEM_LIMIT) -> ExecutionPlan:
@@ -317,24 +555,41 @@ class Planner:
                  residency: Optional[ResidencySpec] = None) -> ExecutionPlan:
         budget = int(request.budget_gb * 2**30)
         if request.engine and request.n_rows:
-            return self.plan(request.engine, request.n_rows, budget=budget,
+            return self.plan(request.engine, request.n_rows,
+                             request.n_segments, budget=budget,
                              residency=residency)
         if request.engine:
-            return self.solve(request.engine, budget, residency)
-        raise _not_ported("engine auto-selection (Planner.for_budget); "
-                          "pin an engine")
-
-    # -- the reference's other planning passes --------------------------
-    @classmethod
-    def for_budget(cls, *args, **kwargs):
-        raise _not_ported("Planner.for_budget (engine auto-selection "
-                          "under a budget)")
-
-    def residencize(self, *args, **kwargs):
-        raise _not_ported("Planner.residencize (boundary-cache residency)")
-
-    def stagedize(self, *args, **kwargs):
-        raise _not_ported("Planner.stagedize (pipelined stages)")
+            return self.solve(request.engine, budget,
+                              n_segments=request.n_segments,
+                              residency=residency)
+        if request.n_rows:
+            # engine auto, N pinned: the first engine (Table I order)
+            # feasible at exactly this granularity
+            best: Optional[ExecutionPlan] = None
+            for engine in BUDGET_PREFERENCE:
+                if engine in ("base", "ckp") and request.n_rows > 1:
+                    continue  # granularity-free engines can't honour N
+                try:
+                    if engine == "twophase" and not _tp.validate_plan(
+                            _tp.module_boundaries(self.modules,
+                                                  self.in_shape[0],
+                                                  request.n_rows)):
+                        continue  # exceeds the 2PS granularity bound
+                    p = self.plan(engine, request.n_rows,
+                                  request.n_segments, budget=budget,
+                                  residency=residency)
+                except ValueError:  # N invalid for this engine's bounds
+                    continue
+                if p.feasible:
+                    return p
+                if best is None or p.est_bytes < best.est_bytes:
+                    best = p
+            if best is not None:
+                return best
+        return self.for_budget(self.modules, self.in_shape, self.batch,
+                               budget, dtype_bytes=self.dtype_bytes,
+                               xi=self.xi, n_max=self.n_max, mesh=self.mesh,
+                               residency=residency)
 
     def autotune_kernel(self, *args, **kwargs):
         raise _not_ported("Planner.autotune_kernel (timed tile search)")

@@ -20,10 +20,6 @@ Builder = Callable[[Any, ExecutionPlan], Callable]
 #: engines the reference registers that the port does not have yet, with
 #: what each one waits for
 NOT_PORTED = {
-    "ckp": "core/hybrid.py",
-    "twophase": "the 2PS executor (exec/rowprog.py)",
-    "overlap_h": "core/hybrid.py",
-    "twophase_h": "the 2PS executor (exec/rowprog.py) and core/hybrid.py",
     "pipeline_rows": "exec/pipeline.py",
     "pipeline_seq": "exec/pipeline.py",
     "seq_carry_scan": "the SSM/xLSTM layers and core/seqrow.py's carried "
@@ -80,15 +76,14 @@ def list_engines(kind: Optional[str] = None) -> List[str]:
 def build_apply(modules, plan: ExecutionPlan) -> Callable:
     """Resolve ``plan.engine`` in the registry and build its apply fn
     (``apply(params, x)`` for CNN engines; for seq engines given the LM
-    form ``(params, cfg)``, ``apply(params, batch) -> (loss, aux)``).  Sharded plans and offloading
-    residencies are not ported yet and raise here."""
+    form ``(params, cfg)``, ``apply(params, batch) -> (loss, aux)``).
+    ``plan.residency`` travels to the engine: the carry-based engines run
+    as row programs (:mod:`repro_torch.exec.rowprog`), which place their
+    boundary caches by it.  Sharded plans are not ported yet and raise
+    here."""
     spec = get_engine(plan.engine)
     if plan.mesh is not None and plan.mesh.n_devices > 1:
         raise NotImplementedError(
             f"sharded execution (mesh={plan.mesh.describe()}) is not "
             f"ported yet; run the plan on one device")
-    if plan.residency is not None and plan.residency.offloads:
-        raise NotImplementedError(
-            f"boundary-cache residency {plan.residency.describe()!r} is "
-            f"not ported yet (it needs exec/rowprog.py)")
     return spec.build(modules, plan)

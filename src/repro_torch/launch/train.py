@@ -1,14 +1,18 @@
 """Training driver (counterpart of ``repro.launch.train``).  Two modes:
 
-* CNN::
+* CNN (``--arch vgg16`` or ``resnet50``)::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch vgg16 \\
-        --preset full --strategy overlap --rows 4 --kernel cuda --steps 3
+        --preset full --steps 3
 
-  resolves the request to an ExecutionPlan (config -> ``Planner.resolve``
-  -> kernel pass), builds the trunk through ``build_apply``, and takes SGD
-  steps on the synthetic image data.  ``--kernel cuda`` swaps the engine
-  for ``overlap_cuda``, whose convs run the hand-written CUDA kernel.
+  resolves the config's plan request (the full presets ask for
+  ``twophase_h`` at N=8) to an ExecutionPlan through ``Planner.resolve``,
+  builds the trunk through ``build_apply``, and takes SGD steps on the
+  synthetic image data.  ``--budget-gb`` lets ``Planner.for_budget`` pick
+  engine and N; ``--strategy``/``--rows`` pin them; ``--residency
+  host|recompute`` places the 2PS boundary caches; ``--kernel cuda`` swaps
+  ``base``/``overlap`` for ``overlap_cuda``, whose convs run the
+  hand-written CUDA kernel.
 * LM::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3_4b \\
@@ -28,10 +32,10 @@ Both print ``plan: ...`` and the loss per step and write ``train_log.json``
 Differences from the reference: ``--batch`` defaults to the config's batch
 for CNNs (32 for the full preset), ``--lr`` to 0.05 for CNNs and 3e-4 for
 LMs, and the kernel backends are named ``plain``/``cuda``.
-``--budget-gb``, ``--mesh``, ``--residency``, ``--plan-cache``,
-``--trace``, ``--metrics-out`` and the archs other than vgg16 and
-gemma3_4b are not ported yet and raise; ``--save`` (checkpoints) is not
-there yet.
+``--mesh``, ``--plan-cache``, ``--trace``, ``--metrics-out``, the LM
+archs other than gemma3_4b, and ``--budget-gb``/``--residency`` on the LM
+path are not ported yet and raise; ``--save`` (checkpoints) is not there
+yet.
 """
 
 from __future__ import annotations
@@ -53,25 +57,21 @@ from repro_torch.optim.adamw import (
 )
 
 #: flags of the reference trainer that wait for later slices of the port
-_NOT_PORTED_FLAGS = ("budget_gb", "mesh", "residency", "plan_cache", "trace",
-                     "metrics_out")
+_NOT_PORTED_FLAGS = ("mesh", "plan_cache", "trace", "metrics_out")
 CNN_ARCHS = ("vgg16", "resnet50")
 #: the reference's CNN learning rate; LMs take AdamW's 3e-4
 CNN_LR, LM_LR = 0.05, 3e-4
 
 
-def _check_flags(args) -> None:
-    for name in _NOT_PORTED_FLAGS:
-        if getattr(args, name):
+#: CNN flags the LM trainer does not take yet
+_NOT_PORTED_LM_FLAGS = ("budget_gb", "residency")
+
+
+def _check_flags(args, names=_NOT_PORTED_FLAGS, where="") -> None:
+    for name in names:
+        if getattr(args, name) not in (None, ""):
             raise NotImplementedError(
-                f"--{name.replace('_', '-')} is not ported yet")
-
-
-def _check_ported(args) -> None:
-    if args.arch != "vgg16":
-        raise NotImplementedError(f"--arch {args.arch} is not ported yet; "
-                                  f"the port trains vgg16 and gemma3_4b")
-    _check_flags(args)
+                f"--{name.replace('_', '-')} is not ported yet{where}")
 
 
 def _device(name: str) -> torch.device:
@@ -86,10 +86,13 @@ def train_cnn(args, params=None):
     """Train ``args.steps`` SGD steps; returns the step records.  ``params``
     (a tree on the target device) replaces the seeded init — the parity
     tests pass the reference's init through it."""
-    _check_ported(args)
-    from repro_torch.configs import vgg16 as cfgmod
+    _check_flags(args)
+    if args.arch not in CNN_ARCHS:
+        raise ValueError(f"--arch {args.arch} is not a CNN; CNN archs: "
+                         f"{list(CNN_ARCHS)}")
+    import importlib
     from repro_torch.exec import Planner, build_apply
-    from repro_torch.models.cnn import vgg
+    from repro_torch.models.cnn import resnet, vgg
 
     device = _device(args.device)
     # the parity the port is held to is fp32 (1e-5): cuDNN convolutions
@@ -97,21 +100,36 @@ def train_cnn(args, params=None):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    cfgmod = importlib.import_module(f"repro_torch.configs.{args.arch}")
     ccfg = cfgmod.reduced() if args.preset == "reduced" else cfgmod.CONFIG
     shape = (ccfg.image, ccfg.image, ccfg.channels)
     gen = torch.Generator().manual_seed(args.seed)
-    mods, init = vgg.init_vgg16(gen, shape, ccfg.width_mult, ccfg.n_classes,
-                                device=device)
+    if ccfg.arch == "vgg16":
+        mods, init = vgg.init_vgg16(gen, shape, ccfg.width_mult,
+                                    ccfg.n_classes, device=device)
+        head_apply = vgg.head_apply
+    else:
+        mods, init = resnet.init_resnet50(gen, shape, ccfg.width_mult,
+                                          ccfg.n_classes, device=device)
+        head_apply = resnet.head_apply
     params = init if params is None else params
 
+    # the reference's precedence: --budget-gb clears engine and N (the
+    # Planner picks them), then --strategy / --rows pin them; an omitted
+    # flag leaves the config's request
     batch = args.batch or ccfg.batch
     req = ccfg.plan
+    if args.budget_gb is not None:
+        req = dataclasses.replace(req, engine="", n_rows=0,
+                                  budget_gb=args.budget_gb)
     if args.strategy is not None:
         req = dataclasses.replace(req, engine=args.strategy)
     if args.rows is not None:
         req = dataclasses.replace(req, n_rows=args.rows)
     if args.kernel:
         req = dataclasses.replace(req, kernel=args.kernel)
+    if args.residency:
+        req = dataclasses.replace(req, residency=args.residency)
     # the paper's xi: params + grads + optimizer state live beside activations
     n_params = sum(l.numel() for l in tree_leaves(params))
     plan = Planner(mods, shape, batch, xi=3 * 4 * n_params).resolve(req)
@@ -122,7 +140,7 @@ def train_cnn(args, params=None):
           f"device={device}", flush=True)
 
     def loss_fn(p, images, labels):
-        logits = vgg.head_apply(p["head"], trunk_apply(p["trunk"], images))
+        logits = head_apply(p["head"], trunk_apply(p["trunk"], images))
         logp = torch.log_softmax(logits, dim=-1)
         return -logp.gather(1, labels[:, None]).mean()
 
@@ -159,6 +177,7 @@ def train_lm(args, cfg=None, params=None):
     smoke cuts the depth through the first, the parity tests pass the
     reference's init through the second."""
     _check_flags(args)
+    _check_flags(args, _NOT_PORTED_LM_FLAGS, " on the LM path")
     from repro_torch.configs import get_config, get_reduced
     from repro_torch.exec import Planner
     from repro_torch.launch.steps import make_train_step
@@ -226,7 +245,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help=f"default {CNN_LR} (CNN) or {LM_LR} (LM)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--strategy", default=None,
-                    help="pin the engine: base | overlap (overlap_cuda via "
+                    help="pin the engine: base | ckp | overlap | twophase "
+                         "| overlap_h | twophase_h (overlap_cuda via "
                          "--kernel cuda)")
     ap.add_argument("--rows", type=int, default=None,
                     help="pin the row granularity N")
@@ -238,6 +258,15 @@ def build_parser() -> argparse.ArgumentParser:
                          "CUDA-kernel alternate when the kernel can run "
                          "it, recording kernel_fallback otherwise (LM: "
                          "plans the sequence axis, then kernelizes)")
+    ap.add_argument("--budget-gb", type=float, default=None,
+                    help="activation byte budget; Planner.for_budget picks "
+                         "engine and granularity under it")
+    ap.add_argument("--residency", default="",
+                    choices=["", "device", "host", "recompute"],
+                    help="boundary-cache residency of the carry-based "
+                         "engines: 'host' offloads the 2PS caches to "
+                         "pinned memory with prefetch, 'recompute' "
+                         "regenerates them in the backward")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--out", default="experiments/train")

@@ -11,10 +11,11 @@ from __future__ import annotations
 import math
 from typing import List
 
-import numpy as np
 import torch
 
-from repro_torch.models.cnn.layers import Conv, MaxPool, ReLU, init_trunk
+from repro_torch.models.cnn.layers import (  # noqa: F401  (re-exported)
+    Conv, MaxPool, ReLU, init_trunk, params_from_reference,
+)
 
 # (channels, n_convs) per VGG-16 stage
 _STAGES = [(64, 2), (128, 2), (256, 3), (512, 3), (512, 3)]
@@ -46,19 +47,6 @@ def init_vgg16(generator: torch.Generator, in_shape=(224, 224, 3),
         "b": torch.zeros(n_classes, device=device),
     }
     return mods, {"trunk": trunk_params, "head": head}
-
-
-def params_from_reference(tree, device="cuda"):
-    """The JAX package's VGG parameter tree (leaves given as numpy arrays,
-    ``{"trunk": ({"w", "b"} | {}, ...), "head": {"w", "b"}}``) as the
-    port's.  Both packages keep HWIO conv weights, so this is a copy, not a
-    transpose; it exists because JAX and torch draw different random
-    numbers from the same seed."""
-    def t(a):
-        return torch.tensor(np.array(a, dtype=np.float32), device=device)
-
-    return {"trunk": [{k: t(v) for k, v in p.items()} for p in tree["trunk"]],
-            "head": {k: t(v) for k, v in tree["head"].items()}}
 
 
 def head_apply(head, feats):

@@ -15,7 +15,9 @@ plain version at the reference kernel tests' tolerances (fp32 2e-5, bf16
 2e-2, as ``allclose`` atol and rtol), and at Gemma-3 4B's local-layer
 shape in bf16 at ``chip_smoke.py``'s atol 4e-3 / rtol 1e-2; ``ssd_scan``
 against its chunked plain version (and once against the sequential oracle)
-at atol 1e-3.
+at atol 1e-3.  The row-program executor's host and recompute residencies
+are held against device residency exactly (cuDNN in deterministic mode):
+placement moves bytes, never values.
 """
 
 import numpy as np
@@ -41,6 +43,8 @@ CASES = [
     (28, 28, 256, 512, 3, 1, 1, 8),
     (28, 28, 256, 500, 3, 1, 1, 8),
     (14, 14, 512, 510, 3, 1, 1, 8),
+    # ResNet-50's stem: stride-2 halo'd window, Cin 3 of an 8-channel chunk
+    (224, 224, 3, 64, 7, 2, 3, 8),
 ]
 
 
@@ -372,3 +376,78 @@ def test_cuda_engine_on_plain_spec_still_launches(engine, cuda_device):
     torch.cuda.synchronize()
     assert counter.launches == before + want
     assert bool(torch.isfinite(out.float()).all())
+
+
+# ---------------------------------------------------------------------------
+# The row-program executor's residencies on the card
+# ---------------------------------------------------------------------------
+
+
+def _twophase_run(device, policy, depth, engine="twophase", n=2):
+    """Loss output, grads and the saved carries of a 2PS trunk (VGG-16 at
+    width 0.25, 3 stages, 64², batch 4)."""
+    from repro_torch.exec import ExecutionPlan, ResidencySpec, build_apply
+    from repro_torch.models.cnn.vgg import init_vgg16
+    from repro_torch.optim.adamw import tree_leaves
+    shape = (64, 64, 3)
+    mods, p = init_vgg16(torch.Generator().manual_seed(0), shape, 0.25,
+                         n_stages=3, device=device)
+    trunk = p["trunk"]
+    leaves = tree_leaves(trunk)
+    for t in leaves:
+        t.requires_grad_()
+    x = torch.randn((4,) + shape, generator=torch.Generator()
+                    .manual_seed(1)).to(device).requires_grad_()
+    plan = ExecutionPlan(engine=engine, n_rows=n, in_shape=shape,
+                         residency=ResidencySpec(default=policy,
+                                                 prefetch_depth=depth))
+    y = build_apply(mods, plan)(trunk, x)
+    saved = [t for row in getattr(y.grad_fn, "saved", ()) for t in row]
+    y.square().sum().backward()
+    torch.cuda.synchronize()
+    return [y.detach(), x.grad] + [t.grad for t in leaves], saved
+
+
+@pytest.fixture
+def deterministic(cuda_device):
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield cuda_device
+    torch.backends.cudnn.deterministic = before
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("depth", [0, 1, 2])
+def test_host_residency_pins_and_equals_device(depth, deterministic):
+    want, dev_saved = _twophase_run(deterministic, "device", 1)
+    got, saved = _twophase_run(deterministic, "host", depth)
+    assert saved and len(saved) == len(dev_saved)
+    for t, d in zip(saved, dev_saved):
+        # a zero-height head holds no memory to pin
+        assert t.device.type == "cpu" and (t.is_pinned() or t.numel() == 0)
+        assert torch.equal(t, d.cpu())
+    assert any(t.numel() for t in saved)
+    assert all(d.is_cuda for d in dev_saved)
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("engine,n", [("twophase", 2), ("twophase_h", 4)])
+def test_recompute_equals_device(engine, n, deterministic):
+    want, _ = _twophase_run(deterministic, "device", 1, engine, n)
+    got, _ = _twophase_run(deterministic, "recompute", 1, engine, n)
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.requires_cuda
+def test_host_residency_peak_not_above_device(cuda_device):
+    peaks = {}
+    for policy in ("device", "host"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _twophase_run(cuda_device, policy, 1)
+        peaks[policy] = torch.cuda.max_memory_allocated()
+    assert peaks["host"] <= peaks["device"], peaks

@@ -140,25 +140,26 @@ def test_plan_overlap_chains_equal(n_rows):
 
 
 def test_unported_engine_says_so():
-    plan = ExecutionPlan.explicit("twophase_h", 8, in_shape=SHAPE)
+    plan = ExecutionPlan.explicit("pipeline_rows", 2, in_shape=SHAPE)
     with pytest.raises(KeyError, match="not ported yet") as e:
         build_apply(vgg16_modules(0.125, 3), plan)
-    assert "base, overlap, overlap_cuda" in str(e.value)
+    assert "base, ckp, overlap, overlap_cuda, overlap_h" in str(e.value)
     with pytest.raises(KeyError, match="unknown engine"):
         build_apply([], ExecutionPlan.explicit("nope"))
 
 
 def test_sharded_and_offloading_plans_raise():
+    """Sharded plans still raise; offloading residencies now run."""
     import dataclasses
     plan = ExecutionPlan.explicit("overlap", 2, in_shape=SHAPE)
     mods = vgg16_modules(0.125, 3)
     with pytest.raises(NotImplementedError, match="sharded"):
         build_apply(mods, dataclasses.replace(
             plan, mesh=MeshSpec.parse("data=2")))
-    with pytest.raises(NotImplementedError, match="residency"):
-        build_apply(mods, dataclasses.replace(
-            plan, residency=ResidencySpec(default="host")))
-    # a one-device mesh and a device residency are fine
+    # a one-device mesh is fine, and a residency reaches the engine (the
+    # 2PS engines place their caches by it; OverL carries none)
     build_apply(mods, dataclasses.replace(
         plan, mesh=MeshSpec.parse("data=1"),
         residency=ResidencySpec(default="device")))
+    host = dataclasses.replace(plan, residency=ResidencySpec(default="host"))
+    _assert_close(_ref("overlap", 2), _port_loss_and_grads(host))

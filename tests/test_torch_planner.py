@@ -16,6 +16,7 @@ import pathlib
 import sys
 
 import pytest
+import torch
 
 from repro.core import rowplan as ref_rp
 from repro.core import twophase as ref_tp
@@ -209,18 +210,29 @@ def test_kernelize_fallbacks_and_retile():
 
 
 def test_unported_planning_raises():
-    planner = Planner(vgg16_modules(0.125, 3), (32, 32, 3), 2)
-    with pytest.raises(NotImplementedError, match="twophase_h"):
-        planner.plan("twophase_h", 8)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        planner.resolve(PlanRequest(budget_gb=1.0))
-    with pytest.raises(NotImplementedError, match="for_budget"):
-        Planner.for_budget(None)
+    from repro_torch.exec import MeshSpec
+    mods = vgg16_modules(0.125, 3)
+    planner = Planner(mods, (32, 32, 3), 2)
+    with pytest.raises(NotImplementedError, match="costed chooser"):
+        Planner.for_budget(mods, (32, 32, 3), 2, 2**20, cost_table=object())
     with pytest.raises(NotImplementedError, match="for_serve"):
         Planner.for_serve(None)
-    with pytest.raises(NotImplementedError, match="residency"):
-        planner.resolve(PlanRequest(engine="overlap", n_rows=2,
-                                    residency="host"))
+    with pytest.raises(NotImplementedError, match="autotune_kernel"):
+        planner.autotune_kernel(None)
+    # stagedize: a no-op without a model axis, as in the reference; it
+    # raises only where it would have to stage
+    tight = planner.plan("base", 1, budget=1)
+    assert not tight.feasible and planner.stagedize(tight) is tight
+    staged = Planner(mods, (32, 32, 3), 2,
+                     mesh=MeshSpec.parse("data=1,model=2"))
+    with pytest.raises(NotImplementedError, match="stagedize"):
+        staged.stagedize(staged.plan("base", 1, budget=1))
+    # the hybrids and 2PS have no CUDA alternate (as in the reference,
+    # which has no 2PS kernel engine)
+    for engine in ("ckp", "twophase_h", "overlap_h"):
+        plan = planner.kernelize(planner.plan(engine, 2), "cuda")
+        assert plan.engine == engine
+        assert "no cuda alternate" in plan.get("kernel_fallback")
 
 
 # ---------------------------------------------------------------------------
@@ -409,3 +421,254 @@ def test_ssd_retiles_to_a_fitting_chunk_or_falls_back():
                          "cuda")
     assert "chunk=128 does not divide seq=4100" in odd.get(
         "kernel_fallback")
+
+
+# ---------------------------------------------------------------------------
+# The six CNN engines under residency, segments, solve, residencize and
+# for_budget, against the reference's Planner (from a child process)
+# ---------------------------------------------------------------------------
+
+#: one query script, run here against the port and in the child against
+#: the reference, so both answer the same questions; ``ns`` supplies each
+#: package's names and the trunks
+PLAN_QUERIES = r'''
+def run(ns):
+    Planner, PlanRequest, ResidencySpec = (ns["Planner"], ns["PlanRequest"],
+                                           ns["ResidencySpec"])
+    res = {"none": None, "device": ResidencySpec(),
+           "host0": ResidencySpec("host", prefetch_depth=0),
+           "host1": ResidencySpec("host"),
+           "host2": ResidencySpec("host", prefetch_depth=2),
+           "recompute": ResidencySpec("recompute"),
+           "mixed": ResidencySpec("host", placements=(("sd_l1",
+                                                       "recompute"),)),
+           "pinned": ResidencySpec("host", placements=(("sd_l1",
+                                                        "device"),))}
+    engines = ("base", "ckp", "overlap", "twophase", "overlap_h",
+               "twophase_h")
+
+    def guard(fn):
+        try:
+            v = fn()
+        except ValueError as e:
+            return "ValueError"
+        return v.to_dict() if hasattr(v, "to_dict") else v
+
+    out = {}
+    for name, (mods, shape, batch, xi) in ns["trunks"].items():
+        pl = Planner(mods, shape, batch, xi=xi)
+        h = shape[0]
+        out[name + "|xi"] = xi
+        for inner in ("column", "overlap", "twophase"):
+            out[f"{name}|cap|{inner}"] = [list(t) for t in
+                ns["segment_row_capacity"](mods, h, inner)]
+            for n in (1, 2, 3, 8):
+                out[f"{name}|seg|{inner}|{n}"] = [list(t) for t in
+                    ns["derive_segments"](mods, h, inner, n, None)]
+        for engine in engines:
+            for n in (1, 3, 8):
+                for rk, r in res.items():
+                    out[f"{name}|est|{engine}|{n}|{rk}"] = guard(
+                        lambda: pl.estimate(engine, n, residency=r))
+            out[f"{name}|plan|{engine}"] = guard(
+                lambda: pl.plan(engine, 2, budget=2**30,
+                                residency=res["host1"]))
+        base = pl.estimate("base", 1)
+        # fewer budgets at full width, where every hybrid solve scans
+        # segment caps over 31 modules
+        fracs = (0.3, 0.7) if h == 224 else (0.25, 0.45, 0.7, 1.1)
+        budgets = [int(base * f) for f in fracs]
+        for b in budgets + [0]:
+            for engine in engines:
+                for rk in ("none", "host2"):
+                    out[f"{name}|solve|{engine}|{b}|{rk}"] = guard(
+                        lambda: pl.solve(engine, b, residency=res[rk]))
+            out[f"{name}|for_budget|{b}"] = guard(
+                lambda: Planner.for_budget(mods, shape, batch, b, xi=xi))
+            out[f"{name}|for_budget_host|{b}"] = guard(
+                lambda: Planner.for_budget(mods, shape, batch, b, xi=xi,
+                                           residency=res["host1"]))
+            out[f"{name}|residencize|{b}"] = guard(
+                lambda: pl.residencize(pl.solve("twophase", b)))
+            gb = b / 2**30
+            for rq in (dict(engine="twophase_h", n_rows=8),
+                       dict(engine="overlap_h"), dict(n_rows=2),
+                       dict(n_rows=3, residency="recompute"), dict()):
+                key = ",".join(f"{k}={v}" for k, v in sorted(rq.items()))
+                out[f"{name}|resolve|{key}|{b}"] = guard(
+                    lambda: pl.resolve(PlanRequest(budget_gb=gb, **rq)))
+    return out
+'''
+
+#: the child compiles many small programs; one XLA thread keeps it from
+#: crowding other test workers, and is no slower
+CHILD_XLA_FLAGS = ("--xla_cpu_multi_thread_eigen=false "
+                   "intra_op_parallelism_threads=1")
+
+PLAN_CHILD = r'''
+import json, sys
+import jax, jax.memory, jax.sharding
+import numpy as np
+if not hasattr(jax.sharding, "TransferToMemoryKind"):
+    # JAX 0.9 dropped the name repro.exec.rowprog imports; this process only
+    jax.sharding.TransferToMemoryKind = lambda kind: (
+        jax.memory.Space.Host if "host" in kind else jax.memory.Space.Device)
+from repro.exec import Planner, PlanRequest, ResidencySpec
+from repro.exec.planner import derive_segments, segment_row_capacity
+from repro.models.cnn import resnet, vgg
+
+def n_params(init, key):
+    tree = jax.eval_shape(lambda k: init(k)[1], key)
+    return sum(int(np.prod(l.shape)) for l in jax.tree.leaves(tree))
+
+key = jax.random.PRNGKey(0)
+full = (224, 224, 3)
+trunks = {
+    "vgg_s3_32": (vgg.vgg16_modules(0.125, 3), (32, 32, 3), 2, 0),
+    "vgg_reduced": (vgg.vgg16_modules(0.125), (64, 64, 3), 2, 1000),
+    "resnet_reduced": (resnet.resnet50_modules(0.125, [1, 1, 1, 1]),
+                       (64, 64, 3), 2, 1000),
+    "vgg_full": (vgg.vgg16_modules(1.0), full, 32, 12 * n_params(
+        lambda k: vgg.init_vgg16(k, full), key)),
+    "resnet_full": (resnet.resnet50_modules(1.0), full, 32, 12 * n_params(
+        lambda k: resnet.init_resnet50(k, full), key)),
+}
+ns = dict(Planner=Planner, PlanRequest=PlanRequest,
+          ResidencySpec=ResidencySpec, derive_segments=derive_segments,
+          segment_row_capacity=segment_row_capacity, trunks=trunks)
+exec(open(sys.argv[1]).read(), ns)
+json.dump(ns["run"](ns), open(sys.argv[2], "w"))
+'''
+
+
+def _port_trunks():
+    from repro_torch.models.cnn import resnet, vgg
+    from repro_torch.optim.adamw import tree_leaves
+
+    def xi(init):
+        return 12 * sum(t.numel() for t in tree_leaves(
+            init(torch.Generator().manual_seed(0))[1]))
+
+    full = (224, 224, 3)
+    return {
+        "vgg_s3_32": (vgg.vgg16_modules(0.125, 3), (32, 32, 3), 2, 0),
+        "vgg_reduced": (vgg.vgg16_modules(0.125), (64, 64, 3), 2, 1000),
+        "resnet_reduced": (resnet.resnet50_modules(0.125, [1, 1, 1, 1]),
+                           (64, 64, 3), 2, 1000),
+        "vgg_full": (vgg.vgg16_modules(1.0), full, 32, xi(
+            lambda g: vgg.init_vgg16(g, full, device="meta"))),
+        "resnet_full": (resnet.resnet50_modules(1.0), full, 32, xi(
+            lambda g: resnet.init_resnet50(g, full, device="meta"))),
+    }
+
+
+@pytest.fixture(scope="module")
+def plan_answers(tmp_path_factory):
+    """(reference, port) answers to ``PLAN_QUERIES``."""
+    import json
+    import os
+    import subprocess
+    from repro_torch.exec import ResidencySpec
+    from repro_torch.exec.planner import derive_segments, segment_row_capacity
+
+    d = tmp_path_factory.mktemp("ref_planner")
+    (d / "queries.py").write_text(PLAN_QUERIES)
+    root = pathlib.Path(__file__).resolve().parents[1]
+    child = subprocess.Popen(
+        [sys.executable, "-c", PLAN_CHILD, str(d / "queries.py"),
+         str(d / "ref.json")], cwd=root,
+        env=dict(os.environ, PYTHONPATH=str(root / "src"),
+                 JAX_PLATFORMS="cpu", XLA_FLAGS=CHILD_XLA_FLAGS),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:  # the port answers while the child works
+        ns = dict(Planner=Planner, PlanRequest=PlanRequest,
+                  ResidencySpec=ResidencySpec,
+                  derive_segments=derive_segments,
+                  segment_row_capacity=segment_row_capacity,
+                  trunks=_port_trunks())
+        exec(PLAN_QUERIES, ns)
+        port = json.loads(json.dumps(ns["run"](ns)))
+        _, err = child.communicate(timeout=600)
+    finally:
+        child.kill()
+        child.wait()
+    assert child.returncode == 0, err[-4000:]
+    return json.load(open(d / "ref.json")), port
+
+
+KINDS = ["xi", "cap", "seg", "est", "plan", "solve", "for_budget",
+         "for_budget_host", "residencize", "resolve"]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_planner_answers_equal_reference(plan_answers, kind):
+    ref, port = plan_answers
+    keys = sorted(k for k in ref if k.split("|")[1] == kind)
+    assert keys and keys == sorted(k for k in port
+                                   if k.split("|")[1] == kind)
+    bad = [k for k in keys if ref[k] != port[k]]
+    assert not bad, [(k, ref[k], port[k]) for k in bad[:3]]
+
+
+def _full(arch):
+    from repro_torch.models.cnn import resnet, vgg
+    from repro_torch.optim.adamw import tree_leaves
+    init = vgg.init_vgg16 if arch == "vgg16" else resnet.init_resnet50
+    mods, p = init(torch.Generator().manual_seed(0), (224, 224, 3),
+                   device="meta")
+    xi = 12 * sum(t.numel() for t in tree_leaves(p))
+    return Planner(mods, (224, 224, 3), 32, xi=xi), mods, xi
+
+
+@pytest.mark.parametrize("arch,est,segments,host", [
+    ("vgg16", 1115531128, ((0, 6, 8), (6, 11, 8), (11, 16, 8), (16, 21, 8),
+                           (21, 26, 7), (26, 31, 3)), 1087145848),
+    ("resnet50", 657321336, ((0, 5, 8), (5, 10, 7), (10, 15, 3),
+                             (15, 20, 1)), 611847544),
+])
+def test_full_width_config_requests(arch, est, segments, host):
+    """The full configs' own request (twophase_h N=8 under 24 GB) at 224²,
+    batch 32, xi = 3 * 4 * n_params, as the reference resolves it."""
+    import importlib
+    from repro_torch.exec import ResidencySpec
+    planner, _, _ = _full(arch)
+    cfg = importlib.import_module(f"repro_torch.configs.{arch}").CONFIG
+    plan = planner.resolve(cfg.plan)
+    assert (plan.engine, plan.n_rows, plan.est_bytes, plan.segments) \
+        == ("twophase_h", 8, est, segments)
+    for policy in ("host", "recompute"):
+        assert planner.plan("twophase_h", 8, residency=ResidencySpec(
+            default=policy)).est_bytes == host
+
+
+@pytest.mark.parametrize("arch,rows", [
+    ("vgg16", [("base", 1, 3840690040), ("ckp", 1, 2604353400),
+               ("overlap", 4, 2812569464), ("twophase", 2, 2043471736),
+               ("overlap_h", 8, 1110112120)]),
+    ("resnet50", [("base", 1, 1323429240), ("ckp", 1, 899542392),
+                  ("overlap", 4, 1296133496), ("overlap_h", 8, 621291384)]),
+])
+def test_full_width_estimates(arch, rows):
+    planner, _, _ = _full(arch)
+    for engine, n, est in rows:
+        assert planner.plan(engine, n).est_bytes == est, engine
+
+
+@pytest.mark.parametrize("arch,grid", [
+    ("vgg16", [(4.0, "base", 1, True), (2.0, "twophase", 2, True),
+               (1.5, "twophase_h", 3, True), (1.2, "twophase_h", 5, True),
+               (1.0, "twophase_h", 11, True),
+               (0.8, "overlap_h", 64, False)]),
+    ("resnet50", [(1.2, "overlap", 7, True), (1.0, "twophase_h", 1, True),
+                  (0.8, "twophase_h", 2, True)]),
+])
+def test_full_width_for_budget(arch, grid):
+    planner, mods, xi = _full(arch)
+    for gb, engine, n, feasible in grid:
+        plan = Planner.for_budget(mods, (224, 224, 3), 32, int(gb * 2**30),
+                                  xi=xi)
+        assert (plan.engine, plan.n_rows, plan.feasible) \
+            == (engine, n, feasible), gb
+    # 0.8 GiB: the best infeasible plan is 880.5 MiB
+    if arch == "vgg16":
+        assert round(plan.est_bytes / 2**20, 1) == 880.5
