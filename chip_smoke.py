@@ -87,6 +87,36 @@ printing one line:
                 and at ``row_chunks=1``; the row-chunked peak must be below
                 the unchunked one.
 
+Every train run above carries ``--trace`` and ``--metrics-out`` (into a
+temporary ``obs`` directory) and prints its step-0 ``plan audit:`` line.
+
+10. memory      VGG-16 ``base``, ``overlap`` N=4, ``overlap_h`` N=8 and
+                ``--budget-gb 1.0``, 2 steps each, under
+                ``torch.cuda.memory._record_memory_history`` and a
+                saved-tensor hook; the allocator trace is replayed to its
+                peak and every live block classed by the module and function
+                that allocated it (``MEM_CLASSES``), beside the terms the
+                Planner priced (they must sum to its estimate); OverL N=4
+                against ``base`` with and without the cuDNN workspace;
+                snapshots under ``build/memory/``.
+11. profile     ``--torch-profile`` over 2 steps of VGG-16 ``base``,
+                ``overlap`` N=4, ``twophase_h`` N=8 and ``overlap_cuda``; the
+                second step's host ranges, device-busy time, launches, top
+                10 device operations and device time by category
+                (``PROFILE_CATEGORIES``); Chrome traces under
+                ``build/profile/``.
+12. autotune    ``CostTable.calibrate()``; ``--budget-gb 1.0 --plan-cache``
+                twice (a miss that solves, then a hit with no solve) with
+                the costed plan's prediction beside the measured step;
+                ``Planner.autotune_kernel`` over ``conv2d_rows``' block_h
+                (VGG-16's batch-1 forward), ``swa_attention``'s bq/bk
+                (Gemma's local layer) and ``ssd_scan``'s chunk (Zamba2's
+                widths), each winner held against its plain version.
+13. obs         ``python -m repro_torch.analysis.audit --check`` over every
+                trace (the reference's bands), and the row executor's
+                counters of ``twophase_h`` N=8 under host residency against
+                the plan's rows and the SD bytes the Planner priced.
+
 Then it prints the card's name and power limit (nvidia-smi), one JSON line
 of per-kernel numbers (``conv2d_rows``' launches are train_kernel's 39 plus
 train_resnet's 3), and last ``{"ok": true, "device": {...}}``.
@@ -407,27 +437,48 @@ def phase_kernel(torch, out):
           f"{totals['bound_ms'] / totals['ms']:.3f})", flush=True)
 
 
+def _obs_flags(tmp, name):
+    """Every train run is traced: ``--trace`` and ``--metrics-out`` into
+    ``tmp/obs`` (the obs phase gates the audit records there)."""
+    d = os.path.join(tmp, "obs")
+    return ["--trace", os.path.join(d, f"{name}.jsonl"),
+            "--metrics-out", os.path.join(d, f"{name}.metrics.json")]
+
+
+def _finish_run(torch, tmp, name, recs, steps):
+    """Peak, plan, audit record, counters, losses and step times of a
+    train run that just ended."""
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(tmp, name, "train_log.json")) as f:
+        log = json.load(f)
+    with open(os.path.join(tmp, "obs", f"{name}.metrics.json")) as f:
+        counters = json.load(f)["counters"]
+    losses = [r["loss"] for r in recs]
+    if len(losses) != steps or not all(math.isfinite(l) for l in losses):
+        raise AssertionError(f"{name}: losses {losses}")
+    if not log["plan_audit"]:
+        raise AssertionError(f"{name}: no plan audit in train_log.json")
+    # seconds per step on the host clock (loss.item() syncs each step);
+    # step 0 includes first-call set-up
+    ends = [r["elapsed_s"] for r in recs]
+    step_s = [b - a for a, b in zip([0.0] + ends, ends)]
+    return {"losses": losses, "peak": peak, "plan": log["plan"],
+            "step_s": step_s, "audit": log["plan_audit"],
+            "counters": counters, "plan_terms": log.get("plan_terms"),
+            "plan_sd": log.get("plan_sd")}
+
+
 def _train(torch, tmp, name, *flags, steps, arch="vgg16", lr=TRAIN_LR):
     from repro_torch.launch import train as T
-    out_dir = os.path.join(tmp, name)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     recs = T.main(["--arch", arch, "--preset", "full", "--steps",
                    str(steps), "--lr", str(lr), "--log-every", "1",
-                   "--out", out_dir, *flags])
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
-    with open(os.path.join(out_dir, "train_log.json")) as f:
-        plan = json.load(f)["plan"]
-    losses = [r["loss"] for r in recs]
-    if len(losses) != steps or not all(math.isfinite(l) for l in losses):
-        raise AssertionError(f"{name}: losses {losses}")
-    # seconds per step on the host clock (loss.item() syncs each step);
-    # step 0 includes first-call set-up
-    ends = [r["elapsed_s"] for r in recs]
-    step_s = [b - a for a, b in zip([0.0] + ends, ends)]
-    return {"losses": losses, "peak": peak, "plan": plan, "step_s": step_s}
+                   "--out", os.path.join(tmp, name), *_obs_flags(tmp, name),
+                   *flags])
+    return _finish_run(torch, tmp, name, recs, steps)
 
 
 def phase_train_kernel(torch, out, tmp):
@@ -796,24 +847,15 @@ def phase_kernel_ssd(torch, out):
 
 def _train_lm(torch, tmp, name, kernel, steps):
     from repro_torch.launch import train as T
-    out_dir = os.path.join(tmp, name)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     recs = T.main(["--arch", "gemma3_4b", "--preset", "full", "--batch",
                    str(LM_BATCH), "--seq", str(LM_SEQ), "--kernel", kernel,
                    "--steps", str(steps), "--log-every", "1", "--out",
-                   out_dir], cfg=_gemma12(torch))
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
-    with open(os.path.join(out_dir, "train_log.json")) as f:
-        plan = json.load(f)["plan"]
-    losses = [r["loss"] for r in recs]
-    if len(losses) != steps or not all(math.isfinite(l) for l in losses):
-        raise AssertionError(f"{name}: losses {losses}")
-    ends = [r["elapsed_s"] for r in recs]
-    step_s = [b - a for a, b in zip([0.0] + ends, ends)]
-    return {"losses": losses, "peak": peak, "plan": plan, "step_s": step_s}
+                   os.path.join(tmp, name), *_obs_flags(tmp, name)],
+                  cfg=_gemma12(torch))
+    return _finish_run(torch, tmp, name, recs, steps)
 
 
 def phase_train_lm_kernel(torch, out, tmp):
@@ -897,6 +939,502 @@ def phase_train_lm_rows(torch, out, tmp):
                              "the unchunked one")
 
 
+def _vgg_leaf_sizes(torch):
+    """Byte sizes of VGG-16's parameter leaves at 224² (a block of one of
+    these sizes allocated in a backward is a gradient)."""
+    from repro_torch.models.cnn import vgg
+    from repro_torch.optim.adamw import tree_leaves
+    _, p = vgg.init_vgg16(torch.Generator().manual_seed(0), (224, 224, 3),
+                          device="meta")
+    return {4 * t.numel() for t in tree_leaves(p)}
+
+
+def _frame_is(f, module, *names):
+    """Whether the Python frame ``f`` runs one of ``names`` in the port's
+    module whose path ends in ``module``."""
+    return f["filename"].endswith(module) and f["name"] in names
+
+
+#: the port's functions that allocate the parameters: the new tree of an
+#: SGD step and the seeded init
+PARAMETER_FRAMES = (("optim/adamw.py", ("descend",)),
+                    ("models/cnn/layers.py", ("_he_init", "init",
+                                              "init_trunk")),
+                    ("models/cnn/vgg.py", ("init_vgg16",)),
+                    ("models/cnn/resnet.py", ("init_resnet50",)))
+#: the port's functions that allocate SGD's momentum
+OPTIMIZER_FRAMES = (("optim/adamw.py", ("sgd_init", "momentum")),)
+
+
+#: classes of the blocks live at the peak
+MEM_CLASSES = ("parameters", "optimizer state", "gradients",
+               "max-pool indices", "activations saved by autograd",
+               "row carries/caches", "cuDNN workspace",
+               "output of the op at the peak", "backward temporaries",
+               "other")
+
+
+def _peak_blocks(trace):
+    """Replay an allocator trace: the blocks live when the allocated total
+    was highest, with the index of that event, and the peak."""
+    live, total, peak, at, best = {}, 0, -1, 0, {}
+    for i, e in enumerate(trace):
+        if e["action"] == "alloc":
+            live[e["addr"]] = (i, e)
+            total += e["size"]
+            if total > peak:
+                peak, at, best = total, i, dict(live)
+        elif e["action"] == "free_completed" and e["addr"] in live:
+            total -= live.pop(e["addr"])[1]["size"]
+    return best, at, peak
+
+
+def _classify_peak(trace, saved, param_sizes):
+    """Bytes per class of the blocks live at the replayed peak.
+
+    A block is matched, in order: to its allocating Python frames in the
+    port (SGD's state and new parameters, parameter init); to a tensor
+    autograd saved (int64: max-pool indices), by its storage's address at
+    the time it was saved; to a 2PS cache export or the row executor's
+    placement; to cuDNN's workspace — allocated inside a convolution's
+    call and freed within 3 allocator events after the peak, before any
+    other allocation (cuDNN allocates it, runs, and frees it); to the
+    output the op at the peak allocated just before it (same frames, at
+    most 3 events earlier); to a frame in a backward (a block the size of
+    a parameter leaf is a gradient, the rest activation gradients and
+    recomputed rows); else other."""
+    best, at, peak = _peak_blocks(trace)
+    freed_soon = set()
+    for e in trace[at + 1:at + 4]:
+        if e["action"] == "alloc":
+            break
+        if e["action"] in ("free_requested", "free_completed"):
+            freed_soon.add(e["addr"])
+    # the allocation each saved tensor's storage came from: the last
+    # alloc at its address before it was saved
+    saved_by_alloc = {}
+    allocs_at = {}
+    for i, e in enumerate(trace):
+        if e["action"] == "alloc":
+            allocs_at.setdefault(e["addr"], []).append((e.get("time_us", 0),
+                                                        i))
+    for ptr, nbytes, is_int64, t_us in saved:
+        cands = [i for tt, i in allocs_at.get(ptr, ()) if tt <= t_us]
+        if cands:
+            saved_by_alloc.setdefault(cands[-1], is_int64)
+
+    def cls(i, e):
+        frames = [f for f in e.get("frames", ())
+                  if "repro_torch" in f.get("filename", "")]
+        for f in frames:
+            if any(_frame_is(f, m, *names) for m, names in OPTIMIZER_FRAMES):
+                return "optimizer state"
+            if any(_frame_is(f, m, *names) for m, names in PARAMETER_FRAMES):
+                return "parameters"
+        if i in saved_by_alloc:
+            pool = any(f["name"] == "_pool" for f in frames)
+            return "max-pool indices" if saved_by_alloc[i] and pool \
+                else "activations saved by autograd"
+        in_fn_bwd = any(f["name"] == "backward" for f in frames)
+        for f in frames:
+            if _frame_is(f, "core/twophase.py", "_run_row") \
+                    and not in_fn_bwd:
+                return "row carries/caches"
+            if _frame_is(f, "exec/rowprog.py", "offload", "fetch", "place"):
+                return "row carries/caches"
+        in_bwd = in_fn_bwd or any(
+            _frame_is(f, "launch/train.py", "_loss_grads") for f in frames)
+        in_conv = any(f["name"] == "_conv" for f in frames) or in_bwd
+        if e["addr"] in freed_soon and in_conv and i == at:
+            return "cuDNN workspace"
+        if at - 3 <= i < at and e.get("frames") == trace[at].get("frames"):
+            return "output of the op at the peak"
+        if in_bwd:
+            return "gradients" if e["size"] in param_sizes \
+                else "backward temporaries"
+        return "other"
+
+    by = {c: 0 for c in MEM_CLASSES}
+    for addr, (i, e) in best.items():
+        by[cls(i, e)] += e["size"]
+    return peak, by
+
+
+def phase_memory(torch, out, tmp):
+    """Allocator snapshots of four VGG-16 runs: every block live at the
+    peak classed by what allocated it, beside the terms the Planner priced
+    (``plan_terms`` in the train log); then OverL N=4 against ``base``
+    with and without the cuDNN workspace class."""
+    import pickle
+    from torch.autograd.graph import saved_tensors_hooks
+    param_sizes = {-(-b // 512) * 512 for b in _vgg_leaf_sizes(torch)}
+    snap_dir = os.path.join(ROOT, "build", "memory")
+    os.makedirs(snap_dir, exist_ok=True)
+    runs = {}
+    for name, flags in (("base", ["--strategy", "base"]),
+                        ("overlap", ["--strategy", "overlap", "--rows",
+                                     "4"]),
+                        ("overlap_h", ["--strategy", "overlap_h"]),
+                        ("budget", ["--budget-gb", str(BUDGET_GB)])):
+        saved = []
+
+        def pack(t):
+            st = t.untyped_storage()
+            saved.append((st.data_ptr(), st.nbytes(),
+                          t.dtype == torch.int64, time.time_ns() // 1000))
+            return t
+
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        # live before the recording starts, so in no trace event
+        before = torch.cuda.memory_allocated()
+        torch.cuda.memory._record_memory_history(max_entries=2_000_000,
+                                                 stacks="python")
+        try:
+            with saved_tensors_hooks(pack, lambda t: t):
+                run = _train(torch, tmp, f"mem_{name}", *flags, steps=2)
+            snap = torch.cuda.memory._snapshot()
+        finally:
+            torch.cuda.memory._record_memory_history(enabled=None)
+        path = os.path.join(snap_dir, f"vgg16_{name}.pickle")
+        with open(path, "wb") as f:
+            pickle.dump({"snapshot": snap, "saved": saved}, f)
+        trace = snap["device_traces"][0]
+        replay_peak, by = _classify_peak(trace, saved, param_sizes)
+        est = run["plan"]["est_bytes"]
+        terms = run["plan_terms"]
+        if sum(terms.values()) != run["plan"]["est_bytes_per_device"]:
+            raise AssertionError(f"memory {name}: the plan's terms {terms} "
+                                 f"do not sum to its estimate {est}")
+        runs[name] = {"peak": run["peak"], "replay_peak": replay_peak,
+                      "plan_terms": terms,
+                      "before_recording": before,
+                      "unattributed": run["peak"] - replay_peak - before,
+                      "classes": by, "est": est,
+                      "plan": f"{run['plan']['engine']} "
+                              f"N={run['plan']['n_rows']}",
+                      "events": len(trace), "snapshot": path,
+                      "saved_tensors": len(saved)}
+        print(f"  memory {name} ({runs[name]['plan']}): peak "
+              f"{run['peak']} B = replayed {replay_peak} B over "
+              f"{len(trace)} events + {before} B live before the recording"
+              f" + {runs[name]['unattributed']} B unattributed; plan est "
+              f"{est}: " + ", ".join(f"{k} {v}" for k, v in terms.items()),
+              flush=True)
+        for c in MEM_CLASSES:
+            print(f"    {c:48s} {by[c]:>14d} B "
+                  f"({100 * by[c] / max(1, replay_peak):5.1f} %)",
+                  flush=True)
+    # the paper's claim that OverL peaks below Base holds on the card by a
+    # margin that cuDNN's workspace choice can erase: show both
+    b, o = runs["base"], runs["overlap"]
+    ws = "cuDNN workspace"
+    print(f"  OverL N=4 against base: peak {o['peak']} vs {b['peak']} B "
+          f"({b['peak'] - o['peak']} B below, "
+          f"{100 * (b['peak'] - o['peak']) / b['peak']:.3f} %); cuDNN "
+          f"workspace at the peak {o['classes'][ws]} vs {b['classes'][ws]}"
+          f" B; without it {o['peak'] - o['classes'][ws]} vs "
+          f"{b['peak'] - b['classes'][ws]} B", flush=True)
+    out["memory"] = runs
+    print("memory: snapshots under build/memory/ "
+          + ", ".join(f"{n} peak {r['peak']}" for n, r in runs.items()),
+          flush=True)
+
+
+#: device-time categories of a profiled step
+PROFILE_CATEGORIES = ("copies", "conv2d_rows", "forward", "row_recompute",
+                      "cudnn_backward", "backward_other", "optimizer",
+                      "other")
+#: kernel-name fragments of cuDNN's convolutions (implicit GEMM, FFT and
+#: Winograd engines, their layout transforms)
+CUDNN_NAMES = ("cudnn", "xmma", "fft", "dse::", "gemm", "dgrad", "wgrad",
+               "pointwise_mult_and_sum_complex", "winograd")
+
+
+def _op_category(name, cat, phase):
+    """The category of one device operation: copies and ``conv2d_rows`` by
+    name; else by the innermost trainer or executor range its launch fell
+    in (``row_recompute`` inside the backward), the backward's split into
+    cuDNN's kernels and the rest."""
+    n = name.lower()
+    if cat != "kernel" or "copy" in n or "catarray" in n:
+        return "copies"
+    if "conv2d_rows" in n and phase != "row_recompute":
+        return "conv2d_rows"
+    if phase == "backward":
+        return "cudnn_backward" if any(t in n for t in CUDNN_NAMES) \
+            else "backward_other"
+    return phase if phase in PROFILE_CATEGORIES else "other"
+
+
+def _chrome_step_split(path, step):
+    """One step's split from a torch.profiler Chrome trace: host time of
+    the ``train_step <step>`` range and of its data / forward / backward /
+    optimizer ranges (the rest is the loss read, which waits for the
+    device), device-busy time of the kernels, copies and sets launched
+    inside it (union of their intervals), kernel launches, device time by
+    category (:data:`PROFILE_CATEGORIES`) and the 10 device operations that
+    took longest."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = [e for e in events if e.get("cat") == "user_annotation"
+              and "dur" in e]
+    t0, t1 = next((e["ts"], e["ts"] + e["dur"]) for e in ranges
+                  if e["name"] == f"train_step {step}")
+    inner = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in ranges
+             if e["name"] in ("data", "forward", "backward", "optimizer",
+                              "row_recompute") and t0 <= e["ts"] <= t1]
+    launch_ts = {}
+    for e in events:
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") \
+                and "correlation" in e.get("args", {}):
+            launch_ts[e["args"]["correlation"]] = e["ts"]
+    dev = []
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        lt = launch_ts.get(e.get("args", {}).get("correlation"))
+        if lt is None or not t0 <= lt <= t1:
+            continue
+        # the innermost range holding the launch: the latest to start
+        holding = [(a, name) for a, b, name in inner if a <= lt <= b]
+        phase = max(holding)[1] if holding else "other"
+        dev.append((e["ts"], e["ts"] + e["dur"], e["name"],
+                    _op_category(e["name"], e["cat"], phase),
+                    e["cat"] == "kernel"))
+    busy, end = 0.0, -1.0
+    for a, b, *_ in sorted(dev):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name, by_cat = {}, {c: 0.0 for c in PROFILE_CATEGORIES}
+    for a, b, name, c, _ in dev:
+        n, d = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, d + b - a)
+        by_cat[c] += b - a
+    host = {}
+    for a, b, name in inner:
+        if name != "row_recompute":
+            host[name] = host.get(name, 0.0) + b - a
+    host["loss_read"] = (t1 - t0) - sum(host.values())
+    return {"host_us": t1 - t0, "host_phase_us": host,
+            "device_busy_us": busy,
+            "launches": sum(1 for d in dev if d[4]),
+            "device_ops": len(dev), "category_us": by_cat,
+            "top": sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]}
+
+
+def phase_profile(torch, out, tmp):
+    """torch.profiler over one steady step (the second of two) of four
+    VGG-16 engines, through the trainer's --torch-profile."""
+    runs = {}
+    for name, flags in (("base", ["--strategy", "base"]),
+                        ("overlap", ["--strategy", "overlap", "--rows",
+                                     "4"]),
+                        ("twophase_h", []),
+                        ("overlap_cuda", ["--strategy", "overlap", "--rows",
+                                          "4", "--kernel", "cuda"])):
+        prof_dir = os.path.join(ROOT, "build", "profile", f"vgg16_{name}")
+        run = _train(torch, tmp, f"prof_{name}", *flags, "--torch-profile",
+                     prof_dir, steps=2)
+        split = _chrome_step_split(os.path.join(prof_dir, "trace.json"), 1)
+        split["plan"] = f"{run['plan']['engine']} N={run['plan']['n_rows']}"
+        runs[name] = split
+        host, busy = split["host_us"], split["device_busy_us"]
+        print(f"  profile {name} ({split['plan']}), step 1: host wall "
+              f"{host / 1e3:.3f} ms (" + ", ".join(
+                  f"{k} {v / 1e3:.3f}"
+                  for k, v in split["host_phase_us"].items())
+              + f"), device busy {busy / 1e3:.3f} ms "
+              f"({100 * busy / host:.1f} %), {split['launches']} kernel "
+              f"launches ({split['device_ops']} device ops); device ms by "
+              f"category: " + ", ".join(
+                  f"{k} {v / 1e3:.3f}"
+                  for k, v in split["category_us"].items()), flush=True)
+        for op, (n, us) in split["top"]:
+            print(f"    {us / 1e3:9.3f} ms x{n:<5d} {op[:110]}", flush=True)
+    out["profile"] = runs
+    print("profile: Chrome traces under build/profile/", flush=True)
+
+
+def phase_autotune(torch, out, tmp):
+    """CostTable.calibrate, the plan cache through the trainer (miss, then
+    a hit with no solve), the costed --budget-gb 1.0 plan beside its step,
+    and autotune_kernel over each kernel's tiles; each winner is launched
+    and held against its plain version."""
+    from repro_torch.exec import CostTable, ExecutionPlan, Planner
+    from repro_torch.exec.planner import kernelize_plan
+    from repro_torch.kernels import conv2d_rows as cr
+    from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.kernels import swa_attention as sw
+    from repro_torch.models.cnn import vgg
+
+    t0 = time.time()
+    table = CostTable.calibrate()
+    print(f"  calibrate ({time.time() - t0:.2f} s): {table.fingerprint} "
+          f"fp32 matmul {table.flops_per_s / 1e12:.3f} TFLOP/s, H2D "
+          f"{table.h2d_bytes_per_s / 1e9:.3f} GB/s, D2H "
+          f"{table.d2h_bytes_per_s / 1e9:.3f} GB/s, row overhead "
+          f"{table.row_overhead_us:.2f} us (version {table.version()})",
+          flush=True)
+    res = {"table": table.to_dict()}
+
+    cache = os.path.join(tmp, "plan_cache")
+    cached = []
+    for i in range(2):
+        run = _train(torch, tmp, f"cache{i}", "--budget-gb", str(BUDGET_GB),
+                     "--plan-cache", cache, steps=2)
+        cached.append(run)
+    c0, c1 = cached[0]["counters"], cached[1]["counters"]
+    if not (c0.get("plancache.miss") == 1 and c0.get("planner.solves", 0)
+            >= 1 and c1.get("plancache.hit") == 1
+            and "planner.solves" not in c1):
+        raise AssertionError(f"plan cache: counters {c0} then {c1}")
+    if cached[0]["plan"] != cached[1]["plan"]:
+        raise AssertionError("the cache hit replayed another plan")
+    plan = cached[0]["plan"]
+    pred = plan["extras"]["predicted_step_us"]
+    res["costed"] = {"plan": plan, "predicted_step_us": pred,
+                     "step_s": [r["step_s"] for r in cached],
+                     "peak": cached[0]["peak"]}
+    print(f"  plan cache: miss (planner.solves "
+          f"{c0.get('planner.solves')}), then hit (no solve); costed "
+          f"--budget-gb {BUDGET_GB}: {plan['engine']} N={plan['n_rows']} "
+          f"residency={(plan.get('residency') or {}).get('default')} est "
+          f"{plan['est_bytes']} peak {cached[0]['peak']}; predicted "
+          f"{pred / 1e3:.3f} ms a step, measured steady "
+          f"{cached[0]['step_s'][-1] * 1e3:.3f} / "
+          f"{cached[1]['step_s'][-1] * 1e3:.3f} ms", flush=True)
+
+    def report(what, tuned, times):
+        print(f"  autotune {what}: " + ", ".join(
+            f"{k} {v:.1f} us" for k, v in times) + f" -> {tuned.kernel} "
+            f"({tuned.get('autotune')})", flush=True)
+
+    # conv2d_rows: VGG-16's overlap_cuda plan, the trunk's batch-1 forward
+    mods = vgg.vgg16_modules(1.0)
+    planner = Planner(mods, (224, 224, 3), TRAIN_BATCH)
+    timer = planner._default_kernel_timer()
+    times = []
+
+    def conv_timer(c):
+        us = timer(c)
+        times.append((f"block_h={c.kernel.block_h}", us))
+        return us
+
+    tuned = planner.autotune_kernel(planner.plan("overlap", 4),
+                                    time_fn=conv_timer)
+    if tuned.engine != "overlap_cuda":
+        raise AssertionError(f"conv autotune: {tuned.describe()}")
+    report("conv2d_rows (VGG-16 batch-1 forward)", tuned, times)
+    bh = tuned.kernel.block_h
+    x, w = _inputs(torch, CHECK_BATCH, 56, 56, 128, 256, 3, 300)
+    err = float((cr.conv2d_rows(x, w, stride=1, padding=1, block_h=bh)
+                 - cr.conv2d_rows_plain(x, w, 1, 1, bh)).abs().max())
+    scale = float(cr.conv2d_rows_plain(x, w, 1, 1, bh).abs().max())
+    if not err <= KERNEL_TOL * scale:
+        raise AssertionError(f"conv winner block_h={bh}: err {err}")
+    res["conv"] = {"times": times, "winner": bh, "err": err}
+
+    # swa_attention: Gemma's local layer, timed by CUDA events
+    cfg = _gemma12(torch)
+    swa_plan = Planner.for_model(cfg, LM_BATCH, LM_SEQ, kernel="cuda")
+    q, k, v = _swa_case(torch, LM_BATCH, cfg.n_heads, LM_SEQ, cfg.head_dim,
+                        torch.bfloat16, 0)
+    window = cfg.sliding_window
+    times = []
+
+    def swa_timer(c):
+        ms = _timed_ms(torch, lambda: sw.swa_attention(
+            q, k, v, window=window, bq=c.kernel.bq, bk=c.kernel.bk),
+            iters=10)
+        times.append((f"bq={c.kernel.bq} bk={c.kernel.bk}", ms * 1e3))
+        return ms * 1e3
+
+    tuned = planner.autotune_kernel(swa_plan, time_fn=swa_timer)
+    if tuned.engine != "seq_swa_cuda":
+        raise AssertionError(f"swa autotune: {tuned.describe()}")
+    report("swa_attention (Gemma local layer, bf16)", tuned, times)
+    got = sw.swa_attention(q, k, v, window=window, bq=tuned.kernel.bq,
+                           bk=tuned.kernel.bk).float()
+    want = sw.swa_attention_plain(q, k, v, window, tuned.kernel.bq,
+                                  tuned.kernel.bk).float()
+    atol, rtol = SWA_GEMMA_BF16_TOL
+    if not bool(((got - want).abs() <= atol + rtol * want.abs()).all()):
+        raise AssertionError("swa winner disagrees with its plain version")
+    res["swa"] = {"times": times, "winner": [tuned.kernel.bq,
+                                             tuned.kernel.bk],
+                  "plan_tiles": [swa_plan.kernel.bq, swa_plan.kernel.bk],
+                  "err": float((got - want).abs().max())}
+    del q, k, v, got, want
+
+    # ssd_scan: Zamba2's Mamba2 widths
+    Bt, S, H, P, N = SSD_SHAPE
+    ssd_plan = kernelize_plan(ExecutionPlan.explicit(
+        "seq_ssd_cuda", seq=S, ssm_state=N), "cuda")
+    ins = _ssd_inputs(torch, *SSD_SHAPE, seed=20)
+    times = []
+
+    def ssd_timer(c):
+        ms = _timed_ms(torch, lambda: sc.ssd_scan(*ins, chunk=c.kernel.chunk),
+                       iters=10)
+        times.append((f"chunk={c.kernel.chunk}", ms * 1e3))
+        return ms * 1e3
+
+    # the sequence pricers look only at the plan, not the trunk
+    tuned = planner.autotune_kernel(ssd_plan, time_fn=ssd_timer)
+    if tuned.engine != "seq_ssd_cuda":
+        raise AssertionError(f"ssd autotune: {tuned.describe()}")
+    report("ssd_scan (Zamba2 Mamba2 widths)", tuned, times)
+    chunk = tuned.kernel.chunk
+    err = float((sc.ssd_scan(*ins, chunk=chunk)
+                 - sc.ssd_scan_plain(*ins, chunk=chunk)).abs().max())
+    if not err <= SSD_ATOL:
+        raise AssertionError(f"ssd winner chunk={chunk}: err {err}")
+    res["ssd"] = {"times": times, "winner": chunk,
+                  "plan_chunk": ssd_plan.kernel.chunk, "err": err}
+    out["autotune"] = res
+    print(f"autotune: winners conv block_h={bh}, swa bq/bk="
+          f"{res['swa']['winner']} (plan {res['swa']['plan_tiles']}), ssd "
+          f"chunk={chunk} (plan {res['ssd']['plan_chunk']}); each launched "
+          f"and held against its plain version", flush=True)
+
+
+def phase_obs(torch, out, tmp):
+    """The audit gate over every traced run, and the executor's counters
+    of twophase_h N=8 under host residency against the plan: its rows and
+    the SD bytes the Planner priced (``plan_sd`` in the train log) less
+    the input level's, which each row slices from its segment's input."""
+    traces = sorted(os.path.join(tmp, "obs", f)
+                    for f in os.listdir(os.path.join(tmp, "obs"))
+                    if f.endswith(".jsonl"))
+    r = subprocess.run([sys.executable, "-m", "repro_torch.analysis.audit",
+                        "--check", *traces], cwd=ROOT,
+                       env=dict(os.environ,
+                                PYTHONPATH=os.path.join(ROOT, "src")),
+                       capture_output=True, text=True, timeout=300)
+    print(r.stdout, flush=True)
+    if r.returncode:
+        raise AssertionError(f"analysis.audit --check exit {r.returncode}: "
+                             f"{r.stderr[-2000:]}")
+    host = out["residency"]["host"]
+    steps = len(host["losses"])
+    segs = host["plan"]["segments"]
+    sd = host["plan_sd"]
+    want = {"rowprog.fp_rows": steps * sum(n for _, _, n in segs),
+            "rowprog.bp_rows": steps * sum(n for _, _, n in segs),
+            "rowprog.prefetches": steps * sum(n - 1 for _, _, n in segs),
+            "rowprog.offload_bytes": steps * (sd["sd_bytes"]
+                                              - sd["input_level_bytes"])}
+    want["rowprog.prefetch_bytes"] = want["rowprog.offload_bytes"]
+    got = {k: host["counters"].get(k) for k in want}
+    print(f"obs: {len(traces)} traces gated; twophase_h N=8 host counters "
+          f"{got} (plan implies {want})", flush=True)
+    if got != want:
+        raise AssertionError(f"host residency counters {got} != {want}")
+    out["obs"] = {"traces": len(traces), "counters": got}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -928,7 +1466,11 @@ def main() -> int:
                   ("train_lm_kernel", lambda: phase_train_lm_kernel(
                       torch, out, tmp)),
                   ("train_lm_rows", lambda: phase_train_lm_rows(
-                      torch, out, tmp))]
+                      torch, out, tmp)),
+                  ("memory", lambda: phase_memory(torch, out, tmp)),
+                  ("profile", lambda: phase_profile(torch, out, tmp)),
+                  ("autotune", lambda: phase_autotune(torch, out, tmp)),
+                  ("obs", lambda: phase_obs(torch, out, tmp))]
         for name, fn in phases:
             t0 = time.time()
             try:

@@ -22,6 +22,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.convmath import Interval, split_even
 from repro_torch.models.cnn.layers import (
     apply_trunk, flatten_params, trunk_heights, trunk_in_intervals,
@@ -73,6 +74,14 @@ def overlap_forward(modules: Sequence, params, x, plan: OverlapPlan):
     return torch.cat(outs, dim=1)
 
 
+def _add_into(accs, grads) -> None:
+    """``acc += d`` for each gradient that exists (a function, so that no
+    loop variable keeps the last gradient alive)."""
+    for acc, d in zip(accs, grads):
+        if d is not None:
+            acc += d
+
+
 class _OverlapFunction(torch.autograd.Function):
     """Row-centric custom backward; saves only ``(params, x)``."""
 
@@ -89,25 +98,34 @@ class _OverlapFunction(torch.autograd.Function):
         x, *leaves = ctx.saved_tensors
         plan = ctx.plan_bp
         want_x = ctx.needs_input_grad[4]
-        dleaves = [torch.zeros_like(l) for l in leaves]
+        # the first row's parameter gradients become the accumulators, and
+        # each row's gradients are released before the next row is
+        # recomputed: a zero-filled set of accumulators, or the previous
+        # row's gradients kept alive by their variable, would add one
+        # parameter-sized buffer to the backward's peak
+        dleaves = None
         dx = torch.zeros_like(x) if want_x else None
         for r in range(plan.n_rows):
             chain = plan.chains[r]
             a, b = chain[0]
             p_r = [l.detach().requires_grad_() for l in leaves]
             xr = x[:, a:b].detach().requires_grad_(want_x)
-            with torch.enable_grad():
+            with torch.enable_grad(), obs.profile_range("row_recompute"):
                 y = _run_row(ctx.modules, unflatten_params(p_r, ctx.spec),
                              xr, chain, plan.heights)
             os_, oe = plan.row_ivs[r]
             inputs = p_r + ([xr] if want_x else [])
             grads = torch.autograd.grad(y, inputs, g[:, os_:oe],
                                         allow_unused=True)
-            for acc, d in zip(dleaves, grads[:len(leaves)]):
-                if d is not None:
-                    acc += d
+            del y
+            if dleaves is None:
+                dleaves = [torch.zeros_like(l) if d is None else d
+                           for l, d in zip(leaves, grads[:len(leaves)])]
+            else:
+                _add_into(dleaves, grads[:len(leaves)])
             if want_x:
                 dx[:, a:b] += grads[-1]
+            del grads
         return (None, None, None, None, dx, *dleaves)
 
 

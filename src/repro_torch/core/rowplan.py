@@ -83,6 +83,20 @@ def twophase_cache_row_bytes(modules, in_shape, batch, n_rows,
     return out
 
 
+def twophase_cache_level_bytes(modules, in_shape, batch, n_rows,
+                               dtype_bytes: int = 4) -> List[int]:
+    """The same SD volume per activation level (level 0 is the block's
+    input), summed over the importing rows."""
+    plan = _tp.module_boundaries(modules, in_shape[0], n_rows)
+    shapes = shape_chain(modules, in_shape)
+    out = [0] * len(shapes)
+    for row in plan.cache_sizes():
+        for lvl, rows in enumerate(row):
+            _, w, c = shapes[lvl]
+            out[lvl] += batch * rows * w * c * dtype_bytes
+    return out
+
+
 def twophase_cache_bytes(modules, in_shape, batch, n_rows,
                          dtype_bytes: int = 4) -> int:
     """Exact SD volume from the 2PS plan (paper approximates it as

@@ -17,11 +17,15 @@ what each CUDA kernel needs — one CTA's shared memory against Hopper's
 :func:`repro_torch.kernels.swa_attention.launch_problem`,
 :func:`repro_torch.kernels.ssd_chunk.launch_problem`) — where the
 reference priced a VMEM row block against 16 MiB and MXU alignment.
+Measured-cost planning: ``predict_plan_us`` (a roofline over a
+:class:`~repro_torch.exec.costmodel.CostTable`), the costed ``for_budget``
+that ranks every feasible candidate by it, and ``autotune_kernel``, which
+times the feasible tile candidates on the card.  Every public solve entry
+point bumps the ``planner.solves`` obs counter, as in the reference.
 
 Not ported yet, and raising :class:`NotImplementedError` with what they
-wait for: the costed chooser (``for_budget`` with a ``cost_table``),
-``stagedize`` where it would have to stage, the tile autotuner and the
-serving planner.
+wait for: ``stagedize`` where it would have to stage (and the staged
+alternates of the costed chooser) and the serving planner.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from __future__ import annotations
 from dataclasses import replace as dataclasses_replace
 from typing import Optional, Sequence, Tuple
 
+from repro_torch import obs
 from repro_torch.core import rowplan as _rp
 from repro_torch.core import twophase as _tp
 from repro_torch.core.hybrid import auto_segments, max_rows_per_segment
@@ -63,6 +68,14 @@ CUDA_ENGINES = ("overlap_cuda", "seq_swa_cuda", "seq_ssd_cuda")
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet")
+
+
+def _count_solve() -> None:
+    """Bump the ``planner.solves`` obs counter (a no-op without an active
+    obs session): every public solve entry point calls this, which is
+    what shows "plan-cache hit => zero planner solves" in the metrics
+    dump."""
+    obs.counter("planner.solves").inc()
 
 
 def _offloads(residency: Optional[ResidencySpec]) -> bool:
@@ -270,11 +283,15 @@ class Planner:
     """Solves (engine, N) for a CNN trunk.  ``xi`` is the paper's constant
     (params + grads + optimizer state) added to every estimate.  A mesh is
     accepted as plain data and divides batch and budget per device, as in
-    the reference; executing it is not ported yet."""
+    the reference; executing it is not ported yet.  With a ``cost_table``
+    (:class:`~repro_torch.exec.costmodel.CostTable`) budget-driven
+    selection ranks feasible candidates by predicted step time instead of
+    the static Table I order."""
 
     def __init__(self, modules: Sequence, in_shape: Tuple[int, int, int],
                  batch: int, dtype_bytes: int = 4, xi: int = 0,
-                 n_max: int = 64, mesh: Optional[MeshSpec] = None):
+                 n_max: int = 64, mesh: Optional[MeshSpec] = None,
+                 cost_table=None):
         self.modules = list(modules)
         self.in_shape = tuple(in_shape)
         self.batch = batch
@@ -282,6 +299,7 @@ class Planner:
         self.xi = xi
         self.n_max = n_max
         self.mesh = mesh
+        self.cost_table = cost_table
         shards = mesh.batch_extent if mesh is not None else 1
         if shards > 1 and batch % shards:
             raise ValueError(f"global batch {batch} does not divide over "
@@ -309,6 +327,12 @@ class Planner:
         for a mixed spec, capped at the N-1 importing rows)."""
         base = _rp.omega_bp(modules, in_shape, self.dev_batch, n_rows,
                             self.dtype_bytes)
+        return base + self._twophase_transit(modules, in_shape, n_rows,
+                                             residency)
+
+    def _twophase_transit(self, modules, in_shape, n_rows: int,
+                          residency: ResidencySpec) -> int:
+        """The transit buffer of :meth:`_twophase_offloaded`."""
         rows = _rp.twophase_cache_row_bytes(modules, in_shape,
                                             self.dev_batch, n_rows,
                                             self.dtype_bytes)
@@ -321,7 +345,7 @@ class Planner:
         if "recompute" in policies:
             mult += 2
         mult = min(mult, max(1, n_rows - 1))
-        return base + mult * buf
+        return mult * buf
 
     def _estimate_segmented(self, segments, inner: str,
                             residency: Optional[ResidencySpec] = None
@@ -367,6 +391,96 @@ class Planner:
             return self._estimate_segmented(segs, inner, residency) + self.xi
         raise ValueError(f"unknown CNN engine {engine!r}; known: "
                          f"{list(CNN_ENGINES)}")
+
+    def _block_terms(self, modules, in_shape, inner: str, n_rows: int,
+                     residency: Optional[ResidencySpec]) -> dict:
+        """One block's estimate under ``inner`` as named terms."""
+        db, B = self.dtype_bytes, self.dev_batch
+        if inner == "column":
+            return {"feature_maps": _rp.omega_column(modules, in_shape, B,
+                                                     db)}
+        terms = {"bp_rows": _rp.omega_bp(modules, in_shape, B, n_rows, db)}
+        if inner == "overlap":
+            terms["halo_share"] = _rp.overlap_halo_bytes(
+                modules, in_shape, B, n_rows, db) // max(1, n_rows)
+        elif _offloads(residency):
+            terms["sd_transit"] = self._twophase_transit(
+                modules, in_shape, n_rows, residency)
+        else:
+            terms["sd_caches"] = _rp.twophase_cache_bytes(
+                modules, in_shape, B, n_rows, db)
+        return terms
+
+    def estimate_terms(self, plan: ExecutionPlan) -> dict:
+        """``plan``'s per-device estimate as the terms :meth:`estimate`
+        adds, in bytes, so a measured peak can be read against each:
+        ``feature_maps`` (``base``, column segments), ``bp_rows`` (the
+        Eq. 8 row baseline) with ``halo_share`` (OverL), ``sd_caches``
+        (2PS, device-resident) or ``sd_transit`` (2PS, offloaded); the
+        hybrids add ``checkpoints`` and price their worst segment, whose
+        terms carry a ``segment.`` prefix; every plan adds ``xi``.  The
+        values sum to ``estimate`` for the plan's engine, N, segments and
+        residency.  A CUDA alternate keeps the estimate of the engine it
+        replaced, so ``overlap_cuda`` is split as ``overlap`` or, where
+        that does not give its estimate, as ``base``."""
+        if plan.engine == "overlap_cuda":
+            split = [self.estimate_terms(dataclasses_replace(plan, engine=e))
+                     for e in ("overlap", "base")]
+            return next((t for t in split if sum(t.values())
+                         == plan.est_bytes_per_device), split[0])
+        engine = plan.engine
+        res, n = plan.residency, max(1, plan.n_rows)
+        if engine == "base":
+            terms = self._block_terms(self.modules, self.in_shape, "column",
+                                      1, res)
+        elif engine in ("overlap", "twophase"):
+            terms = self._block_terms(self.modules, self.in_shape, engine,
+                                      n, res)
+        elif engine in INNER_STRATEGY:
+            inner = INNER_STRATEGY[engine]
+            segs = plan.segments or self._segments(n, inner,
+                                                   plan.n_segments)
+            shapes = self._shapes()
+            terms = {"checkpoints": sum(
+                self.dev_batch * shapes[a][0] * shapes[a][1] * shapes[a][2]
+                * self.dtype_bytes for a, _, _ in segs if a > 0)}
+            worst = None
+            for a, b, sn in segs:
+                t = self._block_terms(self.modules[a:b], shapes[a], inner,
+                                      sn, res)
+                if worst is None or sum(t.values()) > sum(worst.values()):
+                    worst = t
+            terms.update({f"segment.{k}": v for k, v in worst.items()})
+        else:
+            raise ValueError(f"estimate_terms: {plan.engine!r} is not a CNN "
+                             f"engine; known: {list(CNN_ENGINES)}")
+        terms["xi"] = self.xi
+        return terms
+
+    def sd_volume(self, plan: ExecutionPlan) -> Optional[dict]:
+        """The SD caches one step of a 2PS plan moves, as priced (every
+        block's, not only the worst segment's): ``sd_bytes`` in all and
+        ``input_level_bytes`` of it over each block's input level, whose
+        rows the row executor slices from the block's input instead of
+        carrying them — so an offloading residency moves ``sd_bytes -
+        input_level_bytes`` each way.  None for an engine without 2PS
+        blocks."""
+        if plan.engine == "twophase":
+            blocks = ((0, len(self.modules), max(1, plan.n_rows)),)
+        elif INNER_STRATEGY.get(plan.engine) == "twophase":
+            blocks = plan.segments or self._segments(
+                plan.n_rows, "twophase", plan.n_segments)
+        else:
+            return None
+        shapes = self._shapes()
+        total = level0 = 0
+        for a, b, n in blocks:
+            lv = _rp.twophase_cache_level_bytes(
+                self.modules[a:b], shapes[a], self.dev_batch, n,
+                self.dtype_bytes)
+            total += sum(lv)
+            level0 += lv[0]
+        return {"sd_bytes": total, "input_level_bytes": level0}
 
     # -- plans ---------------------------------------------------------------
     def plan(self, engine: str, n_rows: int = 1,
@@ -512,12 +626,21 @@ class Planner:
         engines with their caches off device, then :meth:`stagedize`
         (a no-op without a model axis).  Failing everything, the
         infeasible plan with the smallest estimate.  Per device under a
-        mesh."""
-        if cost_table is not None:
-            raise _not_ported("the costed chooser (Planner.for_budget with "
-                              "a cost_table, exec/costmodel.py)")
+        mesh.
+
+        With a ``cost_table`` the static orders are replaced by the
+        measured roofline (:meth:`_for_budget_costed`): every feasible
+        candidate — each engine under the pinned residency, plus the host-
+        and recompute-offloaded carry engines when none is pinned — is
+        priced by :meth:`predict_plan_us` and the least predicted step
+        time wins, recorded under the ``cost_model`` /
+        ``predicted_step_us`` / ``cost_table_version`` extras."""
+        _count_solve()
         planner = cls(modules, in_shape, batch, dtype_bytes, xi, n_max,
-                      mesh=mesh)
+                      mesh=mesh, cost_table=cost_table)
+        if cost_table is not None:
+            return planner._for_budget_costed(budget, candidates,
+                                              residency, cost_table)
         best: Optional[ExecutionPlan] = None
         for engine in candidates:
             p = planner.solve(engine, budget, residency=residency)
@@ -539,12 +662,14 @@ class Planner:
     def resolve(self, request: PlanRequest) -> ExecutionPlan:
         """Turn a config-level :class:`PlanRequest` into a plan; its
         ``kernel`` ("cuda"/"plain") is applied to whatever resolves."""
+        _count_solve()
         if request.mesh:
             mesh = MeshSpec.parse(request.mesh)
             if mesh != self.mesh:
                 return Planner(self.modules, self.in_shape, self.batch,
                                self.dtype_bytes, self.xi, self.n_max,
-                               mesh=mesh).resolve(
+                               mesh=mesh,
+                               cost_table=self.cost_table).resolve(
                                    dataclasses_replace(request, mesh=""))
         plan = self._resolve(request, ResidencySpec.parse(request.residency))
         if request.kernel:
@@ -589,10 +714,220 @@ class Planner:
         return self.for_budget(self.modules, self.in_shape, self.batch,
                                budget, dtype_bytes=self.dtype_bytes,
                                xi=self.xi, n_max=self.n_max, mesh=self.mesh,
-                               residency=residency)
+                               residency=residency,
+                               cost_table=self.cost_table)
 
-    def autotune_kernel(self, *args, **kwargs):
-        raise _not_ported("Planner.autotune_kernel (timed tile search)")
+    def autotune_kernel(self, plan: ExecutionPlan, *, time_fn=None,
+                        smem_limit: int = SMEM_LIMIT,
+                        base_spec: Optional[KernelSpec] = None
+                        ) -> ExecutionPlan:
+        """Search the KernelSpec tile geometry for ``plan``'s CUDA
+        alternate and return the plan kernelized with the fastest tiling.
+
+        Candidates come from the enumeration kernelize retiles over
+        (``candidate_tiles``), filtered by the same shared-memory and halo
+        pricers (:func:`_cuda_infeasible`), then *timed*: ``time_fn
+        (candidate plan) -> us`` (default: :meth:`_default_kernel_timer`,
+        the trunk's batch-1 forward on the card, which it needs; the
+        sequence engines have no trunk, so their callers pass one).  The
+        least time wins; exact ties break toward the earlier candidate, so
+        the search is deterministic for a deterministic timer.  The
+        winner records the search under the ``autotune`` / ``autotune_us``
+        extras; when no candidate passes the pricers the plan falls back
+        to the plain engine with the usual ``kernel_fallback`` reason."""
+        spec0 = base_spec or plan.kernel or KernelSpec(backend="cuda")
+        spec0 = dataclasses_replace(spec0, backend="cuda")
+        target = CUDA_ALTERNATE.get(plan.engine, plan.engine)
+        if target not in CUDA_ENGINES:
+            return _kernel_fallback(
+                plan, spec0, f"engine {plan.engine!r} has no cuda alternate")
+        feasible = []
+        seen = set()
+        for tiles in _tile_candidates(target, plan):
+            spec = dataclasses_replace(spec0, **tiles)
+            if spec in seen:
+                continue
+            seen.add(spec)
+            reason, pricing = _cuda_infeasible(target, plan, spec,
+                                               self.modules, smem_limit)
+            if not reason:
+                feasible.append((spec, pricing, tiles))
+        if not feasible:
+            return _kernel_fallback(
+                plan, spec0,
+                f"autotune: no tile candidate feasible for {target}")
+        timer = time_fn if time_fn is not None \
+            else self._default_kernel_timer()
+        scored = []
+        for idx, (spec, pricing, tiles) in enumerate(feasible):
+            cand = dataclasses_replace(plan, engine=target, kernel=spec)
+            scored.append((float(timer(cand)), idx, cand, pricing, tiles))
+        scored.sort(key=lambda t: (t[0], t[1]))
+        us, _, cand, pricing, tiles = scored[0]
+        return cand.with_extras(
+            autotune=(f"timed {len(feasible)} feasible of "
+                      f"{len(seen)} tile candidates for {target}; best "
+                      f"{_fmt_tiles(tiles)} at {us:.1f}us"),
+            autotune_us=round(us, 3), **pricing)
+
+    def _default_kernel_timer(self):
+        """Timer over this planner's own trunk on the card: seeded
+        parameters, a batch-1 forward without a graph through
+        ``build_apply``, timed by :func:`~repro_torch.obs.audit.measure_step`
+        (one warmup call, then the median of 2 timed ones).  It times CUDA
+        kernels, so without a card it raises: a tile chosen from the plain
+        versions' CPU times would say nothing about the kernel."""
+        import torch
+
+        from repro_torch.exec.registry import build_apply
+        from repro_torch.models.cnn.layers import init_trunk
+        from repro_torch.obs.audit import measure_step
+
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "autotune_kernel's default timer times the CUDA kernels and "
+                "needs a CUDA device; pass time_fn to tune without one")
+        dev = torch.device("cuda")
+        params, _ = init_trunk(self.modules,
+                               torch.Generator().manual_seed(0),
+                               self.in_shape, device=dev)
+        x = torch.zeros((1,) + self.in_shape, device=dev)
+
+        def timer(cand: ExecutionPlan) -> float:
+            fn = build_apply(self.modules,
+                             dataclasses_replace(cand, mesh=None))
+            with torch.no_grad():
+                m = measure_step(fn, params, x, time_iters=2)
+            return float(m["wall_us"])
+
+        return timer
+
+    # -- measured-cost selection (roofline over a calibrated CostTable) ---
+    def predict_plan_us(self, plan: ExecutionPlan, table) -> dict:
+        """Roofline step-time prediction for ``plan`` under ``table``:
+        ``{"us", "compute_us", "copy_us", "flops", "copy_bytes"}``.
+
+        Compute side: one forward + ~2x backward over the trunk
+        (:func:`~repro_torch.exec.costmodel.trunk_fwd_flops`), plus one
+        extra forward for the checkpointed engines (segment recompute),
+        plus the replicated-halo fraction for the OverL family, plus the
+        O(N^2) forward-chain term — ``fwd * (N-1)/2`` — under recompute
+        residency.  Copy side: the 2PS SD volume crosses PCIe both ways
+        under host residency, scaled by the audit-seeded byte-honesty
+        ratio for the matching plan group.  The step pays ``max(compute,
+        copy)`` (prefetch hides copies behind the adjacent row) plus
+        per-row dispatch overhead.
+
+        One departure from the reference: the halo and SD terms split the
+        trunk into at most as many rows as its last level has (OverL-H and
+        2PS-H plans ask for more, e.g. N=10 on VGG-16's 7-row last level at
+        224², and cap each segment); the reference raises ``ValueError``
+        there, which stops its costed chooser on any budget where such a
+        plan is a candidate.  Wherever the reference answers, the answers
+        are equal."""
+        from repro_torch.exec.costmodel import (
+            audit_ratio_key, trunk_fwd_flops,
+        )
+
+        fwd = trunk_fwd_flops(self.modules, self.in_shape, self.dev_batch)
+        flops = 3.0 * fwd
+        n = max(1, plan.n_rows)
+        # the hybrids cap each segment's N at the segment's final height,
+        # so the trunk-wide halo and SD terms split into at most as many
+        # rows as the trunk's last level has; the reference prices N as
+        # given and raises past it
+        n_split = min(n, self._shapes()[-1][0])
+        engine = plan.engine
+        if engine in INNER_STRATEGY:  # segment recompute: one extra FP
+            flops += fwd
+        if engine in ("overlap", "overlap_h", "overlap_cuda") and n > 1:
+            halo = _rp.overlap_halo_bytes(self.modules, self.in_shape,
+                                          self.dev_batch, n_split,
+                                          self.dtype_bytes)
+            feat = sum(_rp.feature_bytes(self.modules, self.in_shape,
+                                         self.dev_batch, self.dtype_bytes))
+            if feat:
+                flops += 3.0 * fwd * (halo / feat)  # redundant halo compute
+        d2h = h2d = 0.0
+        res = plan.residency
+        if _offloads(res) and engine in RESIDENCY_ENGINES:
+            policies = {res.default} | {p for _, p in res.placements}
+            sd = _rp.twophase_cache_bytes(self.modules, self.in_shape,
+                                          self.dev_batch, n_split,
+                                          self.dtype_bytes)
+            if "host" in policies:
+                d2h += sd   # FP exports every boundary cache ...
+                h2d += sd   # ... and BP prefetches it back
+            if "recompute" in policies:
+                # regenerating row r's caches replays rows 0..r-1's FP:
+                # sum over importing rows ~= fwd * (N-1)/2
+                flops += fwd * (n - 1) / 2.0
+        key = audit_ratio_key("train_step", engine,
+                              res.describe() if res is not None
+                              else "device", "")
+        scale = table.ratio(key)
+        compute = table.compute_us(flops)
+        copy = table.copy_us(d2h * scale, h2d * scale)
+        return {"us": max(compute, copy) + table.row_overhead_us * n,
+                "compute_us": compute, "copy_us": copy, "flops": flops,
+                "copy_bytes": d2h + h2d}
+
+    def _for_budget_costed(self, budget: int, candidates: Sequence[str],
+                           residency: Optional[ResidencySpec],
+                           table) -> ExecutionPlan:
+        """Collect every feasible candidate plan, rank by predicted step
+        time, record the decision — the measured replacement for both the
+        Table I order and residencize's host-before-recompute order."""
+        pool = []
+        for engine in candidates:
+            p = self.solve(engine, budget, residency=residency)
+            if p is not None:
+                pool.append(p)
+        device_pool = list(pool)
+        if residency is None:
+            # the offload alternatives enter the SAME ranked pool instead
+            # of a fixed host-then-recompute retry order
+            for policy in ("host", "recompute"):
+                spec = ResidencySpec(default=policy)
+                for engine in RESIDENCY_ENGINES:
+                    p = self.solve(engine, budget, residency=spec)
+                    if p is not None:
+                        pool.append(p)
+        if self.mesh is not None and self.mesh.model > 1:
+            raise _not_ported("the costed chooser's staged alternates over "
+                              "a model axis (exec/pipeline.py)")
+        feasible = [p for p in pool if p.feasible]
+        if not feasible:
+            best = min(device_pool, key=lambda p: p.est_bytes)
+            if residency is None:
+                best = self.residencize(best, budget)
+            return self.stagedize(best, budget, residency)
+        pref = {e: i for i, e in enumerate(BUDGET_PREFERENCE)}
+        scored = [(self.predict_plan_us(p, table), p) for p in feasible]
+        scored.sort(key=lambda cp: (cp[0]["us"],
+                                    pref.get(cp[1].engine, len(pref)),
+                                    cp[1].n_rows))
+        cost, chosen = scored[0]
+        res_desc = chosen.residency.describe() \
+            if chosen.residency is not None else "device"
+        chosen = chosen.with_extras(
+            cost_model=(f"ranked {len(feasible)} feasible candidates by "
+                        f"roofline step time; {chosen.engine} N="
+                        f"{chosen.n_rows} ({res_desc}) predicted "
+                        f"{cost['us']:.1f}us (compute "
+                        f"{cost['compute_us']:.1f}us, copy "
+                        f"{cost['copy_us']:.1f}us)"),
+            predicted_step_us=round(cost["us"], 3),
+            cost_table_version=table.version())
+        if _offloads(chosen.residency) \
+                and not any(p.feasible for p in device_pool):
+            dev_budget = budget // self.shards
+            chosen = chosen.with_extras(residencized=(
+                f"no device-resident candidate fits budget {dev_budget} "
+                f"B/device; {chosen.residency.default} residency of "
+                f"{chosen.engine} boundary caches fits at "
+                f"N={chosen.n_rows}"))
+        return chosen
 
     # -- sequence-side planning (the LM transplant) -----------------------
     @staticmethod
@@ -618,6 +953,7 @@ class Planner:
         """Smallest chunk count (dividing ``seq_len``) that fits ``budget``
         (per device under a mesh); the infeasible plan at the largest
         divisor otherwise.  ``residency`` rides along on the plan."""
+        _count_solve()
         shards = batch_shards(mesh, batch)
         divisors = [n for n in range(1, min(n_max, seq_len) + 1)
                     if seq_len % n == 0]
@@ -647,6 +983,7 @@ class Planner:
         the config's ``row_chunks`` when unconstrained); ``kernel=`` (spec
         or backend string) kernelizes the resolved plan, so the KernelSpec
         lands on the one plan the train path executes."""
+        _count_solve()
         kinds = set(cfg.layer_kinds())
         if kinds & {"mamba", "mlstm", "slstm"}:
             engine, window = "seq_carry_scan", 0

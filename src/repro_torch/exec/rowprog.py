@@ -48,9 +48,21 @@ On CPU tensors host residency is the reference's structural no-op
 tensors a failure to pin or copy raises.  The reference's
 ``lax.optimization_barrier`` has no counterpart: eager order already
 serialises the rows and the fetches.  Scan-shaped programs
-(``returns_carry``, an initial carry differentiable in the args) and the
-``obs`` spans and counters are not ported yet: they come with the
-``seq_carry_scan`` engine and the port of ``obs/``.
+(``returns_carry``, an initial carry differentiable in the args) are not
+ported yet: they come with the ``seq_carry_scan`` engine.
+
+Observability: with an obs session open (:mod:`repro_torch.obs`) the
+executor emits the reference's records — an ``fp_row`` span per forward
+row, ``offload`` / ``drop_recompute`` events per placed carry once the
+sweep is done, and in the backward ``prefetch`` events, a ``bp_row`` span
+per row and a ``recompute_chain`` event per regenerated carry — and counts
+``rowprog.fp_rows``, ``bp_rows``, ``offload_bytes``, ``recompute_rows``,
+``prefetches`` and ``prefetch_bytes``.  Events follow the placement
+policy, so they are the same on CPU tensors, where no bytes move.  The
+reference emits at jit trace time, once per compile; this eager executor
+emits once per executed step.  Every site is guarded by
+:func:`repro_torch.obs.enabled`.  Each recomputed row also runs inside a
+``row_recompute`` profiler range (:func:`repro_torch.obs.profile_range`).
 """
 
 from __future__ import annotations
@@ -59,6 +71,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.exec.plan import ResidencySpec
 
 
@@ -113,9 +126,14 @@ def rowprog_forward(prog: RowProgram, args, place=None):
     """Plain forward sweep.  With ``place(carry, r)`` also returns what it
     makes of the carry entering each row, called before that row runs
     (right after the row that produced it)."""
+    trace = obs.enabled()
     carry = tuple(prog.init_carry(args))
     ys, placed = [], []
     for r in range(prog.n_rows):
+        if trace:
+            obs.span("fp_row", tick=r, n_rows=prog.n_rows,
+                     carry_bytes=sum(int(t.nbytes) for t in carry))
+            obs.counter("rowprog.fp_rows").inc()
         if place is not None:
             placed.append(place(carry, r))
         carry, y = prog.row_step(carry, prog.row_args(args, r), r)
@@ -161,6 +179,9 @@ class _Placement:
     def __init__(self, prog: RowProgram, res: ResidencySpec, device):
         self.prog, self.res = prog, res
         self.host = None
+        #: (row, offloaded bytes, dropped bytes) per placed carry, kept
+        #: for the obs events while a session is open
+        self.moved: List[Tuple[int, int, int]] = []
         if not offload_is_noop(device) and (
                 res.default == "host"
                 or any(p == "host" for _, p in res.placements)):
@@ -172,13 +193,35 @@ class _Placement:
 
     def place(self, carry, r: int) -> tuple:
         out = []
+        off = drop = 0
         for leaf, p in zip(carry, self.policies(carry, r)):
-            if p == "host" and self.host is not None:
-                leaf = self.host.offload(leaf)
+            if p == "host":
+                off += int(leaf.nbytes)
+                if self.host is not None:
+                    leaf = self.host.offload(leaf)
             elif p == "recompute":
+                drop += int(leaf.nbytes)
                 leaf = leaf.new_empty((0,))
             out.append(leaf)
+        if (off or drop) and obs.enabled():
+            self.moved.append((r, off, drop))
         return tuple(out)
+
+    def emit_moved(self) -> None:
+        """The forward's placement events, in row order, after the sweep
+        (where the reference's ``fwd`` places its carries)."""
+        for r, off, drop in self.moved:
+            if off:
+                obs.event("offload", tick=r, bytes=off)
+                obs.counter("rowprog.offload_bytes").inc(off)
+            if drop:
+                obs.event("drop_recompute", tick=r, bytes=drop)
+        self.moved = []
+
+    def host_bytes(self, saved, r: int) -> int:
+        """Bytes of row ``r``'s host-placed leaves."""
+        return sum(int(leaf.nbytes) for leaf, p in
+                   zip(saved, self.policies(saved, r)) if p == "host")
 
     def fetch(self, saved, r: int):
         """Issue the copies of row ``r``'s host leaves; ``(leaves,
@@ -205,7 +248,10 @@ class _Placement:
         policies = self.policies(leaves, r)
         if "recompute" not in policies:
             return tuple(leaves)
-        with torch.no_grad():
+        if obs.enabled():
+            obs.event("recompute_chain", tick=r, rows=r)
+            obs.counter("rowprog.recompute_rows").inc(r)
+        with torch.no_grad(), obs.profile_range("row_recompute"):
             carry = tuple(self.prog.init_carry(args))
             for rr in range(r):
                 carry, _ = self.prog.row_step(
@@ -222,6 +268,8 @@ class _RowProgFunction(torch.autograd.Function):
     def forward(ctx, prog, res, *args):
         place = _Placement(prog, res, args[0].device)
         out, ctx.saved = rowprog_forward(prog, args, place.place)
+        if obs.enabled():
+            place.emit_moved()
         ctx.prog, ctx.place = prog, place
         ctx.save_for_backward(*args)
         return out
@@ -240,26 +288,40 @@ class _RowProgFunction(torch.autograd.Function):
         depth = place.res.prefetch_depth
         dcarry = None
         fetched = {}
+        trace = obs.enabled()
         for r in range(prog.n_rows - 1, -1, -1):
             # ahead-of-use fetch of host carries: rows r .. r - depth
             for rr in range(r, max(-1, r - 1 - depth), -1):
                 if rr not in fetched:
+                    if trace and "host" in place.policies(saved[rr], rr):
+                        nbytes = place.host_bytes(saved[rr], rr)
+                        # depth = how many rows ahead of consumption the
+                        # copy is issued (0 = demand fetch)
+                        obs.event("prefetch", tick=r, row=rr, depth=r - rr,
+                                  bytes=nbytes)
+                        obs.counter("rowprog.prefetches").inc()
+                        obs.counter("rowprog.prefetch_bytes").inc(nbytes)
                     fetched[rr] = place.fetch(saved[rr], rr)
                     saved[rr] = None
-            carry_in = place.regenerate(place.ready(fetched.pop(r)), args,
-                                        r)
+            leaves = place.ready(fetched.pop(r))
+            if trace:
+                obs.span("bp_row", tick=r, n_rows=prog.n_rows,
+                         recomputes="recompute" in place.policies(leaves, r))
+                obs.counter("rowprog.bp_rows").inc()
+            carry_in = place.regenerate(leaves, args, r)
             c = [t.detach().requires_grad_() for t in carry_in]
             ra = [t.detach().requires_grad_(n) for t, n in
                   zip(prog.row_args(args, r), need)]
-            with torch.enable_grad():
+            with torch.enable_grad(), obs.profile_range("row_recompute"):
                 carry_out, y = prog.row_step(tuple(c), tuple(ra), r)
             outs = [y]
             cots = [prog.out_cotangent(g, r)]
             if dcarry is not None:
-                for t, d in zip(carry_out, dcarry):
-                    if d is not None and t.requires_grad:
-                        outs.append(t)
-                        cots.append(d)
+                pairs = [(t, d) for t, d in zip(carry_out, dcarry)
+                         if d is not None and t.requires_grad]
+                outs += [t for t, _ in pairs]
+                cots += [d for _, d in pairs]
+                del pairs
             inputs = [t for t in ra if t.requires_grad] + c
             grads = torch.autograd.grad(outs, inputs, cots,
                                         allow_unused=True)
@@ -267,6 +329,10 @@ class _RowProgFunction(torch.autograd.Function):
             drow = [next(it) if t.requires_grad else None for t in ra]
             dcarry = list(it)
             prog.add_row_grad(dargs, drow, r)
+            # release this row's carry, recomputed outputs and input
+            # gradients (now in dargs) before the next row is recomputed
+            del grads, it, drow, outs, cots, carry_out, y, inputs, c, ra, \
+                leaves, carry_in
         return (None, None, *dargs)
 
 

@@ -26,13 +26,35 @@
   on ``TokenDataset`` batches.
 
 Both print ``plan: ...`` and the loss per step and write ``train_log.json``
-(schema-1 envelope) into ``--out``.  They run on ``cuda`` unless
-``--device cpu``.
+(schema-1 envelope) into ``--out``; the CNN trainer's also holds the
+plan's estimate split into its terms (``plan_terms``,
+``Planner.estimate_terms``) and a 2PS plan's SD volume (``plan_sd``,
+``Planner.sd_volume``).  They run on ``cuda`` unless ``--device cpu``.
+
+Observability and planning flags, on both trainers:
+
+* ``--trace PATH`` / ``--metrics-out PATH`` open an obs session
+  (:mod:`repro_torch.obs`): the row executor's spans and counters, a
+  ``train_step`` span per logged step, and a plan audit of step 0 — on the
+  card, step 0 itself runs between ``reset_peak_memory_stats`` and
+  ``max_memory_allocated``, and ``plan audit: est/dev ... measured peak
+  ... ratio ...`` is printed and written into ``train_log.json``.
+  Tracing changes no value a step computes.
+* ``--torch-profile DIR`` (with a session) wraps the run in
+  ``torch.profiler`` and exports a Chrome trace into ``DIR``; each step is
+  a ``train_step <i>`` range with ``data`` / ``forward`` / ``backward`` /
+  ``optimizer`` ranges inside (the CNN's; the LM's step has ``data``
+  only), and the row engines mark each recomputed row ``row_recompute``.
+* ``--plan-cache DIR`` resolves the plan through a persistent cache: a
+  hit replays the stored plan without a planner solve; a miss loads, or
+  calibrates on the run's device, the ``CostTable`` in ``DIR`` and solves
+  with it, so a budget-driven CNN solve ranks candidates by predicted
+  step time.
 
 Differences from the reference: ``--batch`` defaults to the config's batch
 for CNNs (32 for the full preset), ``--lr`` to 0.05 for CNNs and 3e-4 for
-LMs, and the kernel backends are named ``plain``/``cuda``.
-``--mesh``, ``--plan-cache``, ``--trace``, ``--metrics-out``, the LM
+LMs, the kernel backends are named ``plain``/``cuda``, and
+``--torch-profile`` stands for ``--jax-profile``.  ``--mesh``, the LM
 archs other than gemma3_4b, and ``--budget-gb``/``--residency`` on the LM
 path are not ported yet and raise; ``--save`` (checkpoints) is not there
 yet.
@@ -47,9 +69,13 @@ import time
 
 import torch
 
+from repro_torch import obs
 from repro_torch.data.pipeline import (
     ImageDataset, ImageDatasetConfig, TokenDataset, TokenDatasetConfig,
 )
+from repro_torch.exec.plancache import add_plan_cache_arg
+from repro_torch.obs.audit import measure_step, plan_audit
+from repro_torch.obs.cli import add_obs_args, configure_from_args, profiled
 from repro_torch.obs.steplog import StepLog
 from repro_torch.optim.adamw import (
     AdamWConfig, SGDConfig, adamw_init, sgd_init, sgd_update, tree_leaves,
@@ -57,7 +83,7 @@ from repro_torch.optim.adamw import (
 )
 
 #: flags of the reference trainer that wait for later slices of the port
-_NOT_PORTED_FLAGS = ("mesh", "plan_cache", "trace", "metrics_out")
+_NOT_PORTED_FLAGS = ("mesh",)
 CNN_ARCHS = ("vgg16", "resnet50")
 #: the reference's CNN learning rate; LMs take AdamW's 3e-4
 CNN_LR, LM_LR = 0.05, 3e-4
@@ -80,6 +106,61 @@ def _device(name: str) -> torch.device:
         raise RuntimeError("--device cuda but no CUDA device is available; "
                            "pass --device cpu to run the plain versions")
     return device
+
+
+def _resolve_plan(args, key_fields, solve, device):
+    """Resolve a plan through the persistent cache when ``--plan-cache``
+    is set, else solve directly.  The cost table is measured on, and the
+    cache keyed by, the run's own ``device``.
+
+    ``solve(table)`` performs the planner solve; ``table`` is the
+    calibrated :class:`~repro_torch.exec.costmodel.CostTable` under the
+    cache directory (None without a cache: the static path).  A hit
+    replays the stored plan without calling ``solve`` (zero planner
+    solves, visible in the obs counters); a stale cost-table version is a
+    miss, so cached decisions never outlive their measurements."""
+    if not getattr(args, "plan_cache", ""):
+        return solve(None)
+    from repro_torch.exec import cached_plan, load_or_calibrate
+    from repro_torch.exec.costmodel import hardware_fingerprint
+    table = load_or_calibrate(args.plan_cache, device=device)
+    key_fields = dict(key_fields, fingerprint=hardware_fingerprint(device))
+    plan, hit, key = cached_plan(args.plan_cache, key_fields,
+                                 lambda: solve(table),
+                                 cost_version=table.version())
+    print(f"plan cache: {'hit' if hit else 'miss'} key={key}", flush=True)
+    return plan
+
+
+def _audit_step(call, plan, source_extra, device, source="train_step",
+                est_bytes=None):
+    """Run step 0, ``call()``, under
+    :func:`~repro_torch.obs.audit.measure_step` and record its peak bytes
+    against the plan's estimate; returns ``(call's result, audit record)``.
+    The audited call is the step itself, so a traced run computes what an
+    untraced one does.  ``est_bytes`` overrides the plan's per-device
+    estimate when the comparable quantity includes terms outside the
+    plan's solve (the LM path adds the paper's ξ).  Without a plan, or on
+    the CPU (no memory measurement), the record is None."""
+    held = []
+    measured = measure_step(lambda: held.append(call()), device=device)
+    if plan is None or measured is None:
+        return held[0], None
+    rec = plan_audit(plan, measured, source, extra=source_extra,
+                     est_bytes=est_bytes)
+    ratio = rec["ratio"]
+    print(f"plan audit: est/dev {rec['est_bytes_per_device']} "
+          f"measured peak {measured['peak_bytes']}"
+          + (f" ratio {ratio:.3f}" if ratio is not None else ""),
+          flush=True)
+    return held[0], rec
+
+
+def _loss_grads(loss, params):
+    """The gradients of ``loss`` with respect to the tree ``params``, as a
+    tree of the same layout."""
+    leaves = iter(torch.autograd.grad(loss, tree_leaves(params)))
+    return tree_map(lambda _: next(leaves), params)
 
 
 def train_cnn(args, params=None):
@@ -112,7 +193,10 @@ def train_cnn(args, params=None):
         mods, init = resnet.init_resnet50(gen, shape, ccfg.width_mult,
                                           ccfg.n_classes, device=device)
         head_apply = resnet.head_apply
+    # the steps replace the tree: a second name for the initial one would
+    # keep a parameter-sized copy alive for the whole run
     params = init if params is None else params
+    del init
 
     # the reference's precedence: --budget-gb clears engine and N (the
     # Planner picks them), then --strategy / --rows pin them; an omitted
@@ -132,7 +216,17 @@ def train_cnn(args, params=None):
         req = dataclasses.replace(req, residency=args.residency)
     # the paper's xi: params + grads + optimizer state live beside activations
     n_params = sum(l.numel() for l in tree_leaves(params))
-    plan = Planner(mods, shape, batch, xi=3 * 4 * n_params).resolve(req)
+    xi = 3 * 4 * n_params
+    plan = _resolve_plan(
+        args,
+        dict(mode="cnn", arch=ccfg.arch, preset=args.preset,
+             image=ccfg.image, channels=ccfg.channels, batch=batch, xi=xi,
+             engine=req.engine, n_rows=req.n_rows,
+             budget_gb=req.budget_gb, n_segments=req.n_segments,
+             mesh=args.mesh or req.mesh, kernel=req.kernel,
+             residency=req.residency),
+        lambda table: Planner(mods, shape, batch, xi=xi,
+                              cost_table=table).resolve(req), device)
     print("plan:", plan.describe(), flush=True)
     trunk_apply = build_apply(mods, plan)
     print(f"arch={ccfg.arch} engine={plan.engine} N={plan.n_rows} "
@@ -149,24 +243,43 @@ def train_cnn(args, params=None):
     ds = ImageDataset(ImageDatasetConfig(
         h=ccfg.image, w=ccfg.image, c=ccfg.channels,
         n_classes=ccfg.n_classes, batch=batch, seed=args.seed))
+    def train_step(params, opt, images, labels):
+        p = tree_map(lambda t: t.detach().requires_grad_(), params)
+        with obs.profile_range("forward"):
+            loss = loss_fn(p, images, labels)
+        with obs.profile_range("backward"):
+            grads = _loss_grads(loss, p)
+        with obs.profile_range("optimizer"):
+            params, opt, _ = sgd_update(params, grads, opt, opt_cfg)
+        # detached: the loss's graph would hold this step's leaves, which
+        # alias its input parameters, until the next step's loss replaces it
+        return params, opt, loss.detach()
+
     os.makedirs(args.out, exist_ok=True)
-    steplog = StepLog()
+    steplog = StepLog("train")
+    audit = None
     t0 = time.time()
     for step in range(args.steps):
-        hb = ds.batch_at(step)
-        images = torch.from_numpy(hb["images"]).to(device)
-        labels = torch.from_numpy(hb["labels"]).long().to(device)
-        p = tree_map(lambda t: t.detach().requires_grad_(), params)
-        loss = loss_fn(p, images, labels)
-        leaves = iter(torch.autograd.grad(loss, tree_leaves(p)))
-        grads = tree_map(lambda _: next(leaves), p)
-        params, opt, _ = sgd_update(params, grads, opt, opt_cfg)
-        if step % args.log_every == 0 or step == args.steps - 1:
-            steplog.log({"step": step, "loss": loss.item(),
-                         "elapsed_s": round(time.time() - t0, 3)})
+        with obs.profile_range(f"train_step {step}"):
+            with obs.profile_range("data"):
+                hb = ds.batch_at(step)
+                images = torch.from_numpy(hb["images"]).to(device)
+                labels = torch.from_numpy(hb["labels"]).long().to(device)
+            if step == 0 and obs.enabled():
+                (params, opt, loss), audit = _audit_step(
+                    lambda: train_step(params, opt, images, labels), plan,
+                    {"arch": ccfg.arch, "batch": batch}, device)
+            else:
+                params, opt, loss = train_step(params, opt, images, labels)
+            if step % args.log_every == 0 or step == args.steps - 1:
+                steplog.log({"step": step, "loss": loss.item(),
+                             "elapsed_s": round(time.time() - t0, 3)})
+    # the estimate's terms, so a measured peak can be read against each
+    priced = Planner(mods, shape, batch, xi=xi)
     steplog.dump(os.path.join(args.out, "train_log.json"),
                  arch=ccfg.arch, mode="cnn", plan=plan.to_dict(),
-                 plan_audit=None)
+                 plan_audit=audit, plan_terms=priced.estimate_terms(plan),
+                 plan_sd=priced.sd_volume(plan))
     return steplog.records
 
 
@@ -195,7 +308,14 @@ def train_lm(args, cfg=None, params=None):
     batch = args.batch or 8
     plan = None
     if args.kernel and not args.row_chunks:  # explicit --row-chunks wins
-        plan = Planner.for_model(cfg, batch, args.seq, kernel=args.kernel)
+        plan = _resolve_plan(
+            args,
+            dict(mode="lm", arch=cfg.name, preset=args.preset, batch=batch,
+                 seq=args.seq, budget_gb=args.budget_gb,
+                 mesh=args.mesh or "", residency=args.residency,
+                 kernel=args.kernel),
+            lambda table: Planner.for_model(cfg, batch, args.seq,
+                                            kernel=args.kernel), device)
         print("plan:", plan.describe(), flush=True)
     if params is None:
         params = init_lm(torch.Generator(device=device).manual_seed(
@@ -213,21 +333,36 @@ def train_lm(args, cfg=None, params=None):
     ds = TokenDataset(TokenDatasetConfig(vocab=cfg.vocab, seq_len=args.seq,
                                          batch=batch, seed=args.seed))
     os.makedirs(args.out, exist_ok=True)
-    steplog = StepLog()
+    steplog = StepLog("train")
+    audit = None
     t0 = time.time()
     for step in range(args.steps):
-        hb = ds.batch_at(step)
-        data = {k: torch.from_numpy(hb[k]).long().to(device)
-                for k in ("tokens", "labels")}
-        state, metrics = step_fn(state, data)
-        if step % args.log_every == 0 or step == args.steps - 1:
-            rec = {k: float(v) for k, v in metrics.items()}
-            rec.update(step=step, elapsed_s=round(time.time() - t0, 3))
-            steplog.log(rec)
+        with obs.profile_range(f"train_step {step}"):
+            with obs.profile_range("data"):
+                hb = ds.batch_at(step)
+                data = {k: torch.from_numpy(hb[k]).long().to(device)
+                        for k in ("tokens", "labels")}
+            if step == 0 and obs.enabled():
+                # the plan prices the sequence-chunk term; the paper's ξ
+                # (params + grads + two AdamW moments, fp32 beside the
+                # activations) makes it comparable to the step's peak
+                est = None if plan is None else plan.est_bytes_per_device \
+                    + 4 * sum(int(t.nbytes)
+                              for t in tree_leaves(state["params"]))
+                (state, metrics), audit = _audit_step(
+                    lambda: step_fn(state, data), plan,
+                    {"arch": cfg.name, "batch": batch, "seq": args.seq},
+                    device, source="train_step_lm", est_bytes=est)
+            else:
+                state, metrics = step_fn(state, data)
+            if step % args.log_every == 0 or step == args.steps - 1:
+                rec = {k: float(v) for k, v in metrics.items()}
+                rec.update(step=step, elapsed_s=round(time.time() - t0, 3))
+                steplog.log(rec)
     steplog.dump(os.path.join(args.out, "train_log.json"),
                  arch=cfg.name, mode="lm",
                  plan=plan.to_dict() if plan is not None else None,
-                 plan_audit=None)
+                 plan_audit=audit)
     return steplog.records
 
 
@@ -273,16 +408,26 @@ def build_parser() -> argparse.ArgumentParser:
     for flag in _NOT_PORTED_FLAGS:
         ap.add_argument("--" + flag.replace("_", "-"), default=None,
                         help="not ported yet")
+    add_plan_cache_arg(ap)
+    add_obs_args(ap)
     return ap
 
 
 def main(argv=None, **kwargs):
     """Parse ``argv`` and train; ``kwargs`` go to ``train_cnn`` or
-    ``train_lm`` (``params``, and ``cfg`` for an LM)."""
+    ``train_lm`` (``params``, and ``cfg`` for an LM).  ``--trace`` /
+    ``--metrics-out`` open the obs session for the run and close it (and
+    write the metrics dump) when it ends."""
     args = build_parser().parse_args(argv)
-    if args.arch in CNN_ARCHS:
-        return train_cnn(args, **kwargs)
-    return train_lm(args, **kwargs)
+    configure_from_args(args, tool="train", arch=args.arch,
+                        preset=args.preset)
+    try:
+        with profiled(args):
+            if args.arch in CNN_ARCHS:
+                return train_cnn(args, **kwargs)
+            return train_lm(args, **kwargs)
+    finally:
+        obs.shutdown()
 
 
 if __name__ == "__main__":

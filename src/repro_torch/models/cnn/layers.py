@@ -17,7 +17,9 @@ Activations are NHWC and conv weights HWIO, as in the reference; the
 ``F.conv2d`` and ``F.max_pool2d`` only pad symmetrically: the conv gets row
 mode's asymmetric H padding (``pad_for_slice``) by dropping output rows
 where it can (see ``Conv._conv``), the pool by an explicit ``-inf``
-``F.pad``.
+``F.pad``.  The pool's backward re-derives the argmax from its saved input
+(:class:`_MaxPool2d`) instead of keeping autograd's int64 indices from the
+forward, as the reference's XLA VJP keeps none.
 
 Norm note (as in the reference): ``BatchNorm`` normalises with the running
 statistics held in the parameter tree, so row-centric and column-centric
@@ -127,6 +129,33 @@ class Conv:
         return _slice_rows(y, off, n)
 
 
+class _MaxPool2d(torch.autograd.Function):
+    """``F.max_pool2d`` (NCHW view, no padding) that saves only its input.
+
+    Autograd's own max pool keeps int64 argmax indices the size of its
+    output from the forward to the backward — 8 bytes an element, twice
+    the fp32 output, 392 MB for VGG-16's five pools at 224², batch 32.  The
+    input is kept anyway (it is the ReLU output the ReLU saves), so the
+    backward recomputes the indices from it and calls the same backward
+    kernel: the gradient is bit-identical, first maximum of a window
+    first, as in the reference's select-and-scatter."""
+
+    @staticmethod
+    def forward(ctx, xc, k: int, s: int):
+        ctx.save_for_backward(xc)
+        ctx.k, ctx.s = k, s
+        return F.max_pool2d(xc, k, s)
+
+    @staticmethod
+    def backward(ctx, g):
+        (xc,) = ctx.saved_tensors
+        k, s = ctx.k, ctx.s
+        _, idx = F.max_pool2d(xc, k, s, return_indices=True)
+        dx = torch.ops.aten.max_pool2d_with_indices_backward(
+            g, xc, [k, k], [s, s], [0, 0], [1, 1], False, idx)
+        return dx, None, None
+
+
 @dataclasses.dataclass(frozen=True)
 class MaxPool:
     k: int = 2
@@ -153,7 +182,7 @@ class MaxPool:
         if pad_h != (0, 0) or self.p:
             xc = F.pad(xc, (self.p, self.p, pad_h[0], pad_h[1]),
                        value=-math.inf)
-        return _nhwc(F.max_pool2d(xc, self.k, self.s))
+        return _nhwc(_MaxPool2d.apply(xc, self.k, self.s))
 
     def apply(self, params, x):
         return self._pool(x, (self.p, self.p))

@@ -128,9 +128,13 @@ def sgd_update(params, grads, state, cfg: SGDConfig, lr_scale=1.0):
     else:
         gnorm = global_norm(grads)
     lr = cfg.lr * lr_scale
-    vel = tree_map(lambda p, g, v: cfg.momentum * v
-                   + (g + cfg.weight_decay * p.float()),
-                   params, grads, state["vel"])
-    new_p = tree_map(lambda p, v: (p.float() - lr * v).to(p.dtype),
-                     params, vel)
+
+    def momentum(p, g, v):
+        return cfg.momentum * v + (g + cfg.weight_decay * p.float())
+
+    def descend(p, v):
+        return (p.float() - lr * v).to(p.dtype)
+
+    vel = tree_map(momentum, params, grads, state["vel"])
+    new_p = tree_map(descend, params, vel)
     return new_p, {"vel": vel}, {"grad_norm": gnorm}

@@ -451,3 +451,97 @@ def test_host_residency_peak_not_above_device(cuda_device):
         _twophase_run(cuda_device, policy, 1)
         peaks[policy] = torch.cuda.max_memory_allocated()
     assert peaks["host"] <= peaks["device"], peaks
+
+
+@pytest.mark.requires_cuda
+def test_measure_step_peak_covers_a_known_allocation(cuda_device):
+    from repro_torch.obs.audit import measure_step
+    nbytes = 64 * 2**20
+    held = []
+
+    def step():
+        held.append(torch.empty(nbytes, dtype=torch.uint8,
+                                device=cuda_device).fill_(1))
+
+    before = torch.cuda.memory_allocated()
+    m = measure_step(step)  # no tensor argument: the card is the default
+    assert m["method"] == "cuda_max_allocated" and len(held) == 1
+    assert m["peak_bytes"] >= before + nbytes
+    x = torch.ones(1024, device=cuda_device)
+    m = measure_step(lambda t: t * 2, x, time_iters=2)
+    assert m["peak_bytes"] >= x.nbytes and m["wall_us"] > 0
+
+
+@pytest.mark.requires_cuda
+def test_calibrate_is_finite_and_positive(cuda_device):
+    from repro_torch.exec.costmodel import CostTable, hardware_fingerprint
+    t = CostTable.calibrate(matmul_dim=1024, copy_bytes=16 * 2**20,
+                            iters=2)
+    assert t.fingerprint == hardware_fingerprint()
+    assert t.fingerprint.startswith("cuda:") and " " not in t.fingerprint
+    for f in ("flops_per_s", "h2d_bytes_per_s", "d2h_bytes_per_s",
+              "row_overhead_us"):
+        v = getattr(t, f)
+        assert np.isfinite(v) and v > 0, f
+    assert torch.backends.cuda.matmul.allow_tf32 is False  # restored
+
+
+def _time_us(fn):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    fn()
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) * 1e3
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kind", ["conv", "swa", "ssd"])
+def test_autotune_winner_launches_its_kernel(kind, cuda_device):
+    """``autotune_kernel`` times the feasible tiles on the card (the
+    default timer for the conv trunk, a caller's timer for the sequence
+    kernels) and the winning tiles launch the kernel."""
+    import dataclasses
+    from repro_torch.exec import ExecutionPlan, Planner, build_apply
+    from repro_torch.kernels import ops
+    from repro_torch.models.cnn.layers import init_trunk
+    from repro_torch.models.cnn.vgg import vgg16_modules
+    mods = vgg16_modules(0.125, 3)
+    planner = Planner(mods, (32, 32, 3), 2)
+    if kind == "conv":
+        tuned = planner.autotune_kernel(planner.plan("overlap", 2))
+        assert tuned.engine == "overlap_cuda" and tuned.get("autotune_us")
+        params, _ = init_trunk(mods, torch.Generator().manual_seed(0),
+                               (32, 32, 3), device=cuda_device)
+        before = ops.conv2d.launches
+        build_apply(mods, tuned)(params, torch.ones(2, 32, 32, 3,
+                                                    device=cuda_device))
+        assert ops.conv2d.launches > before
+        return
+    if kind == "swa":
+        q, k, v = _swa_inputs(256, 64, torch.bfloat16, cuda_device)
+        plan = ExecutionPlan.explicit("seq_swa_overlap", 4, seq=256,
+                                      head_dim=64, window=64)
+        plan = dataclasses.replace(plan, dtype_bytes=2)
+        run = lambda c: ops.swa_attention(  # noqa: E731
+            q, k, v, 64, bq=c.kernel.bq, bk=c.kernel.bk)
+        counter = ops.swa_attention
+    else:
+        g = torch.Generator().manual_seed(0)
+        x = torch.randn((1, 256, 4, 16), generator=g).to(cuda_device)
+        bc = torch.randn((1, 256, 8), generator=g).to(cuda_device)
+        dt = torch.rand((1, 256, 4), generator=g).to(cuda_device)
+        a = torch.exp(-dt)
+        plan = ExecutionPlan.explicit("seq_ssd_cuda", seq=256, ssm_state=8)
+        run = lambda c: ops.ssd_scan(  # noqa: E731
+            x, bc, bc, a, dt, chunk=c.kernel.chunk)
+        counter = ops.ssd_scan
+    tuned = planner.autotune_kernel(
+        plan, time_fn=lambda c: _time_us(lambda: run(c)))
+    assert tuned.engine.endswith("_cuda") and tuned.get("autotune")
+    before = counter.launches
+    run(tuned)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1

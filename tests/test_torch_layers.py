@@ -182,3 +182,53 @@ def test_port_init_shapes_match_reference():
     w = pt_tree["trunk"][2]["w"]  # conv, relu, conv, ...
     fan_in = w.shape[0] * w.shape[1] * w.shape[2]
     assert abs(float(w.std()) / np.sqrt(2.0 / fan_in) - 1) < 0.1
+
+
+@pytest.mark.parametrize("k,s,p", [(2, 2, 0), (3, 2, 1)])
+def test_max_pool_keeps_no_indices_and_its_gradient(k, s, p):
+    """The pool saves only its input (autograd's own max pool would keep
+    int64 argmax indices the size of its output until the backward), and
+    its gradient equals autograd's, ties included: a ReLU output is mostly
+    zeros, so many windows tie."""
+    from torch.autograd.graph import saved_tensors_hooks
+    rng = np.random.default_rng(3)
+    x = torch.relu(torch.tensor(rng.normal(size=(2, 16, 12, 4)),
+                                dtype=torch.float32))
+    g = torch.tensor(rng.normal(size=(2, 8, 6, 4)), dtype=torch.float32)
+    pool = pt_layers.MaxPool(k=k, s=s, p=p)
+    saved = []
+
+    def pack(t):
+        saved.append(t.dtype)
+        return t
+
+    xa = x.clone().requires_grad_()
+    with saved_tensors_hooks(pack, lambda t: t):
+        y = pool.apply({}, xa)
+    assert saved and torch.int64 not in saved
+    (ga,) = torch.autograd.grad(y, xa, g)
+    xb = x.clone().requires_grad_()
+    xc = pt_layers._nchw(xb)
+    if p:
+        xc = torch.nn.functional.pad(xc, (p, p, p, p), value=-float("inf"))
+    yb = pt_layers._nhwc(torch.nn.functional.max_pool2d(xc, k, s))
+    (gb,) = torch.autograd.grad(yb, xb, g)
+    assert torch.equal(y, yb) and torch.equal(ga, gb)
+
+
+def test_vgg_trunk_saves_no_int64_tensor():
+    from torch.autograd.graph import saved_tensors_hooks
+    from repro_torch.models.cnn.layers import apply_trunk, init_trunk
+    mods = pt_vgg16_modules(0.125, 3)
+    params, _ = init_trunk(mods, torch.Generator().manual_seed(0),
+                           (32, 32, 3), device="cpu")
+    x = torch.ones(2, 32, 32, 3, requires_grad=True)
+    dtypes = []
+
+    def pack(t):
+        dtypes.append(t.dtype)
+        return t
+
+    with saved_tensors_hooks(pack, lambda t: t):
+        apply_trunk(mods, params, x).sum().backward()
+    assert dtypes and set(dtypes) == {torch.float32}

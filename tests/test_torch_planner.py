@@ -210,15 +210,22 @@ def test_kernelize_fallbacks_and_retile():
 
 
 def test_unported_planning_raises():
-    from repro_torch.exec import MeshSpec
+    """What is still unported raises: the serving planner, and staging
+    over a model axis (in ``stagedize`` and as the costed chooser's staged
+    alternates).  The costed chooser and ``autotune_kernel`` themselves
+    are ported (``tests/test_torch_costmodel.py``)."""
+    from repro_torch.exec import CostTable, MeshSpec
     mods = vgg16_modules(0.125, 3)
     planner = Planner(mods, (32, 32, 3), 2)
-    with pytest.raises(NotImplementedError, match="costed chooser"):
-        Planner.for_budget(mods, (32, 32, 3), 2, 2**20, cost_table=object())
+    with pytest.raises(NotImplementedError, match="staged alternates"):
+        Planner.for_budget(mods, (32, 32, 3), 2, 2**20,
+                           mesh=MeshSpec.parse("data=1,model=2"),
+                           cost_table=CostTable(fingerprint="t"))
     with pytest.raises(NotImplementedError, match="for_serve"):
         Planner.for_serve(None)
-    with pytest.raises(NotImplementedError, match="autotune_kernel"):
-        planner.autotune_kernel(None)
+    tuned = planner.autotune_kernel(planner.plan("twophase", 2),
+                                    time_fn=lambda c: 1.0)
+    assert "no cuda alternate" in tuned.get("kernel_fallback")
     # stagedize: a no-op without a model axis, as in the reference; it
     # raises only where it would have to stage
     tight = planner.plan("base", 1, budget=1)
@@ -672,3 +679,54 @@ def test_full_width_for_budget(arch, grid):
     # 0.8 GiB: the best infeasible plan is 880.5 MiB
     if arch == "vgg16":
         assert round(plan.est_bytes / 2**20, 1) == 880.5
+
+
+@pytest.mark.parametrize("width,stages,image", TRUNKS)
+@pytest.mark.parametrize("engine", ["base", "ckp", "overlap", "twophase",
+                                    "overlap_h", "twophase_h"])
+@pytest.mark.parametrize("residency", [None, "host", "recompute"])
+def test_estimate_terms_sum_to_the_estimate(width, stages, image, engine,
+                                            residency):
+    """``estimate_terms`` splits a plan's per-device estimate into the
+    terms the Planner adds; they sum to it for every CNN engine, N and
+    residency, and ``sd_volume`` prices every 2PS block's caches."""
+    from repro_torch.exec import ResidencySpec
+    mods = vgg16_modules(width, stages)
+    res = ResidencySpec(default=residency) if residency else None
+    pl = Planner(mods, (image, image, 3), 2, xi=12345)
+    for n in (1, 2, 3):
+        try:
+            plan = pl.plan(engine, n, residency=res)
+        except ValueError:  # N past this engine's bound at this size
+            continue
+        terms = pl.estimate_terms(plan)
+        assert all(isinstance(v, int) and v >= 0 for v in terms.values())
+        assert terms["xi"] == 12345
+        assert sum(terms.values()) == plan.est_bytes_per_device, terms
+        sd = pl.sd_volume(plan)
+        if engine not in ("twophase", "twophase_h"):
+            assert sd is None
+            continue
+        blocks = plan.segments or ((0, len(mods), n),)
+        shapes = pt_rp.shape_chain(mods, (image, image, 3))
+        assert sd["sd_bytes"] == sum(
+            pt_rp.twophase_cache_bytes(mods[a:b], shapes[a], 2, bn)
+            for a, b, bn in blocks)
+        assert 0 <= sd["input_level_bytes"] <= sd["sd_bytes"]
+
+
+def test_estimate_terms_of_kernel_and_pinned_plans():
+    """A CUDA alternate is priced as the engine it replaced; the terms
+    carry the hybrids' segment prefix and reject a sequence engine."""
+    mods = vgg16_modules(0.125, 3)
+    pl = Planner(mods, (32, 32, 3), 2, xi=7)
+    for engine in ("base", "overlap"):
+        plan = pl.kernelize(pl.plan(engine, 2), "cuda")
+        assert plan.engine == "overlap_cuda"
+        assert sum(pl.estimate_terms(plan).values()) \
+            == plan.est_bytes_per_device
+    assert set(pl.estimate_terms(pl.plan("twophase_h", 2))) == {
+        "checkpoints", "segment.bp_rows", "segment.sd_caches", "xi"}
+    assert set(pl.estimate_terms(pl.plan("base"))) == {"feature_maps", "xi"}
+    with pytest.raises(ValueError, match="not a CNN engine"):
+        pl.estimate_terms(ExecutionPlan.explicit("seq_swa_cuda", 2))

@@ -193,3 +193,60 @@ def test_zero_height_heads_and_cpu_placements():
     names = prog.carry_names(1)
     for name, t, full in zip(names, mixed[1], saved[1]):
         assert t.numel() == 0 if name == "sd_l3" else torch.equal(t, full)
+
+
+class _GradWatch:
+    """Stands in for ``torch.autograd.grad`` and records, at each call, how
+    many gradients of the row inputs returned by the previous call (an
+    arg's row slice or a parameter, not a carry) are still alive — the
+    backward must release them before it recomputes the next row.
+    ``keep_first_params``: the first call's parameter gradients become the
+    accumulators and stay."""
+
+    def __init__(self, owners, keep_first_params=False):
+        import weakref
+        self._ref = weakref.ref
+        self.real = torch.autograd.grad
+        self.owners = {t.untyped_storage().data_ptr() for t in owners}
+        self.params = set()
+        self.keep = keep_first_params
+        self.prev, self.alive = [], []
+
+    def own(self, t):
+        return t.untyped_storage().data_ptr() in self.owners
+
+    def __call__(self, outputs, inputs, *args, **kwargs):
+        self.alive.append(sum(w() is not None for w in self.prev))
+        out = self.real(outputs, inputs, *args, **kwargs)
+        first = len(self.alive) == 1
+        self.prev = [self._ref(g) for t, g in zip(inputs, out)
+                     if g is not None and self.own(t)
+                     and not (first and self.keep
+                              and t.untyped_storage().data_ptr()
+                              in self.params)]
+        return out
+
+
+@pytest.mark.parametrize("engine", ["overlap", "twophase"])
+def test_backward_releases_each_rows_gradients(engine, monkeypatch):
+    """Each row's input and parameter gradients are folded into the
+    accumulators and released before the next row is recomputed (holding
+    them put one parameter-sized buffer, and the row's slice gradients,
+    on top of the backward's peak)."""
+    from repro_torch.core.overlap import make_overlap_apply
+    from repro_torch.models.cnn.layers import init_trunk
+    from repro_torch.models.cnn.vgg import vgg16_modules
+    mods = vgg16_modules(0.125, 2)  # 2PS admits N=3 at 32²
+    params, _ = init_trunk(mods, torch.Generator().manual_seed(0),
+                           (32, 32, 3), device="cpu")
+    leaves = [t.requires_grad_() for t in tree_leaves(params)]
+    x = torch.randn((2, 32, 32, 3), generator=torch.Generator()
+                    .manual_seed(1), requires_grad=True)
+    make = make_overlap_apply if engine == "overlap" \
+        else pt_tp.make_twophase_apply
+    watch = _GradWatch([x, *leaves], keep_first_params=engine == "overlap")
+    watch.params = {t.untyped_storage().data_ptr() for t in leaves}
+    monkeypatch.setattr(torch.autograd, "grad", watch)
+    make(mods, 32, 3)(params, x).square().sum().backward()
+    assert len(watch.alive) == 3 and watch.alive == [0, 0, 0]
+    assert x.grad is not None and all(t.grad is not None for t in leaves)
