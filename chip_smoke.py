@@ -86,6 +86,32 @@ printing one line:
                 + backward, no optimizer, at the config's ``row_chunks=8``
                 and at ``row_chunks=1``; the row-chunked peak must be below
                 the unchunked one.
+   train_lm_ssm     Zamba2-7B at published widths (d 3584, Mamba2 H 32,
+                P 224, N 64, the shared attention block 32 x 112, d_ff
+                14336), depth cut 81 -> 12 (10 Mamba2, the shared block at
+                layers 6 and 12), batch 1, seq 4096 (16 SSD chunks): 3
+                steps under the config's plan (``--residency device``,
+                ``seq_carry_scan`` N=8), 2 under ``host`` and 2 under
+                ``recompute``.  Every step's loss and step 0's gradient
+                norm within 1e-6 relative of device's; host's
+                peak no higher than device's; the host run's ``rowprog.*``
+                counters equal 2 steps x 10 layers x 16 chunks placed states
+                of 1 x 32 x 224 x 64 fp32 (1,835,008 B) each way; audit
+                ratios in ``train_step_lm``'s [0.2, 20].  Then xLSTM-125M
+                at published widths and full depth (12 layers, d 768), seq
+                1024 (4 chunks), one step under host and one under device
+                residency, the same loss, peak and audit checks.  For
+                each model, one device-resident fwd+bwd on each carried
+                scan path, the checkpointed chunk loop (the default) and
+                the row-program executor: its host seconds, and its
+                kernel launches counted with torch.profiler.
+   train_lm_dense   llama3_2_3b and qwen1_5_4b at published widths, 8
+                layers, batch 1, seq 4096, 2 steps each through
+                ``--budget-gb 0.05`` (``seq_chunked``, N from
+                ``Planner.for_model``); qwen1_5_110b at published widths,
+                2 layers, as a fwd+bwd probe with no optimizer state (one
+                layer with fp32 AdamW is ~62 GB of xi, so the trainer
+                cannot run it on one card; the line says so).
 
 Every train run above carries ``--trace`` and ``--metrics-out`` (into a
 temporary ``obs`` directory) and prints its step-0 ``plan audit:`` line.
@@ -124,6 +150,7 @@ train_resnet's 3), and last ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -221,6 +248,17 @@ RESNET_LR = 1e-5
 #: Zamba2-7B's Mamba2 widths (configs/zamba2_7b.py: d_model 3584, expand 2,
 #: 32 heads, state 64) at batch 1, seq 4096
 SSD_SHAPE = (1, 4096, 32, 7168 // 32, 64)
+#: Zamba2-7B on the card: published widths, 12 of 81 layers (10 Mamba2,
+#: the shared block at layers 6 and 12; fp32 AdamW of all 81 is over 100
+#: GB), batch 1, seq 4096 (16 SSD chunks of 256); xLSTM-125M at full
+#: depth, seq 1024 (4 chunks of 256)
+ZAMBA_LAYERS, ZAMBA_STEPS, XLSTM_SEQ = 12, 3, 1024
+#: the train_step_lm audit band (analysis/audit.py)
+LM_AUDIT_BAND = (0.2, 20.0)
+#: the dense configs on the card: published widths, 8 layers, batch 1,
+#: seq 4096, through a --budget-gb plan; qwen1_5_110b as a 2-layer
+#: forward + backward probe
+DENSE_LAYERS, DENSE_BUDGET_GB, QWEN110_LAYERS = 8, 0.05, 2
 
 
 def _timed_ms(torch, fn, iters=5, warmup=2):
@@ -455,6 +493,7 @@ def _finish_run(torch, tmp, name, recs, steps):
     with open(os.path.join(tmp, "obs", f"{name}.metrics.json")) as f:
         counters = json.load(f)["counters"]
     losses = [r["loss"] for r in recs]
+    grad_norms = [r.get("grad_norm") for r in recs]
     if len(losses) != steps or not all(math.isfinite(l) for l in losses):
         raise AssertionError(f"{name}: losses {losses}")
     if not log["plan_audit"]:
@@ -463,7 +502,8 @@ def _finish_run(torch, tmp, name, recs, steps):
     # step 0 includes first-call set-up
     ends = [r["elapsed_s"] for r in recs]
     step_s = [b - a for a, b in zip([0.0] + ends, ends)]
-    return {"losses": losses, "peak": peak, "plan": log["plan"],
+    return {"losses": losses, "grad_norms": grad_norms, "peak": peak,
+            "plan": log["plan"],
             "step_s": step_s, "audit": log["plan_audit"],
             "counters": counters, "plan_terms": log.get("plan_terms"),
             "plan_sd": log.get("plan_sd")}
@@ -845,17 +885,23 @@ def phase_kernel_ssd(torch, out):
           f"time(s)", flush=True)
 
 
-def _train_lm(torch, tmp, name, kernel, steps):
+def _train_lm_arch(torch, tmp, name, arch, cfg, seq, steps, *flags):
+    """``steps`` trainer steps of LM ``arch`` with the config ``cfg`` (a
+    depth cut of the full preset), batch 1."""
     from repro_torch.launch import train as T
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    recs = T.main(["--arch", "gemma3_4b", "--preset", "full", "--batch",
-                   str(LM_BATCH), "--seq", str(LM_SEQ), "--kernel", kernel,
-                   "--steps", str(steps), "--log-every", "1", "--out",
-                   os.path.join(tmp, name), *_obs_flags(tmp, name)],
-                  cfg=_gemma12(torch))
+    recs = T.main(["--arch", arch, "--preset", "full", "--batch",
+                   str(LM_BATCH), "--seq", str(seq), "--steps", str(steps),
+                   "--log-every", "1", "--out", os.path.join(tmp, name),
+                   *_obs_flags(tmp, name), *flags], cfg=cfg)
     return _finish_run(torch, tmp, name, recs, steps)
+
+
+def _train_lm(torch, tmp, name, kernel, steps):
+    return _train_lm_arch(torch, tmp, name, "gemma3_4b", _gemma12(torch),
+                          LM_SEQ, steps, "--kernel", kernel)
 
 
 def phase_train_lm_kernel(torch, out, tmp):
@@ -880,7 +926,7 @@ def phase_train_lm_kernel(torch, out, tmp):
           f"est={plan['est_bytes']} step_s={run['step_s']}", flush=True)
 
 
-def _fwd_bwd_peak(torch, cfg, params, row_chunks):
+def _fwd_bwd_peak(torch, cfg, params, row_chunks, kernel="cuda"):
     """Peak bytes of one forward + backward through ``build_lm_apply``
     (no optimizer) at ``row_chunks``, and the plan's estimate."""
     import dataclasses
@@ -889,7 +935,7 @@ def _fwd_bwd_peak(torch, cfg, params, row_chunks):
     from repro_torch.models.lm.rowexec import build_lm_apply
     from repro_torch.optim.adamw import tree_leaves
     cfg = dataclasses.replace(cfg, row_chunks=row_chunks)
-    plan = Planner.for_model(cfg, LM_BATCH, LM_SEQ, kernel="cuda")
+    plan = Planner.for_model(cfg, LM_BATCH, LM_SEQ, kernel=kernel)
     apply = build_lm_apply(cfg, plan)
     hb = TokenDataset(TokenDatasetConfig(vocab=cfg.vocab, seq_len=LM_SEQ,
                                          batch=LM_BATCH)).batch_at(0)
@@ -937,6 +983,238 @@ def phase_train_lm_rows(torch, out, tmp):
     if not p8 < p1:
         raise AssertionError("the row-chunked fwd+bwd peak is not below "
                              "the unchunked one")
+
+
+def _lm_config(arch, n_layers=None):
+    """The full preset of ``arch``, its depth cut to ``n_layers``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg if n_layers is None \
+        else dataclasses.replace(cfg, n_layers=n_layers)
+
+
+def _device_launches(torch, fn):
+    """Kernels launched on the card while ``fn()`` runs (torch.profiler,
+    CUDA activity only; copies and sets not counted)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA
+               and not e.name().startswith(("Memcpy", "Memset")))
+
+
+@contextlib.contextmanager
+def _executor_on_device():
+    """Make a device-resident plan's carried scans run on the row-program
+    executor too (a residency that places nothing off the device), in
+    place of the default checkpointed chunk loop, to time the one against
+    the other."""
+    from repro_torch.core import seqrow
+    keep = seqrow._offloading
+    seqrow._offloading = lambda residency: True
+    try:
+        yield
+    finally:
+        seqrow._offloading = keep
+
+
+def _carry_scan_paths(torch, cfg, seq):
+    """One fwd+bwd of ``cfg`` under a device-resident plan on each carried
+    scan path, the checkpointed chunk loop (``loop``) and the executor
+    (``executor``): host seconds (synchronised) of a timed call, then the
+    kernel launches of a profiled one."""
+    res = {}
+    for path in ("loop", "executor"):
+        step = _lm_fwd_bwd(torch, cfg, seq)
+        with (_executor_on_device() if path == "executor"
+              else contextlib.nullcontext()):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            res[path] = {"s": time.perf_counter() - t0,
+                         "launches": _device_launches(torch, step)}
+        del step
+    return res
+
+
+def _lm_fwd_bwd(torch, cfg, seq, residency=""):
+    """One forward + backward of ``cfg`` (random init) through its
+    sequence plan, no optimizer: what ``_device_launches`` counts."""
+    from repro_torch.data.pipeline import TokenDataset, TokenDatasetConfig
+    from repro_torch.exec import Planner, ResidencySpec
+    from repro_torch.models.lm.model import init_lm
+    from repro_torch.models.lm.rowexec import build_lm_apply
+    from repro_torch.optim.adamw import tree_leaves
+    params = init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_()
+    plan = Planner.for_model(cfg, LM_BATCH, seq,
+                             residency=ResidencySpec.parse(residency))
+    apply = build_lm_apply(cfg, plan)
+    hb = TokenDataset(TokenDatasetConfig(vocab=cfg.vocab, seq_len=seq,
+                                         batch=LM_BATCH)).batch_at(0)
+    batch = {k: torch.from_numpy(hb[k]).long().cuda()
+             for k in ("tokens", "labels")}
+
+    def step():
+        loss, _ = apply(params, batch)
+        torch.autograd.grad(loss, leaves)
+    return step
+
+
+def _lm_report(name, run):
+    audit = run["audit"]
+    rp = {k: v for k, v in run["counters"].items()
+          if k.startswith("rowprog.")}
+    print(f"  {name}: plan {run['plan']['engine']} "
+          f"N={run['plan']['n_rows']} residency="
+          f"{(run['plan']['residency'] or {}).get('default', 'device')} "
+          f"losses={run['losses']} step_s={run['step_s']} peak="
+          f"{run['peak']} est={run['plan']['est_bytes']} audit est (plan + "
+          f"xi) {audit['est_bytes_per_device']} ratio {audit['ratio']:.3f}"
+          f" rowprog counters {rp}", flush=True)
+
+
+def _check_lm_runs(name, runs, ref):
+    """Finite losses (``_finish_run``); every step's loss and step 0's
+    gradient norm within RESIDENCY_TOL of run ``ref``'s, so the backward
+    that reads the placed states (fetched back or recomputed) and the
+    update it feeds are held too, not only the forward; audit ratios in
+    the LM band."""
+    want = runs[ref]
+    rel = {}
+    for p, r in runs.items():
+        pairs = [(f"loss {i}", a, b) for i, (a, b) in
+                 enumerate(zip(r["losses"], want["losses"]))]
+        pairs.append(("grad_norm 0", r["grad_norms"][0],
+                      want["grad_norms"][0]))
+        rel[p] = {k: abs(a - b) / abs(b) for k, a, b in pairs}
+    ratios = {p: r["audit"]["ratio"] for p, r in runs.items()}
+    print(f"{name}: rel diff vs {ref}: {rel}; audit ratios {ratios}",
+          flush=True)
+    bad = {p: {k: v for k, v in d.items() if not v <= RESIDENCY_TOL}
+           for p, d in rel.items()}
+    bad = {p: d for p, d in bad.items() if d}
+    if bad:
+        raise AssertionError(f"{name}: losses or gradient norms differ by "
+                             f"residency: {bad}")
+    lo, hi = LM_AUDIT_BAND
+    bad = {p: r for p, r in ratios.items() if not lo <= r <= hi}
+    if bad:
+        raise AssertionError(f"{name}: audit ratios out of {LM_AUDIT_BAND}:"
+                             f" {bad}")
+    return rel
+
+
+def phase_train_lm_ssm(torch, out, tmp):
+    """Zamba2-7B (12 layers) under the config's plan and under host and
+    recompute residency; the host counters against the carry's shape and
+    the executor's rule (every chunk's incoming state is placed, so each
+    Mamba2 layer offloads and fetches one state per chunk); then
+    xLSTM-125M under device and host residency."""
+    from repro_torch.models.lm.blocks import ssm_dims
+    cfg = _lm_config("zamba2_7b", ZAMBA_LAYERS)
+    runs = {"device": _train_lm_arch(torch, tmp, "zamba_device",
+                                     "zamba2_7b", cfg, LM_SEQ, ZAMBA_STEPS,
+                                     "--residency", "device")}
+    for policy in ("host", "recompute"):
+        runs[policy] = _train_lm_arch(torch, tmp, f"zamba_{policy}",
+                                      "zamba2_7b", cfg, LM_SEQ, 2,
+                                      "--residency", policy)
+    for p, r in runs.items():
+        _lm_report(f"zamba2_7b {p}", r)
+        if r["plan"]["engine"] != "seq_carry_scan":
+            raise AssertionError(f"zamba2 {p}: plan {r['plan']['engine']}")
+    rel = _check_lm_runs("train_lm_ssm zamba2_7b", runs, "device")
+    dims = ssm_dims(cfg)
+    chunks = LM_SEQ // dims.chunk
+    carry = 4 * LM_BATCH * dims.n_heads * dims.head_p * dims.state_n
+    rows = 2 * cfg.layer_kinds().count("mamba") * chunks
+    want = {"rowprog.fp_rows": rows, "rowprog.bp_rows": rows,
+            "rowprog.prefetches": rows, "rowprog.offload_bytes": rows * carry,
+            "rowprog.prefetch_bytes": rows * carry}
+    got = {k: runs["host"]["counters"].get(k) for k in want}
+    paths = _carry_scan_paths(torch, cfg, LM_SEQ)
+    out["zamba"] = {"runs": runs, "rel": rel, "counters": got,
+                    "carry_bytes": carry, "paths": paths}
+    print(f"train_lm_ssm: zamba2_7b peaks device {runs['device']['peak']} "
+          f"host {runs['host']['peak']} recompute "
+          f"{runs['recompute']['peak']} B; host counters {got} (carry "
+          f"{carry} B x {rows} placed states; plan implies {want}); "
+          f"device-resident fwd+bwd by carried-scan path {paths}",
+          flush=True)
+
+    # host first: its step 0 then carries the first-call set-up, so the
+    # device run's step is not flattered by it
+    xcfg = _lm_config("xlstm_125m")
+    xruns = {p: _train_lm_arch(torch, tmp, f"xlstm_{p}", "xlstm_125m", xcfg,
+                               XLSTM_SEQ, 1, "--residency", p)
+             for p in ("host", "device")}
+    for p, r in xruns.items():
+        _lm_report(f"xlstm_125m {p}", r)
+    xrel = _check_lm_runs("train_lm_ssm xlstm_125m", xruns, "device")
+    xpaths = _carry_scan_paths(torch, xcfg, XLSTM_SEQ)
+    out["xlstm"] = {"runs": xruns, "rel": xrel, "paths": xpaths}
+    print(f"train_lm_ssm: xlstm_125m (12 layers, seq {XLSTM_SEQ}) step_s "
+          f"device {xruns['device']['step_s']} host "
+          f"{xruns['host']['step_s']}; device-resident fwd+bwd by "
+          f"carried-scan path {xpaths}", flush=True)
+    if got != want:
+        raise AssertionError(f"host residency counters {got} != {want}")
+    for name, r in (("zamba2_7b", runs), ("xlstm_125m", xruns)):
+        if not r["host"]["peak"] <= r["device"]["peak"]:
+            raise AssertionError(f"{name}: host residency's peak is above "
+                                 f"device's")
+
+
+def phase_train_lm_dense(torch, out, tmp):
+    """llama3_2_3b and qwen1_5_4b (8 layers) through --budget-gb plans;
+    qwen1_5_110b (2 layers) as a forward + backward probe with no
+    optimizer state."""
+    from repro_torch.models.lm.model import init_lm
+    from repro_torch.optim.adamw import tree_leaves
+    runs = {}
+    for arch in ("llama3_2_3b", "qwen1_5_4b"):
+        run = _train_lm_arch(torch, tmp, f"dense_{arch}", arch,
+                             _lm_config(arch, DENSE_LAYERS), LM_SEQ, 2,
+                             "--budget-gb", str(DENSE_BUDGET_GB))
+        _lm_report(arch, run)
+        if run["plan"]["engine"] != "seq_chunked" \
+                or not run["plan"]["feasible"]:
+            raise AssertionError(f"{arch}: plan {run['plan']}")
+        lo, hi = LM_AUDIT_BAND
+        if not lo <= run["audit"]["ratio"] <= hi:
+            raise AssertionError(f"{arch}: audit ratio "
+                                 f"{run['audit']['ratio']}")
+        runs[arch] = run
+    cfg = _lm_config("qwen1_5_110b", QWEN110_LAYERS)
+    params = init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
+    for t in tree_leaves(params):
+        t.requires_grad_()
+    n_all = sum(t.numel() for t in tree_leaves(params))
+    n_stack = sum(t.numel() for t in tree_leaves(params["stack"]))
+    # one layer and the embeddings, with params, grads and two AdamW
+    # moments in fp32
+    xi_one_layer = 16 * (n_all - n_stack + n_stack // QWEN110_LAYERS)
+    peak, est, loss = _fwd_bwd_peak(torch, cfg, params, cfg.row_chunks,
+                                    kernel="plain")
+    del params
+    out["dense"] = {"runs": runs, "qwen110b": {
+        "params": n_all, "peak": peak, "est": est, "loss": loss,
+        "xi_one_layer": xi_one_layer}}
+    print(f"train_lm_dense: qwen1_5_110b at published widths, "
+          f"{QWEN110_LAYERS} layers ({n_all} params), seq {LM_SEQ}: fwd+bwd "
+          f"peak {peak} B (plan est {est}), loss {loss}; the trainer cannot "
+          f"run it on one card: one layer with fp32 AdamW is "
+          f"{xi_one_layer} B of xi", flush=True)
+    if not math.isfinite(loss):
+        raise AssertionError(f"qwen1_5_110b probe loss {loss}")
 
 
 def _vgg_leaf_sizes(torch):
@@ -1466,6 +1744,10 @@ def main() -> int:
                   ("train_lm_kernel", lambda: phase_train_lm_kernel(
                       torch, out, tmp)),
                   ("train_lm_rows", lambda: phase_train_lm_rows(
+                      torch, out, tmp)),
+                  ("train_lm_ssm", lambda: phase_train_lm_ssm(
+                      torch, out, tmp)),
+                  ("train_lm_dense", lambda: phase_train_lm_dense(
                       torch, out, tmp)),
                   ("memory", lambda: phase_memory(torch, out, tmp)),
                   ("profile", lambda: phase_profile(torch, out, tmp)),

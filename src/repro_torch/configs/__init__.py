@@ -26,7 +26,8 @@ _ARCHS = [
     "qwen1_5_4b",
 ]
 #: architectures whose config the port carries
-PORTED = ("gemma3_4b",)
+PORTED = ("gemma3_4b", "llama3_2_3b", "qwen1_5_4b", "qwen1_5_110b",
+          "zamba2_7b", "xlstm_125m")
 
 
 def canonical(name: str) -> str:

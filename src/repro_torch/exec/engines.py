@@ -8,13 +8,14 @@ x)`` is a drop-in trunk forward.  All six of the paper's strategies:
 ``twophase_h``; the carry-based ones (``twophase`` and the 2PS segments of
 ``twophase_h``) place their boundary caches by ``plan.residency``.
 
-Sequence engines (``kind="seq"``), in their LM form: ``modules`` is
-``(params, ModelConfig)`` and the builder returns the plan-driven stack
-apply of :mod:`repro_torch.models.lm.rowexec` (``apply(params, batch) ->
-(loss, aux)``).  Ported: ``seq_chunked`` and ``seq_swa_overlap``; their
-op-level forms (a plain chunk-body callable as ``modules``) are not ported
-yet.  The kernel-backed engines live in
-:mod:`repro_torch.exec.kernel_engines`.
+Sequence engines (``kind="seq"``): ``seq_chunked``, ``seq_carry_scan``
+and ``seq_swa_overlap``.  Each takes two forms of ``modules``: the LM
+stack as ``(params, ModelConfig)``, for which the builder returns the
+plan-driven stack apply of :mod:`repro_torch.models.lm.rowexec`
+(``apply(params, batch) -> (loss, aux)``), or a plain chunk-body callable
+(a per-token fn, a scan body, an attend function), for which it returns
+the :mod:`repro_torch.core.seqrow` apply of that shape.  The kernel-backed
+engines live in :mod:`repro_torch.exec.kernel_engines`.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from __future__ import annotations
 from typing import List, Sequence
 
 from repro_torch.core import overlap as _ov
+from repro_torch.core import seqrow as _sr
 from repro_torch.core import twophase as _tp
 from repro_torch.core.hybrid import SegmentSpec, make_hybrid_apply
 from repro_torch.exec.plan import ExecutionPlan
@@ -88,32 +90,45 @@ def _build_twophase_h(modules, plan: ExecutionPlan):
 
 def _seq_modules(modules, plan: ExecutionPlan):
     """The LM stack apply when ``modules`` is ``(params, ModelConfig)``,
-    else None."""
+    else None (``modules`` is then a chunk-body callable)."""
     from repro_torch.models.lm.rowexec import build_lm_apply, lm_config
     cfg = lm_config(modules)
     return None if cfg is None else build_lm_apply(cfg, plan)
 
 
-def _lm_form(name: str, modules, plan: ExecutionPlan):
-    lm = _seq_modules(modules, plan)
-    if lm is None:
-        raise NotImplementedError(
-            f"the op-level form of {name!r} (a chunk-body callable as "
-            f"modules) is not ported yet; pass the LM form (params, cfg)")
-    return lm
-
-
 @register_engine("seq_chunked", kind="seq",
                  doc="halo-0 sequence chunks with per-chunk remat "
-                     "(per-token layers)")
+                     "(per-token layers); a carry-free row program")
 def _build_seq_chunked(modules, plan: ExecutionPlan):
-    return _lm_form("seq_chunked", modules, plan)
+    lm = _seq_modules(modules, plan)
+    if lm is not None:
+        return lm
+    return _sr.make_chunked_apply(modules, plan.n_rows,
+                                  int(plan.get("axis", 1)),
+                                  residency=plan.residency)
+
+
+@register_engine("seq_carry_scan", kind="seq",
+                 doc="2PS along the sequence: carried state as the named "
+                     "boundary cache ('state'), placed by plan.residency")
+def _build_seq_carry_scan(modules, plan: ExecutionPlan):
+    lm = _seq_modules(modules, plan)
+    if lm is not None:
+        return lm
+    return _sr.make_carry_scan_apply(modules, plan.n_rows,
+                                     int(plan.get("axis", 1)),
+                                     residency=plan.residency)
 
 
 @register_engine("seq_swa_overlap", kind="seq",
                  doc="OverL along the sequence: replicated KV halo for "
-                     "sliding-window attention")
+                     "sliding-window attention; a carry-free row program")
 def _build_seq_swa_overlap(modules, plan: ExecutionPlan):
-    if int(plan.get("window", 0)) <= 0:
+    window = int(plan.get("window", 0))
+    if window <= 0:
         raise ValueError("seq_swa_overlap plan needs a 'window' extra")
-    return _lm_form("seq_swa_overlap", modules, plan)
+    lm = _seq_modules(modules, plan)
+    if lm is not None:
+        return lm
+    return _sr.make_swa_overlap_apply(modules, window, plan.n_rows,
+                                      residency=plan.residency)

@@ -22,8 +22,6 @@ Builder = Callable[[Any, ExecutionPlan], Callable]
 NOT_PORTED = {
     "pipeline_rows": "exec/pipeline.py",
     "pipeline_seq": "exec/pipeline.py",
-    "seq_carry_scan": "the SSM/xLSTM layers and core/seqrow.py's carried "
-                      "scans",
     "serve_pool": "the serving subsystem",
 }
 

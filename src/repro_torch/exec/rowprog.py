@@ -2,15 +2,19 @@
 executor that drives them all under a residency policy (counterpart of
 ``repro.exec.rowprog``).
 
-LR-CNN's carry-based strategies (2PS rows, the 2PS segments of 2PS-H) share
-one shape: an initial carry, a sequential sweep of row steps each of which
-consumes the previous row's boundary caches and exports its own, and a
-merge of the per-row outputs.  A :class:`RowProgram` names that shape:
+LR-CNN's carry-based strategies (2PS rows, the 2PS segments of 2PS-H, the
+sequence-axis transplants of ``core/seqrow.py``) share one shape: an
+initial carry, a sequential sweep of row steps each of which consumes the
+previous row's boundary caches and exports its own, and a merge of the
+per-row outputs.  A :class:`RowProgram` names that shape:
 
-* ``init_carry(args)``          — the carry entering row 0 (a tuple of
-  tensors that carries no gradient; ``()`` for 2PS);
+* ``init_carry(args)``          — the carry entering row 0, a tuple of
+  tensors (``()`` for 2PS; the scan's initial state for the sequence
+  programs, differentiable in the args: the backward closes the carry
+  cotangent through it);
 * ``row_args(args, r)``         — row ``r``'s inputs, one per arg: the arg
-  itself or a slice of it;
+  itself, a slice of it, or ``None`` for an arg the rows do not read (a
+  scan's initial carry);
 * ``add_row_grad(dargs, drow, r)`` — the transpose of ``row_args``: add
   row ``r``'s input gradients into the args' gradients, a slice's into its
   interval.  Eager PyTorch has no linear transpose, so the program spells
@@ -43,13 +47,18 @@ bytes, never values:
   regenerated when consumed by re-running rows ``0..r-1`` without a graph
   (O(N²) row steps, no residency; one chain at a time).
 
+A scan-shaped program (``returns_carry``) makes ``apply`` return
+``(final carry, merged output)``; the backward then starts from the final
+carry's cotangent, and either output may go unused.  Every value the rows
+differentiate must be an arg: a tensor a row step closes over gets no
+gradient, and nothing would fail (``core/seqrow.py`` passes sLSTM's
+recurrent weights as ``consts`` args for this reason).
+
 On CPU tensors host residency is the reference's structural no-op
 (:func:`offload_is_noop`): the schedule runs and no bytes move.  On CUDA
 tensors a failure to pin or copy raises.  The reference's
 ``lax.optimization_barrier`` has no counterpart: eager order already
-serialises the rows and the fetches.  Scan-shaped programs
-(``returns_carry``, an initial carry differentiable in the args) are not
-ported yet: they come with the ``seq_carry_scan`` engine.
+serialises the rows and the fetches.
 
 Observability: with an obs session open (:mod:`repro_torch.obs`) the
 executor emits the reference's records — an ``fp_row`` span per forward
@@ -84,9 +93,11 @@ def offload_is_noop(device) -> bool:
 
 class RowProgram:
     """Base class spelling out the row-program protocol (see the module
-    docstring); ``n_rows`` is the row count."""
+    docstring); ``n_rows`` is the row count, and ``returns_carry`` makes
+    ``apply`` return ``(final carry, merged output)``."""
 
     n_rows: int = 1
+    returns_carry: bool = False
 
     def init_carry(self, args) -> Tuple[torch.Tensor, ...]:
         return ()
@@ -123,9 +134,10 @@ def _names_for(prog: RowProgram, carry, r: int) -> Tuple[str, ...]:
 
 
 def rowprog_forward(prog: RowProgram, args, place=None):
-    """Plain forward sweep.  With ``place(carry, r)`` also returns what it
-    makes of the carry entering each row, called before that row runs
-    (right after the row that produced it)."""
+    """Plain forward sweep; ``(carry, out)`` for a scan-shaped program.
+    With ``place(carry, r)`` also returns what it makes of the carry
+    entering each row, called before that row runs (right after the row
+    that produced it)."""
     trace = obs.enabled()
     carry = tuple(prog.init_carry(args))
     ys, placed = [], []
@@ -140,6 +152,8 @@ def rowprog_forward(prog: RowProgram, args, place=None):
         carry = tuple(carry)
         ys.append(y)
     out = prog.finish(ys)
+    if prog.returns_carry:
+        out = (carry, out)
     return out if place is None else (out, placed)
 
 
@@ -260,9 +274,15 @@ class _Placement:
                      for leaf, p, c in zip(leaves, policies, carry))
 
 
+def _detached(t, grad: bool):
+    return None if t is None else t.detach().requires_grad_(grad)
+
+
 class _RowProgFunction(torch.autograd.Function):
     """The row-centric custom backward shared by every carry-based
-    engine; saves the args and each row's placed incoming carry."""
+    engine; saves the args and each row's placed incoming carry.  A
+    scan-shaped program's outputs are its final carry's leaves, then the
+    merged output."""
 
     @staticmethod
     def forward(ctx, prog, res, *args):
@@ -272,10 +292,15 @@ class _RowProgFunction(torch.autograd.Function):
             place.emit_moved()
         ctx.prog, ctx.place = prog, place
         ctx.save_for_backward(*args)
+        # an unused output (a scan's final carry, say) gets no cotangent
+        ctx.set_materialize_grads(False)
+        if prog.returns_carry:
+            carry, out = out
+            return (*carry, out)
         return out
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, *gouts):
         prog, place, saved = ctx.prog, ctx.place, ctx.saved
         if saved is None:
             raise RuntimeError("the backward of a row program runs once: "
@@ -286,7 +311,10 @@ class _RowProgFunction(torch.autograd.Function):
         dargs = [torch.zeros_like(a) if n else None
                  for a, n in zip(args, need)]
         depth = place.res.prefetch_depth
-        dcarry = None
+        # the final carry's cotangent enters the last row (None leaves:
+        # unused); a carry-free program's last row gets none
+        g = gouts[-1]
+        dcarry = list(gouts[:-1]) if prog.returns_carry else None
         fetched = {}
         trace = obs.enabled()
         for r in range(prog.n_rows - 1, -1, -1):
@@ -310,39 +338,71 @@ class _RowProgFunction(torch.autograd.Function):
                 obs.counter("rowprog.bp_rows").inc()
             carry_in = place.regenerate(leaves, args, r)
             c = [t.detach().requires_grad_() for t in carry_in]
-            ra = [t.detach().requires_grad_(n) for t, n in
+            ra = [_detached(t, n) for t, n in
                   zip(prog.row_args(args, r), need)]
             with torch.enable_grad(), obs.profile_range("row_recompute"):
                 carry_out, y = prog.row_step(tuple(c), tuple(ra), r)
-            outs = [y]
-            cots = [prog.out_cotangent(g, r)]
+            outs, cots = [], []
+            if g is not None:
+                outs.append(y)
+                cots.append(prog.out_cotangent(g, r))
             if dcarry is not None:
                 pairs = [(t, d) for t, d in zip(carry_out, dcarry)
                          if d is not None and t.requires_grad]
                 outs += [t for t, _ in pairs]
                 cots += [d for _, d in pairs]
                 del pairs
-            inputs = [t for t in ra if t.requires_grad] + c
-            grads = torch.autograd.grad(outs, inputs, cots,
-                                        allow_unused=True)
+            used = [t for t in ra if t is not None and t.requires_grad]
+            grads = torch.autograd.grad(outs, used + c, cots,
+                                        allow_unused=True) \
+                if outs else (None,) * (len(used) + len(c))
             it = iter(grads)
-            drow = [next(it) if t.requires_grad else None for t in ra]
+            drow = [next(it) if t is not None and t.requires_grad else None
+                    for t in ra]
             dcarry = list(it)
             prog.add_row_grad(dargs, drow, r)
             # release this row's carry, recomputed outputs and input
             # gradients (now in dargs) before the next row is recomputed
-            del grads, it, drow, outs, cots, carry_out, y, inputs, c, ra, \
+            del grads, it, drow, outs, cots, carry_out, y, used, c, ra, \
                 leaves, carry_in
+        _add_init_grad(prog, args, need, dargs, dcarry)
         return (None, None, *dargs)
+
+
+def _add_init_grad(prog: RowProgram, args, need, dargs, dcarry) -> None:
+    """Close the carry cotangent leaving row 0 through ``init_carry``
+    (the transpose the reference takes with ``jax.vjp``): add its gradient
+    into the args' gradients."""
+    if not dcarry or all(d is None for d in dcarry) or not any(need):
+        return
+    a = [t.detach().requires_grad_(n) for t, n in zip(args, need)]
+    with torch.enable_grad():
+        c0 = tuple(prog.init_carry(a))
+    pairs = [(t, d) for t, d in zip(c0, dcarry)
+             if d is not None and t.requires_grad]
+    if not pairs:
+        return
+    wrt = [t for t in a if t.requires_grad]
+    grads = iter(torch.autograd.grad([t for t, _ in pairs], wrt,
+                                     [d for _, d in pairs],
+                                     allow_unused=True))
+    for i, t in enumerate(a):
+        d = next(grads) if t.requires_grad else None
+        if d is not None and dargs[i] is not None:
+            dargs[i] += d
 
 
 def make_rowprog_apply(prog: RowProgram,
                        residency: Optional[ResidencySpec] = None):
     """Build ``apply(*args)`` for a row program under a residency policy
-    (``None`` keeps every carry on the device)."""
+    (``None`` keeps every carry on the device).  A scan-shaped program's
+    apply returns ``(final carry as a tuple, merged output)``."""
     res = residency or ResidencySpec()
 
     def apply(*args):
-        return _RowProgFunction.apply(prog, res, *args)
+        out = _RowProgFunction.apply(prog, res, *args)
+        if prog.returns_carry:
+            return tuple(out[:-1]), out[-1]
+        return out
 
     return apply

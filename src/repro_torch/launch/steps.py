@@ -9,7 +9,7 @@ from typing import Optional
 import torch
 
 from repro_torch.optim.adamw import (
-    AdamWConfig, adamw_update, tree_leaves, tree_map,
+    AdamWConfig, adamw_update_, tree_leaves, tree_map,
 )
 
 
@@ -19,8 +19,11 @@ def make_train_step(cfg, opt_cfg: Optional[AdamWConfig] = None, plan=None):
     :class:`~repro_torch.exec.plan.ExecutionPlan` the loss is built through
     ``build_apply((None, cfg), plan)``, so the plan's seq engine and kernel
     backend run inside the step; without one the config's
-    ``remat``/``row_chunks`` apply directly.  Metrics stay tensors (read
-    them with ``float`` where the host needs them)."""
+    ``remat``/``row_chunks`` apply directly.  The update is in place
+    (:func:`~repro_torch.optim.adamw.adamw_update_`): the step overwrites
+    ``state``'s tensors, as the reference's jitted step donates them, so
+    no second copy of the parameters and moments is made.  Metrics stay
+    tensors (read them with ``float`` where the host needs them)."""
     opt_cfg = opt_cfg or AdamWConfig()
     if plan is not None:
         from repro_torch.exec import build_apply
@@ -35,10 +38,10 @@ def make_train_step(cfg, opt_cfg: Optional[AdamWConfig] = None, plan=None):
         leaves = iter(torch.autograd.grad(loss, tree_leaves(p)))
         grads = tree_map(lambda _: next(leaves), p)
         del p
-        new_p, new_opt, om = adamw_update(state["params"], grads,
-                                          state["opt"], opt_cfg)
+        _, _, om = adamw_update_(state["params"], grads, state["opt"],
+                                 opt_cfg)
         metrics = {"loss": loss.detach(),
                    **{k: v.detach() for k, v in aux.items()}, **om}
-        return {"params": new_p, "opt": new_opt}, metrics
+        return state, metrics
 
     return train_step

@@ -18,12 +18,19 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3_4b \\
         --preset full --batch 1 --seq 4096 --kernel cuda --steps 3
 
-  ``--kernel`` plans the sequence axis (``Planner.for_model``): ``cuda``
-  kernelizes gemma's ``seq_swa_overlap`` plan to ``seq_swa_cuda``, whose
-  local attention layers run the hand-written ``swa_attention`` kernel;
-  ``plain`` keeps the halo chunk loop.  Without ``--kernel`` (or with
-  ``--row-chunks``) the config's own chunking applies.  Then AdamW steps
-  on ``TokenDataset`` batches.
+  ``--arch`` is any dense, SSM or hybrid config (``gemma3_4b``,
+  ``llama3_2_3b``, ``qwen1_5_4b``, ``qwen1_5_110b``, ``zamba2_7b``,
+  ``xlstm_125m``).  ``--budget-gb``, ``--residency`` or ``--kernel``
+  plans the sequence axis (``Planner.for_model``; an explicit
+  ``--row-chunks`` wins and skips the plan): the budget picks the chunk
+  count, ``--residency host|recompute`` places the carried state of the
+  SSM/xLSTM chunk scans (``seq_carry_scan``) through the row-program
+  executor, and ``--kernel cuda`` kernelizes gemma's ``seq_swa_overlap``
+  plan to ``seq_swa_cuda``, whose local attention layers run the
+  hand-written ``swa_attention`` kernel (``plain`` keeps the halo chunk
+  loop; a plan with no CUDA alternate records ``kernel_fallback``).
+  Without these flags the config's own chunking applies.  Then AdamW
+  steps on ``TokenDataset`` batches.
 
 Both print ``plan: ...`` and the loss per step and write ``train_log.json``
 (schema-1 envelope) into ``--out``; the CNN trainer's also holds the
@@ -54,10 +61,9 @@ Observability and planning flags, on both trainers:
 Differences from the reference: ``--batch`` defaults to the config's batch
 for CNNs (32 for the full preset), ``--lr`` to 0.05 for CNNs and 3e-4 for
 LMs, the kernel backends are named ``plain``/``cuda``, and
-``--torch-profile`` stands for ``--jax-profile``.  ``--mesh``, the LM
-archs other than gemma3_4b, and ``--budget-gb``/``--residency`` on the LM
-path are not ported yet and raise; ``--save`` (checkpoints) is not there
-yet.
+``--torch-profile`` stands for ``--jax-profile``.  ``--mesh`` and the
+MoE, VLM and encoder-decoder archs are not ported yet and raise; ``--save``
+(checkpoints) is not there yet.
 """
 
 from __future__ import annotations
@@ -89,15 +95,12 @@ CNN_ARCHS = ("vgg16", "resnet50")
 CNN_LR, LM_LR = 0.05, 3e-4
 
 
-#: CNN flags the LM trainer does not take yet
-_NOT_PORTED_LM_FLAGS = ("budget_gb", "residency")
 
-
-def _check_flags(args, names=_NOT_PORTED_FLAGS, where="") -> None:
-    for name in names:
+def _check_flags(args) -> None:
+    for name in _NOT_PORTED_FLAGS:
         if getattr(args, name) not in (None, ""):
             raise NotImplementedError(
-                f"--{name.replace('_', '-')} is not ported yet{where}")
+                f"--{name.replace('_', '-')} is not ported yet")
 
 
 def _device(name: str) -> torch.device:
@@ -290,9 +293,8 @@ def train_lm(args, cfg=None, params=None):
     smoke cuts the depth through the first, the parity tests pass the
     reference's init through the second."""
     _check_flags(args)
-    _check_flags(args, _NOT_PORTED_LM_FLAGS, " on the LM path")
     from repro_torch.configs import get_config, get_reduced
-    from repro_torch.exec import Planner
+    from repro_torch.exec import Planner, ResidencySpec
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models.lm.model import init_lm
 
@@ -307,15 +309,21 @@ def train_lm(args, cfg=None, params=None):
         cfg = dataclasses.replace(cfg, row_chunks=args.row_chunks)
     batch = args.batch or 8
     plan = None
-    if args.kernel and not args.row_chunks:  # explicit --row-chunks wins
+    # the reference's precedence: a budget, a residency or a kernel asks
+    # for a sequence plan, and an explicit --row-chunks wins over it
+    wants_plan = args.budget_gb is not None or args.residency or args.kernel
+    if wants_plan and not args.row_chunks:
         plan = _resolve_plan(
             args,
             dict(mode="lm", arch=cfg.name, preset=args.preset, batch=batch,
                  seq=args.seq, budget_gb=args.budget_gb,
                  mesh=args.mesh or "", residency=args.residency,
                  kernel=args.kernel),
-            lambda table: Planner.for_model(cfg, batch, args.seq,
-                                            kernel=args.kernel), device)
+            lambda table: Planner.for_model(
+                cfg, batch, args.seq,
+                budget=int((args.budget_gb or 0.0) * 2**30),
+                residency=ResidencySpec.parse(args.residency),
+                kernel=args.kernel or None), device)
         print("plan:", plan.describe(), flush=True)
     if params is None:
         params = init_lm(torch.Generator(device=device).manual_seed(
@@ -395,13 +403,15 @@ def build_parser() -> argparse.ArgumentParser:
                          "plans the sequence axis, then kernelizes)")
     ap.add_argument("--budget-gb", type=float, default=None,
                     help="activation byte budget; Planner.for_budget picks "
-                         "engine and granularity under it")
+                         "engine and granularity under it (LM: "
+                         "Planner.for_model picks the chunk count)")
     ap.add_argument("--residency", default="",
                     choices=["", "device", "host", "recompute"],
                     help="boundary-cache residency of the carry-based "
-                         "engines: 'host' offloads the 2PS caches to "
-                         "pinned memory with prefetch, 'recompute' "
-                         "regenerates them in the backward")
+                         "engines: 'host' offloads the 2PS caches (LM: the "
+                         "SSM/xLSTM carried state) to pinned memory with "
+                         "prefetch, 'recompute' regenerates them in the "
+                         "backward")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--out", default="experiments/train")

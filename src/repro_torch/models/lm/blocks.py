@@ -1,19 +1,24 @@
 """Decoder blocks and the layer stack (counterpart of
-``repro.models.lm.blocks``; ported kinds ``attn``, ``local`` and
-``global``).
+``repro.models.lm.blocks``; the training half).
 
 Layer kinds (ModelConfig.layer_kinds):
   attn          dense attention + SwiGLU MLP
   local/global  gemma3-style sliding-window / full attention + MLP
-The reference's ``moe``, ``mamba``, ``mlstm``, ``slstm`` and
-``shared_attn`` kinds raise "not ported yet".
+  mamba         Mamba2 mixer only (norm + ssm + residual)
+  mlstm/slstm   xLSTM mixers
+  shared_attn   zamba2-style attention + MLP block whose parameters are
+                SHARED by all its occurrences (held once, under
+                ``params["shared"]``, not stacked)
+The reference's ``moe`` kind raises "not ported yet".
 
 Stacking keeps the reference's parameter tree: per
 ``ModelConfig.scan_segments()`` segment, a tuple over the pattern's
-positions of parameters stacked over the segment's ``count`` layers.
-Where the reference ``lax.scan``s over a segment, the port runs one Python
-loop over its layers and indexes the stacked tensors, so parameters and
-optimizer state convert leaf for leaf.
+positions of parameters stacked over the segment's ``count`` layers
+(``None`` at a shared position).  Where the reference ``lax.scan``s over a
+segment, the port runs one Python loop over its layers and indexes the
+stacked tensors, so parameters and optimizer state convert leaf for leaf.
+The shared block's gradient is the sum over its occurrences, as autograd
+accumulates it.
 """
 
 from __future__ import annotations
@@ -28,14 +33,20 @@ from repro_torch.models.lm.attention import AttnDims, attn_train, init_attn
 from repro_torch.models.lm.common import init_rms, rms_norm
 from repro_torch.models.lm.config import ModelConfig
 from repro_torch.models.lm.mlp import init_mlp, mlp_apply
+from repro_torch.models.lm.ssm import SSMDims, init_ssm, ssm_train
+from repro_torch.models.lm.xlstm import (
+    XLSTMDims, init_mlstm, init_slstm, mlstm_train, slstm_train,
+)
 
-ATTN_KINDS = ("attn", "local", "global")
+ATTN_KINDS = ("attn", "local", "global", "shared_attn")
+RECURRENT_KINDS = ("mamba", "mlstm", "slstm")
 
 
 def _check_kind(kind: str) -> None:
-    if kind not in ATTN_KINDS:
+    if kind not in ATTN_KINDS + RECURRENT_KINDS:
         raise NotImplementedError(
-            f"layer kind {kind!r} is not ported yet; ported: {ATTN_KINDS}")
+            f"layer kind {kind!r} is not ported yet; ported: "
+            f"{ATTN_KINDS + RECURRENT_KINDS}")
 
 
 def zero_aux(device) -> Dict[str, torch.Tensor]:
@@ -51,11 +62,32 @@ def attn_dims(cfg: ModelConfig, kind: str) -> AttnDims:
         window=cfg.sliding_window if kind == "local" else 0)
 
 
+def ssm_dims(cfg: ModelConfig) -> SSMDims:
+    inner = cfg.ssm_expand * cfg.d_model
+    heads = cfg.ssm_heads or cfg.n_heads
+    return SSMDims(d=cfg.d_model, n_heads=heads, head_p=inner // heads,
+                   state_n=cfg.ssm_state or 64, conv_k=cfg.conv_k)
+
+
+def xlstm_dims(cfg: ModelConfig) -> XLSTMDims:
+    return XLSTMDims(d=cfg.d_model, n_heads=cfg.n_heads,
+                     expand=cfg.ssm_expand)
+
+
+_RECURRENT = {"mamba": (init_ssm, ssm_train, ssm_dims),
+              "mlstm": (init_mlstm, mlstm_train, xlstm_dims),
+              "slstm": (init_slstm, slstm_train, xlstm_dims)}
+
+
 def init_block(gen, kind: str, cfg: ModelConfig, stack: int = 0):
     """One block's parameters, with a leading axis of ``stack`` layers
     when given (the reference's ``vmap``-ed init)."""
     _check_kind(kind)
     pd, d = cfg.param_dtype, cfg.d_model
+    if kind in RECURRENT_KINDS:
+        init, _, dims = _RECURRENT[kind]
+        return {"norm1": {"scale": init_rms(d, pd, gen, stack)},
+                "ssm": init(gen, dims(cfg), pd, stack)}
     return {
         "norm1": {"scale": init_rms(d, pd, gen, stack)},
         "attn": init_attn(gen, attn_dims(cfg, kind), pd, stack),
@@ -68,8 +100,11 @@ def block_train(params, x, kind: str, cfg: ModelConfig):
     """Returns (x, aux)."""
     _check_kind(kind)
     eps = cfg.norm_eps
-    nc = cfg.row_chunks if cfg.remat in ("rows", "block_rows") else 1
     h = rms_norm(x, params["norm1"]["scale"], eps)
+    if kind in RECURRENT_KINDS:
+        _, train, dims = _RECURRENT[kind]
+        return x + train(params["ssm"], h, dims(cfg)), zero_aux(x.device)
+    nc = cfg.row_chunks if cfg.remat in ("rows", "block_rows") else 1
     x = x + attn_train(params["attn"], h, attn_dims(cfg, kind), nc)
     h = rms_norm(x, params["norm2"]["scale"], eps)
     return x + mlp_apply(params["mlp"], h, nc), zero_aux(x.device)
@@ -77,12 +112,18 @@ def block_train(params, x, kind: str, cfg: ModelConfig):
 
 def init_stack(gen, cfg: ModelConfig):
     """Params: ``{"segments": [per-segment tuple over pattern positions of
-    stacked params], "shared": None}``."""
+    stacked params, None at a shared_attn position], "shared": the
+    shared_attn block's params or None}``."""
+    segs = cfg.scan_segments()
+    shared = None
+    if any("shared_attn" in pat for pat, _ in segs):
+        shared = init_block(gen, "shared_attn", cfg)
     segments = []
-    for pat, count in cfg.scan_segments():
-        segments.append(tuple(init_block(gen, kind, cfg, stack=count)
-                              for kind in pat))
-    return {"segments": segments, "shared": None}
+    for pat, count in segs:
+        segments.append(tuple(
+            None if kind == "shared_attn"
+            else init_block(gen, kind, cfg, stack=count) for kind in pat))
+    return {"segments": segments, "shared": shared}
 
 
 def _layer(tree, i: int):
@@ -102,7 +143,8 @@ def stack_train(params, x, cfg: ModelConfig):
     for (pat, count), seg in zip(cfg.scan_segments(), params["segments"]):
         for i in range(count):
             for j, kind in enumerate(pat):
-                p = _layer(seg[j], i)
+                p = params["shared"] if kind == "shared_attn" \
+                    else _layer(seg[j], i)
                 if block_remat:
                     def run(p, x, kind=kind):
                         with rowexec.use_plan(plan):

@@ -1,6 +1,6 @@
 """Top-level decoder-only LM: init and the training loss (counterpart of
-``repro.models.lm.model``; the dense family without a vision frontend —
-prefill, decode and the VLM projector wait for later slices).
+``repro.models.lm.model``; the dense, SSM and hybrid families — prefill,
+decode, MoE and the VLM projector wait for later slices).
 """
 
 from __future__ import annotations
@@ -19,17 +19,26 @@ from repro_torch.models.lm.common import (
 from repro_torch.models.lm.config import ModelConfig
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.frontend != "none":
+#: families the port trains, and the slice each other family waits for
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+_WAITS_FOR = {"moe": "the MoE slice (moe.py)",
+              "vlm": "the VLM slice (the vision frontend)",
+              "encdec": "the encoder-decoder slice (encdec.py)"}
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise for a family or frontend the port does not run yet."""
+    if cfg.family not in PORTED_FAMILIES or cfg.frontend != "none":
+        waits = _WAITS_FOR.get(cfg.family, "a later slice")
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} with frontend "
-            f"{cfg.frontend!r} is not ported yet; the port runs dense "
-            f"decoder-only stacks")
+            f"{cfg.frontend!r} is not ported yet (it waits for {waits}); "
+            f"the port runs the {', '.join(PORTED_FAMILIES)} families")
 
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig):
     """Seeded init on ``gen``'s device (the reference's tree layout)."""
-    _check_ported(cfg)
+    check_ported(cfg)
     params: Dict[str, Any] = {
         "embed": embed_init(gen, cfg.vocab, cfg.d_model, cfg.param_dtype),
         "stack": init_stack(gen, cfg),
@@ -68,7 +77,7 @@ def _logits(params, x, cfg: ModelConfig, dtype):
 
 
 def lm_forward(params, batch, cfg: ModelConfig):
-    _check_ported(cfg)
+    check_ported(cfg)
     dtype = torch_dtype(cfg.dtype)
     x = _embed_inputs(params, batch, cfg, dtype)
     x, aux = stack_train(params["stack"], x, cfg)
@@ -111,7 +120,7 @@ def lm_loss(params, batch, cfg: ModelConfig,
             lb_coeff: float = 0.01, z_coeff: float = 1e-3):
     """Next-token CE (labels = batch["labels"], -1 = ignore) + MoE aux
     (zero for the dense family)."""
-    _check_ported(cfg)
+    check_ported(cfg)
     dtype = torch_dtype(cfg.dtype)
     x = _embed_inputs(params, batch, cfg, dtype)
     x, aux = stack_train(params["stack"], x, cfg)

@@ -3,12 +3,19 @@
 
 ``build_apply((params, cfg), plan)`` resolves the plan's seq engine, whose
 builder delegates back here (:func:`build_lm_apply`): the stack's row
-structure lives inside the layers (the sliding-window halo loop, the
-chunked MLP and classifier head), so the layers consult the *active plan*
-while they run.  :func:`swa_kernel` is that hook for local attention: it
-hands back the ``seq_swa_cuda`` engine's op when the kernelized plan
-selected it.  ``scan_rows`` (the carried chunk scans) waits for the
-SSM/xLSTM slice.
+structure lives inside the layers (the SSD and xLSTM chunk scans, the
+sliding-window halo loop, the chunked MLP and classifier head), so the
+layers consult the *active plan* while they run, through two hooks:
+
+* :func:`scan_rows` — the carried chunk scans of ``ssm_train``,
+  ``mlstm_train`` and ``slstm_train``.  With no active plan, or a
+  device-resident one, it runs the checkpointed chunk loop; an offloading
+  :class:`~repro_torch.exec.plan.ResidencySpec` builds the row-program
+  executor instead, so the carried state — the 2PS boundary cache — goes
+  to pinned host memory with prefetch, or is recomputed in BP, with
+  ``fp_row``/``bp_row`` obs spans to show it ran.
+* :func:`swa_kernel` — local attention swaps its halo loop for the
+  ``seq_swa_cuda`` engine's op when the kernelized plan selected it.
 
 The active plan is plain Python state, set by :func:`use_plan` around a
 forward.  PyTorch recomputes checkpointed regions during backward, outside
@@ -63,11 +70,8 @@ def plan_cfg(cfg, plan):
 def build_lm_apply(cfg, plan):
     """``apply(params, batch) -> (loss, aux)``: the family loss with the
     plan active for the layer-stack hooks."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"the {cfg.family!r} LM family is not ported yet; the port runs "
-            f"dense local/global attention stacks")
-    from repro_torch.models.lm.model import lm_loss
+    from repro_torch.models.lm.model import check_ported, lm_loss
+    check_ported(cfg)
     run_cfg = plan_cfg(cfg, plan)
 
     def apply(params, batch):
@@ -75,6 +79,36 @@ def build_lm_apply(cfg, plan):
             return lm_loss(params, batch, run_cfg)
 
     return apply
+
+
+def _residency():
+    plan = _ACTIVE_PLAN
+    return plan.residency if plan is not None else None
+
+
+def scan_rows(body, carry0, xs, consts=None):
+    """Carried chunk scan ``body(carry, chunk) -> (carry, out)`` over
+    leading-axis-stacked ``xs`` (a tensor or a tuple of them), placed by the
+    active plan; returns ``(carry, stacked outputs)``.
+
+    Device-resident (or plan-less) execution is the checkpointed chunk loop
+    (the reference's ``lax.scan(jax.checkpoint(body), carry0, xs)``).  An
+    offloading residency builds the row-program executor: the carried state
+    is the named boundary cache (``"state"``), offloaded and prefetched or
+    recomputed by the spec.
+
+    A body that uses differentiable values beyond the carry and the chunk
+    (sLSTM's recurrent weights) must take them through ``consts``, with the
+    signature ``body(consts, carry, chunk)``: the executor differentiates
+    its args only, so a closure would detach the weights' gradients."""
+    from repro_torch.core.seqrow import make_stacked_carry_scan_apply
+    n_rows = next(iter(
+        xs if isinstance(xs, (tuple, list)) else (xs,))).shape[0]
+    if consts is not None:
+        return make_stacked_carry_scan_apply(
+            body, n_rows, _residency(), with_consts=True)(carry0, xs, consts)
+    return make_stacked_carry_scan_apply(body, n_rows,
+                                         _residency())(carry0, xs)
 
 
 def swa_kernel(window: int) -> Optional[object]:

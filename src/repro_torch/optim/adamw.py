@@ -3,8 +3,10 @@ AdamW, with global-norm clipping (counterpart of ``repro.optim.adamw``).
 
 A parameter tree is nested dicts, lists and tuples of tensors, walked in the
 reference's leaf order (dict keys sorted); ``None`` is an empty subtree, as
-in JAX.  Updates are functional, as in
-the reference: they return new tensors and leave their inputs untouched.
+in JAX.  SGD is functional, as in the reference: it returns new tensors
+and leaves its inputs untouched.  AdamW overwrites the parameter and
+moment tensors it is given (the reference's jitted step donates them to
+the same end).
 """
 
 from __future__ import annotations
@@ -67,11 +69,14 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state, cfg: AdamWConfig, lr_scale=1.0):
-    """Returns (new_params, new_state, metrics).  Leaf by leaf: the clipped
-    gradient, the moments and the new parameter of one leaf are made
-    before the next leaf's, so no clipped copy of the whole gradient tree
-    is ever live (1.8 B parameters make that 7 GB in fp32)."""
+def adamw_update_(params, grads, state, cfg: AdamWConfig, lr_scale=1.0):
+    """The reference's ``adamw_update``, written into the parameter and
+    moment tensors of ``params`` and ``state``.  Leaf by leaf: the clipped
+    gradient, the moments and the new parameter of one leaf are made and
+    copied back before the next leaf's, so neither a clipped copy of the
+    whole gradient tree (1.8 B parameters make that 7 GB in fp32) nor a
+    second copy of the parameters and both moments is ever live.
+    Returns (params, state, metrics), the same tensors."""
     grads = tree_map(lambda g: g.float(), grads)
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
@@ -90,18 +95,12 @@ def adamw_update(params, grads, state, cfg: AdamWConfig, lr_scale=1.0):
         step_v = (m / c1) / (torch.sqrt(n / c2) + cfg.eps)
         return (pf - lr * (step_v + cfg.weight_decay * pf)).to(p.dtype), m, n
 
-    out = [upd(p, g, m, n) for p, g, m, n in zip(
-        tree_leaves(params), tree_leaves(grads), tree_leaves(state["mu"]),
-        tree_leaves(state["nu"]))]
-    new_p, mu, nu = (_unflatten(params, [o[i] for o in out])
-                     for i in range(3))
-    return new_p, {"mu": mu, "nu": nu, "step": step}, \
-        {"grad_norm": gnorm, "lr": lr}
-
-
-def _unflatten(like, leaves):
-    it = iter(leaves)
-    return tree_map(lambda _: next(it), like)
+    for p, g, m, n in zip(tree_leaves(params), tree_leaves(grads),
+                          tree_leaves(state["mu"]), tree_leaves(state["nu"])):
+        for old, new in zip((p, m, n), upd(p, g, m, n)):
+            old.copy_(new)
+    state["step"] = step
+    return params, state, {"grad_norm": gnorm, "lr": lr}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -17,7 +17,10 @@ shape in bf16 at ``chip_smoke.py``'s atol 4e-3 / rtol 1e-2; ``ssd_scan``
 against its chunked plain version (and once against the sequential oracle)
 at atol 1e-3.  The row-program executor's host and recompute residencies
 are held against device residency exactly (cuDNN in deterministic mode):
-placement moves bytes, never values.
+placement moves bytes, never values; the reduced Zamba2 and xLSTM
+gradients under host and recompute residency are held against device
+residency's at 1e-5 (another summation order), two steps' losses at 1e-6
+relative.
 """
 
 import numpy as np
@@ -545,3 +548,78 @@ def test_autotune_winner_launches_its_kernel(kind, cuda_device):
     run(tuned)
     torch.cuda.synchronize()
     assert counter.launches == before + 1
+
+
+def _recurrent_fwd_bwd(device, arch, policy):
+    """Loss and every parameter gradient of one fwd+bwd of the reduced
+    preset of ``arch`` at batch 1, seq 512 (two chunks, so the state is
+    carried), under ``policy`` residency."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import TokenDataset, TokenDatasetConfig
+    from repro_torch.exec import Planner, ResidencySpec
+    from repro_torch.models.lm.model import init_lm
+    from repro_torch.models.lm.rowexec import build_lm_apply
+    from repro_torch.optim.adamw import tree_leaves
+    cfg = get_reduced(arch)
+    params = init_lm(torch.Generator(device=device).manual_seed(0), cfg)
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_()
+    hb = TokenDataset(TokenDatasetConfig(vocab=cfg.vocab, seq_len=512,
+                                         batch=1)).batch_at(0)
+    batch = {k: torch.from_numpy(hb[k]).long().to(device)
+             for k in ("tokens", "labels")}
+    plan = Planner.for_model(cfg, 1, 512,
+                             residency=ResidencySpec.parse(policy))
+    loss, _ = build_lm_apply(cfg, plan)(params, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    return [loss.detach()] + list(grads)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("arch", ["zamba2_7b", "xlstm_125m"])
+def test_recurrent_lm_step_under_each_residency(arch, deterministic,
+                                                tmp_path):
+    """The reduced Zamba2 and xLSTM presets on the card under device, host
+    and recompute residency (seq 512: two chunks, so the state is
+    carried).  One fwd+bwd: the loss and every gradient under host
+    residency (states fetched back from pinned memory) and recompute
+    (states regenerated) against device residency, within 1e-5 of each
+    tensor's largest magnitude (the parity tests' fp32 tolerance: the
+    tied embedding's gradient gathers many tokens in no fixed order, and
+    the device default, the checkpointed chunk loop, sums some chunk
+    gradients in another order than the executor); a stale or misplaced
+    state moves them by far more.  Two trainer steps: equal losses and
+    step-0 gradient norms within 1e-6 relative, and the host run's carried
+    states go to pinned memory and back (non-zero counters)."""
+    import json
+    from repro_torch.launch import train as T
+    got = {p: _recurrent_fwd_bwd(deterministic, arch, p)
+           for p in ("device", "host", "recompute")}
+    for policy in ("host", "recompute"):
+        for a, b in zip(got["device"], got[policy]):
+            assert float((a - b).abs().max()) \
+                <= 1e-5 * float(a.abs().max()), policy
+    recs, counters = {}, {}
+    for policy in ("device", "host", "recompute"):
+        d = tmp_path / policy
+        recs[policy] = T.main(
+            ["--arch", arch, "--preset", "reduced", "--batch", "1", "--seq",
+             "512", "--steps", "2", "--residency", policy, "--out", str(d),
+             "--trace", str(d / "t.jsonl"), "--metrics-out",
+             str(d / "m.json")])
+        counters[policy] = json.load(open(d / "m.json"))["counters"]
+    for policy in ("host", "recompute"):
+        for r, want in zip(recs[policy], recs["device"]):
+            assert np.isfinite(r["loss"])
+            assert abs(r["loss"] - want["loss"]) \
+                <= 1e-6 * abs(want["loss"]), recs
+        g, want = recs[policy][0]["grad_norm"], recs["device"][0]["grad_norm"]
+        assert abs(g - want) <= 1e-6 * abs(want), recs
+    host = counters["host"]
+    assert host["rowprog.offload_bytes"] > 0
+    assert host["rowprog.prefetch_bytes"] == host["rowprog.offload_bytes"]
+    assert host["rowprog.fp_rows"] == host["rowprog.bp_rows"] > 0
+    assert "rowprog.offload_bytes" not in counters["device"]
+    assert counters["recompute"]["rowprog.recompute_rows"] > 0

@@ -190,7 +190,7 @@ def test_params_tree_and_init_match_reference_layout():
 def test_unported_families_raise():
     import repro_torch.configs as C
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        C.get_reduced("zamba2_7b")
+        C.get_reduced("deepseek_moe_16b")
     with pytest.raises(KeyError, match="unknown arch"):
         C.get_config("nope")
     cfg = dataclasses.replace(get_reduced("gemma3_4b"), family="moe")
@@ -199,12 +199,21 @@ def test_unported_families_raise():
 
 
 def test_seq_engine_forms():
+    """Both forms of the seq engines: a chunk-body callable gives the
+    ``core/seqrow.py`` apply of its shape (held against the reference's
+    helpers in ``tests/test_torch_seqrow.py``), the LM form the stack's
+    loss."""
     from repro_torch.exec import ExecutionPlan
     cfg = get_reduced("gemma3_4b")
-    for name in ("seq_chunked", "seq_swa_overlap"):
-        with pytest.raises(NotImplementedError, match="op-level form"):
-            build_apply(lambda x: x, ExecutionPlan.explicit(name, 2,
-                                                            window=16))
+    x = torch.tensor(_np(8, B, S, 16))
+    chunked = build_apply(torch.tanh, ExecutionPlan.explicit("seq_chunked",
+                                                            4))
+    assert torch.equal(chunked(x), torch.tanh(x))
+    attend = build_apply(lambda q, k, v, q_offset, k_offset: q,
+                         ExecutionPlan.explicit("seq_swa_overlap", 2,
+                                                window=16))
+    q = x[..., None]
+    assert torch.equal(attend(q, q, q), q)
     for name in ("seq_swa_overlap", "seq_swa_cuda"):
         with pytest.raises(ValueError, match="'window' extra"):
             build_apply((None, cfg), ExecutionPlan.explicit(name, 2))

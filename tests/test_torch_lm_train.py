@@ -109,12 +109,17 @@ def test_cli_plain_kernel_keeps_the_halo_loop(tmp_path):
 
 
 def test_unported_lm_archs_and_flags_raise(tmp_path):
-    args = _args(tmp_path, "--steps", "1")
-    args.arch = "llama3_2_3b"
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        T.train_lm(args)
-    with pytest.raises(NotImplementedError, match="--residency"):
-        T.train_lm(_args(tmp_path, "--steps", "1", "--residency", "host"))
+    """The MoE, VLM and encoder-decoder archs and ``--mesh`` still raise
+    (``--budget-gb`` and ``--residency`` run on the LM path since the SSM
+    slice: ``tests/test_torch_seqrow.py``)."""
+    for arch in ("deepseek_moe_16b", "llava_next_34b",
+                 "seamless_m4t_medium"):
+        args = _args(tmp_path, "--steps", "1")
+        args.arch = arch
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            T.train_lm(args)
+    with pytest.raises(NotImplementedError, match="--mesh"):
+        T.train_lm(_args(tmp_path, "--steps", "1", "--mesh", "data=2"))
 
 
 def test_lm_cuda_device_without_card_raises(tmp_path, monkeypatch):
