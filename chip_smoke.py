@@ -101,10 +101,11 @@ printing one line:
                 at published widths and full depth (12 layers, d 768), seq
                 1024 (4 chunks), one step under host and one under device
                 residency, the same loss, peak and audit checks.  For
-                each model, one device-resident fwd+bwd on each carried
-                scan path, the checkpointed chunk loop (the default) and
-                the row-program executor: its host seconds, and its
-                kernel launches counted with torch.profiler.
+                each model (xLSTM cut to 6 layers), one device-resident
+                fwd+bwd on each carried scan path, the checkpointed chunk
+                loop (the default) and the row-program executor: its host
+                seconds, and its kernel launches counted with
+                torch.profiler.
    train_lm_dense   llama3_2_3b and qwen1_5_4b at published widths, 8
                 layers, batch 1, seq 4096, 2 steps each through
                 ``--budget-gb 0.05`` (``seq_chunked``, N from
@@ -112,6 +113,34 @@ printing one line:
                 2 layers, as a fwd+bwd probe with no optimizer state (one
                 layer with fp32 AdamW is ~62 GB of xi, so the trainer
                 cannot run it on one card; the line says so).
+   serve        serving at published widths and full depth through
+                ``repro_torch.launch.serve``'s functions, each run traced
+                with its artefact written (``--trace``/``--out`` into the
+                ``obs`` directory) and its pool audited in the serve_pool
+                band [0.95, 1.10].  Gemma-3 4B (34 layers), ``--budget-gb
+                2``, 24 Poisson requests (prompts of 256, 512 and 1024
+                tokens, 64 generated each): ``full`` (14 slots),
+                ``paged_kv`` at the same slot count, ``quant_kv`` at its
+                own, static mode, ``--decode-batch 4`` on the card and
+                under ``--decode-residency host``, and 8 bursty requests
+                with 3 priority levels and row-chunked prefills in 4 slots,
+                with and without ``--preemptible-prefill`` (which must
+                preempt).  Gates, bit for bit:
+                paged and static give ``full``'s greedy streams, host
+                residency the device cohort run's, preemptible prefill
+                the plain bursty run's (equal slot counts, so equal decode
+                shapes); printed only: ``quant_kv``'s and the cohort runs'
+                agreement with ``full``, and a one-slot sequential loop's
+                with the top-2 logit margin at its first mismatch (other
+                batch shapes may round otherwise in bf16).  The first
+                token's logits of a 1024-token prompt prefilled in 16 row
+                chunks against unchunked, within SERVE_CHUNKED_TOL.  Then
+                prefill ms per prompt length, the 14-slot decode step's ms,
+                launches and device time, and the 4-slot cohort tick under
+                device and host residency.  Zamba2-7B (81 layers), 8
+                requests: decode batch 4 on the card and under host
+                residency, identical streams.  xLSTM-125M (12 layers) under
+                ``full``; ``paged_kv`` must raise.
 
 Every train run above carries ``--trace`` and ``--metrics-out`` (into a
 temporary ``obs`` directory) and prints its step-0 ``plan audit:`` line.
@@ -139,7 +168,8 @@ temporary ``obs`` directory) and prints its step-0 ``plan audit:`` line.
                 (Gemma's local layer) and ``ssd_scan``'s chunk (Zamba2's
                 widths), each winner held against its plain version.
 13. obs         ``python -m repro_torch.analysis.audit --check`` over every
-                trace (the reference's bands), and the row executor's
+                trace and serve artefact (the reference's bands; the
+                serve_pool band must appear), and the row executor's
                 counters of ``twophase_h`` N=8 under host residency against
                 the plan's rows and the SD bytes the Planner priced.
 
@@ -251,14 +281,45 @@ SSD_SHAPE = (1, 4096, 32, 7168 // 32, 64)
 #: Zamba2-7B on the card: published widths, 12 of 81 layers (10 Mamba2,
 #: the shared block at layers 6 and 12; fp32 AdamW of all 81 is over 100
 #: GB), batch 1, seq 4096 (16 SSD chunks of 256); xLSTM-125M at full
-#: depth, seq 1024 (4 chunks of 256)
-ZAMBA_LAYERS, ZAMBA_STEPS, XLSTM_SEQ = 12, 3, 1024
+#: depth, seq 1024 (4 chunks of 256), and at 6 layers for the two carried-
+#: scan paths' fwd+bwd timing (its per-token loop makes each layer seconds;
+#: the ratio of the two paths does not need all 12)
+ZAMBA_LAYERS, ZAMBA_STEPS, XLSTM_SEQ, XLSTM_PATH_LAYERS = 12, 3, 1024, 6
 #: the train_step_lm audit band (analysis/audit.py)
 LM_AUDIT_BAND = (0.2, 20.0)
 #: the dense configs on the card: published widths, 8 layers, batch 1,
 #: seq 4096, through a --budget-gb plan; qwen1_5_110b as a 2-layer
 #: forward + backward probe
 DENSE_LAYERS, DENSE_BUDGET_GB, QWEN110_LAYERS = 8, 0.05, 2
+#: serving at published widths and full depth, a 2 GiB pool budget:
+#: Gemma-3 4B (34 layers), 24 Poisson requests with prompts of 256, 512
+#: and 1024 tokens and 64 generated tokens each; the host-residency
+#: cohort; Zamba2-7B (81 layers) and xLSTM-125M on smaller traffic
+SERVE_BUDGET_GB = 2.0
+SERVE_FLAGS = ["--requests", "24", "--traffic", "poisson", "--mixed-prompts",
+               "--prompt-len", "1024", "--gen", "64"]
+SERVE_COHORT = 4
+ZAMBA_SERVE_FLAGS = ["--requests", "8", "--traffic", "poisson",
+                     "--mixed-prompts", "--prompt-len", "512", "--gen", "16"]
+XLSTM_SERVE_FLAGS = ["--requests", "6", "--traffic", "poisson",
+                     "--mixed-prompts", "--prompt-len", "256", "--gen", "16"]
+#: requests of the one-slot sequential loop held against the pooled run;
+#: requests and pinned slots of the bursty pair (each prefill there runs in
+#: row chunks): 4 slots fill, so a high-priority arrival evicts an
+#: in-flight prefill (one preemption; the schedule does not depend on the
+#: model's numbers)
+SERVE_SEQ_REQUESTS, SERVE_BURSTY, SERVE_BURSTY_SLOTS = 2, 8, 4
+#: the bursty runs' and the chunked-prefill gate's prefill budget, as a
+#: share of ``Planner.for_model``'s unchunked estimate for the longest
+#: prompt: at Gemma's widths it cuts a 1024-token prompt into 16 row chunks
+#: (256: 2, 512: 4), so a preemptible prefill spans ticks
+SERVE_PREFILL_SHARE = 0.99
+#: |chunked - unchunked| / max |unchunked| of the first token's logits
+#: of a 1024-token prompt in 16 row chunks (bf16 activations): about
+#: twice the 7.716e-3 measured on an H100 80GB HBM3 at 700 W
+SERVE_CHUNKED_TOL = 1.5e-2
+#: the serve_pool audit band (analysis/audit.py)
+SERVE_AUDIT_BAND = (0.95, 1.10)
 
 
 def _timed_ms(torch, fn, iters=5, warmup=2):
@@ -997,14 +1058,7 @@ def _lm_config(arch, n_layers=None):
 def _device_launches(torch, fn):
     """Kernels launched on the card while ``fn()`` runs (torch.profiler,
     CUDA activity only; copies and sets not counted)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(1 for e in prof.profiler.kineto_results.events()
-               if e.device_type() == DeviceType.CUDA
-               and not e.name().startswith(("Memcpy", "Memset")))
+    return _device_profile(torch, fn)["launches"]
 
 
 @contextlib.contextmanager
@@ -1159,12 +1213,14 @@ def phase_train_lm_ssm(torch, out, tmp):
     for p, r in xruns.items():
         _lm_report(f"xlstm_125m {p}", r)
     xrel = _check_lm_runs("train_lm_ssm xlstm_125m", xruns, "device")
-    xpaths = _carry_scan_paths(torch, xcfg, XLSTM_SEQ)
+    xpaths = _carry_scan_paths(
+        torch, _lm_config("xlstm_125m", XLSTM_PATH_LAYERS), XLSTM_SEQ)
     out["xlstm"] = {"runs": xruns, "rel": xrel, "paths": xpaths}
     print(f"train_lm_ssm: xlstm_125m (12 layers, seq {XLSTM_SEQ}) step_s "
           f"device {xruns['device']['step_s']} host "
-          f"{xruns['host']['step_s']}; device-resident fwd+bwd by "
-          f"carried-scan path {xpaths}", flush=True)
+          f"{xruns['host']['step_s']}; device-resident fwd+bwd of "
+          f"{XLSTM_PATH_LAYERS} layers by carried-scan path {xpaths}",
+          flush=True)
     if got != want:
         raise AssertionError(f"host residency counters {got} != {want}")
     for name, r in (("zamba2_7b", runs), ("xlstm_125m", xruns)):
@@ -1215,6 +1271,373 @@ def phase_train_lm_dense(torch, out, tmp):
           f"{xi_one_layer} B of xi", flush=True)
     if not math.isfinite(loss):
         raise AssertionError(f"qwen1_5_110b probe loss {loss}")
+
+
+def _serve(torch, tmp, name, arch, params, flags, **over):
+    """One run of ``repro_torch.launch.serve``'s own functions at the full
+    preset on ``params``, traced into ``tmp/obs`` with its artefact under
+    ``tmp/obs/serve``: every request done, its pool audit in the
+    serve_pool band."""
+    from repro_torch import obs
+    from repro_torch.launch.serve import (
+        build_parser, serve_from_args, write_artefact,
+    )
+    d = os.path.join(tmp, "obs")
+    args = build_parser().parse_args(
+        ["--arch", arch, "--preset", "full", "--budget-gb",
+         str(SERVE_BUDGET_GB), "--trace", os.path.join(d, f"serve_{name}"
+                                                     ".jsonl"),
+         "--out", os.path.join(d, "serve", name), *flags])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        report, plan, rec, wall = serve_from_args(args, params=params,
+                                                  **over)
+    finally:
+        obs.shutdown()
+    write_artefact(args, rec)
+    s, a = rec["summary"], report.plan_audit
+    run = {"tokens": {st.rid: list(st.generated) for st in report.states},
+           "slots": plan.n_rows, "summary": s, "wall_s": wall,
+           "tok_s": s["generated_tokens"] / wall, "audit_ratio": a["ratio"],
+           "plan": plan.describe(),
+           "peak": torch.cuda.max_memory_allocated(),
+           "chunks": sorted({st.prefill_chunks for st in report.states})}
+    print(f"  serve {name}: {run['plan']} slots={run['slots']} "
+          f"generated {s['generated_tokens']} in {wall:.2f} s "
+          f"({run['tok_s']:.1f} tok/s wall), {s['prefills']} prefills "
+          f"(chunks {run['chunks']}), {s['decode_steps']} decode steps, "
+          f"max_active={s['max_active']} preemptions={s['preemptions']} "
+          f"prefetch_hits={s['prefetch_hits']}; audit "
+          f"{a['audited_term']} est {a['est_bytes_per_device']} measured "
+          f"{a['measured']['peak_bytes']} ratio {a['ratio']:.4f}; card "
+          f"peak {run['peak']}", flush=True)
+    lo, hi = SERVE_AUDIT_BAND
+    if not lo <= a["ratio"] <= hi:
+        raise AssertionError(f"serve {name}: audit ratio {a['ratio']} out "
+                             f"of {SERVE_AUDIT_BAND}")
+    short = [st.rid for st in report.states
+             if not st.done or st.n_generated != st.request.max_new_tokens]
+    if short:
+        raise AssertionError(f"serve {name}: requests {short} unfinished")
+    return run
+
+
+def _same_tokens(what, got, want):
+    bad = [rid for rid in want["tokens"]
+           if got["tokens"][rid] != want["tokens"][rid]]
+    if bad:
+        raise AssertionError(f"serve: {what}: token streams differ for "
+                             f"requests {bad}")
+
+
+def _agreement(got, want):
+    """Share of generated positions whose token equals ``want``'s."""
+    same = total = 0
+    for rid, ts in want.items():
+        same += sum(a == b for a, b in zip(got[rid], ts))
+        total += len(ts)
+    return same / max(1, total)
+
+
+def _serve_args(arch, flags):
+    from repro_torch.launch.serve import build_parser
+    return build_parser().parse_args(["--arch", arch, "--preset", "full",
+                                      "--budget-gb", str(SERVE_BUDGET_GB),
+                                      *flags])
+
+
+def _sequential_loop(torch, cfg, params, plan, reqs, want):
+    """Each request alone at batch 1, greedy: the pool's prefill (the
+    engine's, with ``plan``'s cache length and the run's prefill budget),
+    then its tokens decoded one by one.  Per request: its agreement with
+    ``want`` and, at the first mismatch, the top-2 logit margin of the
+    loop's logits."""
+    from repro_torch.models.lm import model as LM
+    from repro_torch.serve import ServeEngine
+    engine = ServeEngine(params, cfg, plan,
+                         prefill_budget=int(SERVE_BUDGET_GB * 2**30))
+    out = {}
+    with torch.no_grad():
+        for r in reqs:
+            row, caches, _ = engine.prefill(r)
+            logits = row[None, None]
+            gen, first, margin = [], None, None
+            for step in range(r.max_new_tokens):
+                row = logits[0, -1].float()
+                top = torch.topk(row, 2).values
+                tok = int(torch.argmax(row))
+                gen.append(tok)
+                if first is None and tok != want[r.rid][step]:
+                    first, margin = step, float(top[0] - top[1])
+                if step + 1 < r.max_new_tokens:
+                    logits, caches = LM.lm_decode(
+                        engine.params,
+                        torch.tensor([[tok]], device="cuda"), caches,
+                        cfg)
+            out[r.rid] = {"agreement": _agreement({0: gen},
+                                                  {0: want[r.rid]}),
+                          "first_mismatch": first, "top2_margin": margin}
+    return out
+
+
+def _chunked_prefill(torch, cfg, params, prompt):
+    """The first token's logits of a 1024-token prompt prefilled whole
+    and in the row chunks ``Planner.for_model`` picks under
+    SERVE_PREFILL_SHARE of the unchunked estimate (N > 1)."""
+    from repro_torch.exec import Planner
+    from repro_torch.serve import ServeEngine
+    plan = Planner.for_serve(cfg, len(prompt) + 1, n_slots=1)
+    engine = ServeEngine(params, cfg, plan)
+    S = len(prompt)
+    n = Planner.for_model(cfg, 1, S, budget=int(
+        SERVE_PREFILL_SHARE * Planner.for_model(cfg, 1, S).est_bytes)).n_rows
+    if n <= 1:
+        raise AssertionError(f"for_model picked N={n} for the chunked "
+                             f"prefill")
+    batch = {"tokens": torch.tensor(prompt[None].astype("int64"),
+                                    device="cuda")}
+    with torch.no_grad():
+        whole, chunked = (engine._prefill_fn(S, k)(engine.params, batch)[0]
+                          [0, -1].float() for k in (1, n))
+    err = float((chunked - whole).abs().max() / whole.abs().max())
+    return {"n_chunks": n, "rel_err": err,
+            "argmax_equal": int(whole.argmax()) == int(chunked.argmax())}
+
+
+def _device_profile(torch, fn):
+    """One call of ``fn`` under torch.profiler (CUDA activity): its kernel
+    launches, the device time they sum to, and the five kernels with the
+    most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    n = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA \
+                or e.name().startswith(("Memcpy", "Memset")):
+            continue
+        n += 1
+        us = (e.end_ns() - e.start_ns()) / 1e3
+        by_name[e.name()[:60]] = by_name.get(e.name()[:60], 0.0) + us
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"launches": n, "busy_ms": sum(by_name.values()) / 1e3,
+            "top_us": [(k, round(v, 1)) for k, v in top]}
+
+
+def _serve_timings(torch, cfg, params, plan, reqs):
+    """Prefill ms per prompt length; then a pool of ``plan``'s slots, each
+    holding a prefilled 1024-token prompt: the whole-pool decode step's
+    ms and its kernel launches; then the cohort tick (decode_view, decode,
+    absorb, prefetch of the next cohort) of SERVE_COHORT slots under
+    device and under host residency, in turns."""
+    import dataclasses as dc
+    from repro_torch.exec.plan import ResidencySpec
+    from repro_torch.serve import ServeEngine, make_pool
+    engine = ServeEngine(params, cfg, plan)
+    res = {"prefill_ms": {}}
+    by_len = {}
+    for r in reqs:
+        by_len.setdefault(r.prompt_len, r)
+    for n, r in sorted(by_len.items()):
+        engine.prefill(r)                     # warm
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.prefill(r)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        res["prefill_ms"][n] = sorted(ms)[1]
+    longest = by_len[max(by_len)]
+    _, cache, _ = engine.prefill(longest)
+    tokens = [int(t) for t in longest.prompt[:plan.n_rows]]
+
+    def filled(p):
+        pool = make_pool(cfg, p, device="cuda")
+        for slot in range(p.n_rows):
+            pool.acquire(slot, longest.prompt_len)
+            pool.write(slot, cache)
+        return pool
+
+    pool = filled(plan)
+    view = pool.decode_view()
+    engine.decode_step(tokens, view)          # warm
+    ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.decode_step(tokens, view)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    res["decode_step_ms"] = sorted(ms)[2]
+    res["decode_profile"] = _device_profile(
+        torch, lambda: engine.decode_step(tokens, view))
+    res["decode_launches"] = res["decode_profile"]["launches"]
+    res["prefill_profile"] = _device_profile(
+        torch, lambda: engine.prefill(longest))
+    del pool, view
+    torch.cuda.empty_cache()
+    ticks = {}
+    cohorts = [list(range(i, min(i + SERVE_COHORT, plan.n_rows)))
+               for i in range(0, plan.n_rows, SERVE_COHORT)]
+    cohorts = [c for c in cohorts if len(c) == SERVE_COHORT]
+    pools = {}
+    for residency in ("device", "host"):
+        p = dc.replace(plan.with_extras(decode_batch=SERVE_COHORT),
+                       residency=ResidencySpec.parse(residency))
+        pools[residency] = filled(p)
+    for residency in ("device", "host", "host", "device"):
+        pool = pools[residency]
+        times = []
+        for i in range(2 * len(cohorts) + 1):
+            c = cohorts[i % len(cohorts)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            v = pool.decode_view(c)
+            _, v = engine.decode_step([tokens[s] for s in c], v)
+            pool.absorb(v, c)
+            pool.prefetch(cohorts[(i + 1) % len(cohorts)])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ticks.setdefault(residency, []).append(sorted(times[1:])[
+            len(times[1:]) // 2])
+    res["cohort_tick_ms"] = {k: min(v) for k, v in ticks.items()}
+    res["prefetch_hits"] = pools["host"].prefetch_hits
+    return res
+
+
+def phase_serve(torch, out, tmp):
+    """Serving at published widths and full depth through
+    ``repro_torch.launch.serve``'s functions: Gemma-3 4B (34 layers)
+    under every cache kind, host decode residency, static mode and
+    preemptible prefill with bit-identical greedy streams at one slot
+    count; the chunked-prefill gate; the serving timings; Zamba2-7B (81
+    layers) under device and host residency; xLSTM-125M, whose paged pool
+    must raise."""
+    from repro_torch.exec import Planner
+    from repro_torch.launch.serve import make_serve_requests
+    from repro_torch.models.lm.model import init_lm
+    from repro_torch.optim.adamw import tree_leaves
+    budget = int(SERVE_BUDGET_GB * 2**30)
+    res = {}
+
+    # ---- Gemma-3 4B, 34 layers
+    cfg = _lm_config("gemma3_4b")
+    params = init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
+    print(f"serve: gemma3_4b at published widths, {cfg.n_layers} layers, "
+          f"{sum(t.numel() for t in tree_leaves(params))} params",
+          flush=True)
+    reqs = make_serve_requests(_serve_args("gemma3_4b", SERVE_FLAGS), cfg)
+    need = [r.prompt_len + r.max_new_tokens for r in reqs]
+    max_len, avg = max(need), -(-sum(need) // len(need))
+    slots = {kind: Planner.for_serve(
+        cfg, max_len, budget=budget, n_max=len(reqs), cache_kind=kind,
+        avg_len=avg if kind == "paged_kv" else 0).n_rows
+        for kind in ("full", "paged_kv", "quant_kv")}
+    print(f"  slots bought by {SERVE_BUDGET_GB} GiB: {slots}", flush=True)
+    g = {}
+    g["full"] = _serve(torch, tmp, "gemma_full", "gemma3_4b", params,
+                       SERVE_FLAGS)
+    S = g["full"]["slots"]
+    g["paged_kv"] = _serve(torch, tmp, "gemma_paged", "gemma3_4b", params,
+                           SERVE_FLAGS + ["--cache-kind", "paged_kv"],
+                           n_slots=S)
+    g["quant_kv"] = _serve(torch, tmp, "gemma_quant", "gemma3_4b", params,
+                           SERVE_FLAGS + ["--cache-kind", "quant_kv"])
+    g["static"] = _serve(torch, tmp, "gemma_static", "gemma3_4b", params,
+                         SERVE_FLAGS, mode="static")
+    g["cohort"] = _serve(torch, tmp, "gemma_cohort", "gemma3_4b", params,
+                         SERVE_FLAGS + ["--decode-batch",
+                                        str(SERVE_COHORT)])
+    g["host"] = _serve(torch, tmp, "gemma_host", "gemma3_4b", params,
+                       SERVE_FLAGS + ["--decode-residency", "host",
+                                      "--decode-batch", str(SERVE_COHORT)])
+    bursty = [("bursty" if f == "poisson" else f) for f in SERVE_FLAGS] \
+        + ["--priority-levels", "3", "--requests", str(SERVE_BURSTY)]
+    pb = int(SERVE_PREFILL_SHARE * Planner.for_model(
+        cfg, 1, max(r.prompt_len for r in reqs)).est_bytes)
+    g["bursty"] = _serve(torch, tmp, "gemma_bursty", "gemma3_4b", params,
+                         bursty, n_slots=SERVE_BURSTY_SLOTS,
+                         prefill_budget=pb)
+    g["preempt"] = _serve(torch, tmp, "gemma_preempt", "gemma3_4b", params,
+                          bursty + ["--preemptible-prefill"],
+                          n_slots=SERVE_BURSTY_SLOTS, prefill_budget=pb)
+    _same_tokens("paged_kv vs full", g["paged_kv"], g["full"])
+    _same_tokens("static vs full", g["static"], g["full"])
+    _same_tokens("host residency vs device residency (decode batch "
+                 f"{SERVE_COHORT})", g["host"], g["cohort"])
+    _same_tokens("preemptible prefill vs not (bursty)", g["preempt"],
+                 g["bursty"])
+    if g["host"]["summary"]["prefetch_hits"] <= 0:
+        raise AssertionError("serve: host residency served no prefetch")
+    if g["preempt"]["summary"]["preemptions"] < 1:
+        raise AssertionError("serve: the preemptible run preempted nothing")
+    agree = {k: _agreement(g[k]["tokens"], g["full"]["tokens"])
+             for k in ("quant_kv", "cohort", "host")}
+    plan = Planner.for_serve(cfg, max_len, budget=budget, n_max=len(reqs))
+    seq = _sequential_loop(torch, cfg, params, plan,
+                           reqs[:SERVE_SEQ_REQUESTS], g["full"]["tokens"])
+    print(f"  token agreement with full (printed, not gated): {agree}; "
+          f"one-slot sequential loop per request {seq}", flush=True)
+    chunked = _chunked_prefill(torch, cfg, params,
+                               max(reqs, key=lambda r: r.prompt_len).prompt)
+    print(f"  chunked prefill: N={chunked['n_chunks']} first-token logits "
+          f"rel err {chunked['rel_err']:.3e} (tolerance "
+          f"{SERVE_CHUNKED_TOL}), argmax equal {chunked['argmax_equal']}",
+          flush=True)
+    if not chunked["rel_err"] <= SERVE_CHUNKED_TOL:
+        raise AssertionError(f"serve: chunked prefill {chunked}")
+    timings = _serve_timings(torch, cfg, params, plan, reqs)
+    print(f"  gemma timings at {plan.n_rows} slots: {timings}", flush=True)
+    res["gemma"] = {"slots_by_kind": slots, "runs": {
+        k: {kk: v[kk] for kk in ("slots", "wall_s", "tok_s", "audit_ratio",
+                                 "summary", "peak", "chunks")}
+        for k, v in g.items()}, "agreement": agree, "sequential": seq,
+        "chunked_prefill": chunked, "timings": timings}
+    del params, g
+    torch.cuda.empty_cache()
+
+    # ---- Zamba2-7B, 81 layers
+    cfg = _lm_config("zamba2_7b")
+    params = init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
+    print(f"serve: zamba2_7b at published widths, {cfg.n_layers} layers, "
+          f"{sum(t.numel() for t in tree_leaves(params))} params",
+          flush=True)
+    z = {"cohort": _serve(torch, tmp, "zamba_cohort", "zamba2_7b", params,
+                          ZAMBA_SERVE_FLAGS + ["--decode-batch",
+                                               str(SERVE_COHORT)]),
+         "host": _serve(torch, tmp, "zamba_host", "zamba2_7b", params,
+                        ZAMBA_SERVE_FLAGS + ["--decode-residency", "host",
+                                             "--decode-batch",
+                                             str(SERVE_COHORT)])}
+    _same_tokens("zamba2 host vs device residency", z["host"], z["cohort"])
+    res["zamba"] = {k: {kk: v[kk] for kk in ("slots", "wall_s", "tok_s",
+                                             "audit_ratio", "summary")}
+                    for k, v in z.items()}
+    del params, z
+    torch.cuda.empty_cache()
+
+    # ---- xLSTM-125M, 12 layers: full pool; paged has nothing to page
+    cfg = _lm_config("xlstm_125m")
+    params = init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
+    x = _serve(torch, tmp, "xlstm_full", "xlstm_125m", params,
+               XLSTM_SERVE_FLAGS)
+    try:
+        _serve(torch, tmp, "xlstm_paged", "xlstm_125m", params,
+               XLSTM_SERVE_FLAGS + ["--cache-kind", "paged_kv"])
+    except ValueError as e:
+        print(f"  xlstm paged_kv raises as it must: {e}", flush=True)
+    else:
+        raise AssertionError("serve: xlstm_125m paged_kv did not raise")
+    res["xlstm"] = {kk: x[kk] for kk in ("slots", "wall_s", "tok_s",
+                                         "audit_ratio", "summary")}
+    del params
+    torch.cuda.empty_cache()
+    out["serve"] = res
 
 
 def _vgg_leaf_sizes(torch):
@@ -1686,8 +2109,14 @@ def phase_obs(torch, out, tmp):
     traces = sorted(os.path.join(tmp, "obs", f)
                     for f in os.listdir(os.path.join(tmp, "obs"))
                     if f.endswith(".jsonl"))
+    serve_dir = os.path.join(tmp, "obs", "serve")
+    artefacts = sorted(os.path.join(dp, f)
+                       for dp, _, fs in os.walk(serve_dir)
+                       for f in fs if f.endswith(".json"))
+    if not artefacts:
+        raise AssertionError("obs: no serve artefacts to audit")
     r = subprocess.run([sys.executable, "-m", "repro_torch.analysis.audit",
-                        "--check", *traces], cwd=ROOT,
+                        "--check", *traces, *artefacts], cwd=ROOT,
                        env=dict(os.environ,
                                 PYTHONPATH=os.path.join(ROOT, "src")),
                        capture_output=True, text=True, timeout=300)
@@ -1706,7 +2135,10 @@ def phase_obs(torch, out, tmp):
                                               - sd["input_level_bytes"])}
     want["rowprog.prefetch_bytes"] = want["rowprog.offload_bytes"]
     got = {k: host["counters"].get(k) for k in want}
-    print(f"obs: {len(traces)} traces gated; twophase_h N=8 host counters "
+    if "| serve_pool |" not in r.stdout:
+        raise AssertionError("obs: the audit saw no serve_pool records")
+    print(f"obs: {len(traces)} traces and {len(artefacts)} serve artefacts "
+          f"gated; twophase_h N=8 host counters "
           f"{got} (plan implies {want})", flush=True)
     if got != want:
         raise AssertionError(f"host residency counters {got} != {want}")
@@ -1749,6 +2181,7 @@ def main() -> int:
                       torch, out, tmp)),
                   ("train_lm_dense", lambda: phase_train_lm_dense(
                       torch, out, tmp)),
+                  ("serve", lambda: phase_serve(torch, out, tmp)),
                   ("memory", lambda: phase_memory(torch, out, tmp)),
                   ("profile", lambda: phase_profile(torch, out, tmp)),
                   ("autotune", lambda: phase_autotune(torch, out, tmp)),

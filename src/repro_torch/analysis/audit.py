@@ -15,7 +15,11 @@ leaves its source's tolerance band, or when no gated record was found.
 
 Tolerances are the reference's (``TOLERANCES``), measured there on XLA's
 accounting: ``train_step`` [0.25, 4.0], ``train_step_lm`` [0.2, 20.0],
-``serve_pool`` [0.95, 1.10], ``dryrun`` recorded only.  On the card the
+``serve_pool`` [0.95, 1.10], ``dryrun`` recorded only.  The trainers'
+step-0 audits feed the first two; the serve scheduler audits its decode
+pool (``serve_pool``: the bytes the pool's buffers hold, pinned host
+buffers of a host-resident pool included, against ``Planner.for_serve``'s
+estimate); the dry run is not ported yet.  On the card the
 measurement is ``torch.cuda.max_memory_allocated`` over one executed step
 (:func:`repro_torch.obs.audit.measure_step`): the absolute peak of the
 caching allocator, arguments included, against the plan's activation +

@@ -28,6 +28,12 @@ _ARCHS = [
 #: architectures whose config the port carries
 PORTED = ("gemma3_4b", "llama3_2_3b", "qwen1_5_4b", "qwen1_5_110b",
           "zamba2_7b", "xlstm_125m")
+#: the slice each other architecture's training and serving wait for
+WAITS_FOR = {"qwen3_moe_235b_a22b": "the MoE slice (moe.py)",
+             "deepseek_moe_16b": "the MoE slice (moe.py)",
+             "llava_next_34b": "the VLM slice (the vision frontend)",
+             "seamless_m4t_medium":
+                 "the encoder-decoder slice (encdec.py)"}
 
 
 def canonical(name: str) -> str:
@@ -40,8 +46,10 @@ def canonical(name: str) -> str:
 def _module(name: str):
     key = canonical(name)
     if key not in PORTED:
-        raise NotImplementedError(f"arch {key!r} is not ported yet; ported "
-                                  f"LM archs: {list(PORTED)}")
+        raise NotImplementedError(
+            f"arch {key!r} is not ported yet (its training and serving wait "
+            f"for {WAITS_FOR.get(key, 'a later slice')}); ported LM archs: "
+            f"{list(PORTED)}")
     return importlib.import_module(f"repro_torch.configs.{key}")
 
 

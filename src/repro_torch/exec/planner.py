@@ -23,15 +23,21 @@ that ranks every feasible candidate by it, and ``autotune_kernel``, which
 times the feasible tile candidates on the card.  Every public solve entry
 point bumps the ``planner.solves`` obs counter, as in the reference.
 
+The serving half sizes the decode-cache pool (``decode_slot_bytes``,
+``page_bytes``, ``for_serve``: Eq. 7 applied to decode slots), with the
+per-layer-kind byte estimators in the ``SERVE_CACHE_BYTES`` registry; its
+integers equal the reference's.
+
 Not ported yet, and raising :class:`NotImplementedError` with what they
 wait for: ``stagedize`` where it would have to stage (and the staged
-alternates of the costed chooser) and the serving planner.
+alternates of the costed chooser), and serving plans over a mesh or for
+the encoder-decoder family.
 """
 
 from __future__ import annotations
 
 from dataclasses import replace as dataclasses_replace
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 from repro_torch import obs
 from repro_torch.core import rowplan as _rp
@@ -279,7 +285,244 @@ def _seq_extras(axis: int, seq: int, d_model: int, window: int,
     return tuple(extras.items())
 
 
-class Planner:
+# ---------------------------------------------------------------------------
+# Serving-side estimates: decode-slot bytes (policy half of repro_torch.serve)
+# ---------------------------------------------------------------------------
+
+#: per-layer-kind decode cache byte estimators: fn(cfg, max_len, db) -> bytes
+#: for ONE slot (one batch element).  repro_torch.serve.cache_pool registers
+#: the matching init mechanism.  A bare layer kind ("attn", "mamba", ...)
+#: prices that layer's cache under the contiguous ("full") pool; a
+#: qualified "<cache_kind>/<layer_kind>" key overrides it under another
+#: pool kind (lookups try the qualified key first), so a pool kind only
+#: overrides the layers it changes (ring-window 'local' caches and
+#: recurrent states stay slot-resident under paging).
+SERVE_CACHE_BYTES: Dict[str, Callable] = {}
+
+
+def register_cache_bytes(kind: str, fn: Optional[Callable] = None):
+    """Register a per-slot byte estimator for a decode cache kind."""
+    def _do(f):
+        if kind in SERVE_CACHE_BYTES:
+            raise ValueError(f"cache kind {kind!r} already registered")
+        SERVE_CACHE_BYTES[kind] = f
+        return f
+
+    if fn is not None:
+        return _do(fn)
+    return _do
+
+
+def _kv_bytes(cfg, cache_len: int, db: int) -> int:
+    # k + v (cache_len, KV, hd) each, + the int32 "pos" scalar per slot
+    return 2 * cache_len * cfg.n_kv_heads * cfg.head_dim * db + 4
+
+
+register_cache_bytes(
+    "attn", lambda cfg, max_len, db: _kv_bytes(cfg, max_len, db))
+for _k in ("global", "shared_attn", "moe"):
+    register_cache_bytes(_k, SERVE_CACHE_BYTES["attn"])
+register_cache_bytes(
+    "local", lambda cfg, max_len, db: _kv_bytes(
+        cfg, min(cfg.sliding_window, max_len), db))
+
+
+@register_cache_bytes("mamba")
+def _mamba_state_bytes(cfg, max_len, db):
+    inner = cfg.ssm_expand * cfg.d_model
+    heads = cfg.ssm_heads or cfg.n_heads
+    state_n = cfg.ssm_state or 64
+    h = heads * (inner // heads) * state_n * 4          # fp32 state
+    conv = (cfg.conv_k - 1) * (inner + 2 * state_n) * db
+    return h + conv
+
+
+@register_cache_bytes("mlstm")
+def _mlstm_state_bytes(cfg, max_len, db):
+    H = cfg.n_heads
+    hd = (cfg.ssm_expand * cfg.d_model) // H
+    return 4 * (H * hd * hd + H * hd + H)               # C, n, m (fp32)
+
+
+register_cache_bytes(
+    "slstm", lambda cfg, max_len, db: 4 * 4 * cfg.d_model)  # c,n,h,m fp32
+
+
+# paged_kv: full-attention K/V rows live in the shared page pool, so a
+# slot's resident decode state is the int32 "pos" scalar (the block table
+# is host-side numpy bookkeeping); pages are priced by Planner.page_bytes
+for _k in ("attn", "global", "shared_attn", "moe"):
+    register_cache_bytes(f"paged_kv/{_k}", lambda cfg, max_len, db: 4)
+
+
+def _quant_kv_bytes(cfg, max_len, db):
+    # int8 k + v codes, one fp32 scale per (position, kv-head) block, + pos
+    rows = max_len * cfg.n_kv_heads
+    return 2 * rows * cfg.head_dim + 2 * rows * 4 + 4
+
+
+for _k in ("attn", "global", "shared_attn", "moe"):
+    register_cache_bytes(f"quant_kv/{_k}", _quant_kv_bytes)
+
+
+def serve_cache_kinds() -> Tuple[str, ...]:
+    """Registered pool cache kinds: "full" plus every qualified prefix."""
+    kinds = {"full"}
+    kinds.update(k.split("/", 1)[0] for k in SERVE_CACHE_BYTES if "/" in k)
+    return tuple(sorted(kinds))
+
+
+def _check_serve_family(cfg) -> None:
+    if cfg.family == "encdec":
+        raise _not_ported(
+            f"{cfg.name}: serving the encoder-decoder family (its "
+            f"cross-attention caches wait for the encoder-decoder slice, "
+            f"encdec.py)")
+
+
+class _ServePlannerMixin:
+    """decode_slot_bytes / page_bytes / for_serve, mixed into
+    :class:`Planner` below."""
+
+    @staticmethod
+    def decode_slot_bytes(cfg, max_len: int, enc_len: int = 0,
+                          cache_kind: str = "full") -> int:
+        """Decode-state bytes ONE request pins for its whole lifetime: KV
+        rows for attention kinds (ring-capped for 'local') and recurrent
+        state for SSM kinds — Eq. 7 applied to serving, with decode slots
+        as the rows.  ``cache_kind`` routes each layer kind through its
+        qualified estimator when one is registered, so under
+        ``"paged_kv"`` this is the slot's *resident* bytes (pages are
+        priced by :meth:`page_bytes`)."""
+        _check_serve_family(cfg)
+        db = 2 if cfg.dtype == "bfloat16" else 4
+        total = 0
+        for kind in cfg.layer_kinds():
+            fn = SERVE_CACHE_BYTES.get(f"{cache_kind}/{kind}") \
+                if cache_kind != "full" else None
+            if fn is None:
+                try:
+                    fn = SERVE_CACHE_BYTES[kind]
+                except KeyError:
+                    raise KeyError(
+                        f"no decode-cache byte estimator for layer kind "
+                        f"{kind!r}; register one with repro_torch.exec."
+                        f"planner.register_cache_bytes") from None
+            total += fn(cfg, max_len, db)
+        return total
+
+    @staticmethod
+    def page_bytes(cfg, page_size: int) -> int:
+        """Device bytes ONE page adds to a ``paged_kv`` pool: a
+        (page_size, kv_heads, head_dim) K and V tile per paged layer
+        (ring-window and state kinds stay slot-resident)."""
+        db = 2 if cfg.dtype == "bfloat16" else 4
+        n = sum(1 for kind in cfg.layer_kinds()
+                if f"paged_kv/{kind}" in SERVE_CACHE_BYTES)
+        return n * 2 * page_size * cfg.n_kv_heads * cfg.head_dim * db
+
+    @classmethod
+    def for_serve(cls, cfg, max_len: int, budget: int = 0,
+                  enc_len: int = 0, n_slots: int = 0,
+                  n_max: int = 256, mesh=None, cache_kind: str = "full",
+                  page_size: int = 16, avg_len: int = 0, n_pages: int = 0,
+                  decode_residency=None,
+                  decode_batch: int = 0) -> ExecutionPlan:
+        """Size the decode cache pool: the largest slot count whose pinned
+        decode state fits ``budget`` (or an explicit ``n_slots``).  Returns
+        an ``engine="serve_pool"`` plan whose ``extras`` carry the pool
+        geometry :mod:`repro_torch.serve.cache_pool` honours verbatim.
+
+        ``cache_kind``: ``"full"`` (contiguous worst-case slots),
+        ``"quant_kv"`` (int8 codes + scales) or ``"paged_kv"`` (tiny
+        resident state plus pages of a shared pool: the budget buys
+        ``avg_len``-sized page shares instead of ``max_len`` worst cases).
+        ``n_pages`` pins the page-pool size (default: the worst case under
+        a pinned ``n_slots``, the budget's remainder otherwise).
+
+        ``decode_residency="host"`` keeps the pool in host memory: the
+        device holds the hot cohort's dense transit view (``(1 +
+        prefetch_depth) * decode_batch`` slots), which is what the budget
+        must cover; the pool's own bytes go under the ``host_bytes``
+        extra.  Sharded pools (``mesh=``) are not ported yet and raise."""
+        _count_solve()
+        if mesh is not None:
+            raise _not_ported(
+                f"Planner.for_serve(mesh={mesh.describe()}): sharded "
+                f"decode-slot pools (they wait for the sharding slice)")
+        _check_serve_family(cfg)
+        known = serve_cache_kinds()
+        if cache_kind not in known:
+            raise KeyError(
+                f"unknown pool cache kind {cache_kind!r}; known: "
+                f"{list(known)} — register a '<kind>/<layer>' estimator "
+                f"with repro_torch.exec.planner.register_cache_bytes and "
+                f"the matching init/pool with repro_torch.serve.cache_pool")
+        if isinstance(decode_residency, str):
+            decode_residency = ResidencySpec.parse(decode_residency)
+        if decode_residency is not None \
+                and decode_residency.default == "recompute":
+            raise ValueError("decode state cannot be recomputed (tokens "
+                             "depend on it); use 'host' or 'device' "
+                             "decode residency")
+        host = decode_residency is not None \
+            and decode_residency.default == "host"
+        slot = cls.decode_slot_bytes(cfg, max_len, enc_len,
+                                     cache_kind=cache_kind)
+        extras = {"max_len": max_len, "slot_bytes": slot,
+                  "cache_kind": cache_kind}
+        if decode_batch:
+            extras["decode_batch"] = int(decode_batch)
+        if cache_kind == "paged_kv":
+            pb = cls.page_bytes(cfg, page_size)
+            if not pb:
+                raise ValueError(
+                    f"{cfg.name}: no paged-eligible layer kinds "
+                    f"({sorted(set(cfg.layer_kinds()))}) — every cache is "
+                    f"slot-resident, so paging buys nothing; use "
+                    f"cache_kind='full'")
+            mp = -(-max_len // page_size)
+            avg = int(avg_len) or max_len
+            app = max(1, -(-avg // page_size))  # expected pages per request
+            if n_slots:
+                n_pages = n_pages or n_slots * mp    # worst case: no sharing
+            elif budget:
+                per_req = slot + app * pb
+                n_slots = max(1, min(n_max, budget // per_req))
+                n_pages = n_pages or max(n_slots * app,
+                                         (budget - n_slots * slot) // pb)
+            else:
+                n_slots = 1
+                n_pages = n_pages or mp
+            n_pages = max(1, int(n_pages))
+            est = n_slots * slot + n_pages * pb
+            extras.update(page_size=int(page_size), n_pages=n_pages,
+                          page_bytes=pb, avg_len=avg)
+        else:
+            if not n_slots:
+                n_slots = max(1, min(max(1, n_max), budget // slot)) \
+                    if budget else 1
+            est = n_slots * slot
+        if host:
+            # the pool lives in host memory; the device holds the hot
+            # cohort's dense transit view (current fetch + prefetch_depth
+            # in flight), so that is what the budget must cover
+            dense_slot = cls.decode_slot_bytes(cfg, max_len, enc_len)
+            hot = int(decode_batch) or n_slots
+            extras["host_bytes"] = est
+            est = min(n_slots, hot * (
+                1 + decode_residency.prefetch_depth)) * dense_slot
+        extras["slots_per_device"] = n_slots
+        return ExecutionPlan(
+            engine="serve_pool", n_rows=n_slots, in_shape=None,
+            batch=n_slots, dtype_bytes=2 if cfg.dtype == "bfloat16" else 4,
+            est_bytes=est, est_bytes_per_device=est, budget=budget,
+            feasible=(budget == 0 or est < budget),
+            mesh=None, residency=decode_residency,
+            extras=tuple(extras.items()))
+
+
+class Planner(_ServePlannerMixin):
     """Solves (engine, N) for a CNN trunk.  ``xi`` is the paper's constant
     (params + grads + optimizer state) added to every estimate.  A mesh is
     accepted as plain data and divides batch and budget per device, as in
@@ -1013,7 +1256,3 @@ class Planner:
         if kernel:
             plan = kernelize_plan(plan, kernel)
         return plan
-
-    @classmethod
-    def for_serve(cls, *args, **kwargs):
-        raise _not_ported("Planner.for_serve (serving plans)")

@@ -22,7 +22,6 @@ Builder = Callable[[Any, ExecutionPlan], Callable]
 NOT_PORTED = {
     "pipeline_rows": "exec/pipeline.py",
     "pipeline_seq": "exec/pipeline.py",
-    "serve_pool": "the serving subsystem",
 }
 
 

@@ -1,5 +1,6 @@
-"""The LM train step (counterpart of ``repro.launch.steps``; the sharded
-step, prefill and serve steps wait for later slices).
+"""The LM train, prefill and serve steps (counterpart of
+``repro.launch.steps``; the sharded steps, ``build_jitted`` and the
+shape/sharding helpers wait for the sharding slice).
 """
 
 from __future__ import annotations
@@ -45,3 +46,33 @@ def make_train_step(cfg, opt_cfg: Optional[AdamWConfig] = None, plan=None):
         return state, metrics
 
     return train_step
+
+
+def make_prefill_step(cfg, cache_len: int):
+    """``prefill_step(params, batch) -> (token, caches)``: the prompt's
+    forward with caches for ``cache_len`` positions (the reference's
+    ``shape.seq``), and the greedy (argmax) next token per row, int32."""
+    from repro_torch.models.lm.model import lm_prefill
+
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        logits, caches = lm_prefill(params, batch, cfg, cache_len)
+        token = torch.argmax(logits[:, -1].float(), dim=-1).to(torch.int32)
+        return token, caches
+
+    return prefill_step
+
+
+def make_serve_step(cfg):
+    """``serve_step(params, caches, batch) -> (token, caches)``: one
+    decode step of ``batch["tokens"]`` (B, 1) and its greedy next token
+    per row, int32."""
+    from repro_torch.models.lm.model import lm_decode
+
+    @torch.no_grad()
+    def serve_step(params, caches, batch):
+        logits, caches = lm_decode(params, batch["tokens"], caches, cfg)
+        token = torch.argmax(logits[:, -1].float(), dim=-1).to(torch.int32)
+        return token, caches
+
+    return serve_step

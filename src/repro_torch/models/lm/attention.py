@@ -1,7 +1,8 @@
-"""GQA attention with RoPE, optional QKV bias, sliding-window masking and
-row-centric query chunking — the training forward (counterpart of
-``repro.models.lm.attention``; decode, prefill, KV caches, bidirectional
-and cross-attention wait for the serving slice).
+"""GQA attention with RoPE, optional QKV bias, sliding-window masking,
+row-centric query chunking, and KV caches (full and ring-buffer) for
+prefill and decode (counterpart of ``repro.models.lm.attention``;
+bidirectional and cross-attention wait for the encoder-decoder slice, and
+``cache_spec_axes`` for sharded pools).
 
 Row-centric notes: full causal attention has a *strong* dependency along
 the sequence, but its score matrix is still the dominant live activation
@@ -11,6 +12,14 @@ Sliding-window ("local") layers have a genuinely weak dependency: a query
 chunk ``[a, a + c)`` reads only the replicated halo ``[a - window, a + c)``
 of K/V (OverL).  A plan that kernelized to ``seq_swa_cuda`` swaps that loop
 for the engine's op (the hand-written CUDA kernel on the card).
+
+Decode caches keep the reference's tree, ``{"k", "v", "pos", "ring"}``:
+``pos`` is each row's absolute next position and ``ring`` a boolean
+scalar marking a sliding-window ring buffer (position p lives at slot
+``p % cache_len``).  :func:`attn_decode` writes the new token's K/V into
+the cache tensors in place (``index_put_``), where the reference's
+``.at[].set`` returns an updated copy; ``pos`` is returned as a new
+tensor, so a caller that reads the pre-step positions still can.
 """
 
 from __future__ import annotations
@@ -19,6 +28,7 @@ import dataclasses
 import math
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.lm import rowexec
@@ -129,3 +139,90 @@ def attn_train(params, x, dims: AttnDims, n_chunks: int = 1):
                 use_reentrant=False))
         out = torch.cat(outs, dim=1)
     return _proj_out(params, out)
+
+
+# ---------------------------------------------------------------------------
+# KV cache (decode)
+# ---------------------------------------------------------------------------
+
+
+def init_cache(batch, max_len, n_kv, head_dim, dtype, ring: bool = False,
+               device=None):
+    """Cache tree; ``ring=True`` -> sliding-window ring buffer.  ``dtype``
+    is a torch dtype or its name."""
+    dt = torch_dtype(dtype) if isinstance(dtype, str) else dtype
+    return {
+        "k": torch.zeros((batch, max_len, n_kv, head_dim), dtype=dt,
+                         device=device),
+        "v": torch.zeros((batch, max_len, n_kv, head_dim), dtype=dt,
+                         device=device),
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+        "ring": torch.tensor(ring, device=device),
+    }
+
+
+def attn_decode(params, x, cache, dims: AttnDims):
+    """One-token decode step.  x: (B, 1, d).  Returns (y, new_cache); the
+    new K/V row is written into ``cache["k"]``/``cache["v"]`` in place.
+    Scores and softmax are fp32 whatever the cache dtype."""
+    B = x.shape[0]
+    max_len = cache["k"].shape[1]
+    pos = cache["pos"]  # (B,)
+    q, k_new, v_new = _qkv(params, x, dims, pos[:, None])
+
+    ring = cache["ring"]
+    slot = torch.where(ring, torch.remainder(pos, max_len),
+                       pos.clamp(max=max_len - 1))
+    bidx = torch.arange(B, device=x.device)
+    k, v = cache["k"], cache["v"]
+    k.index_put_((bidx, slot.long()), k_new[:, 0].to(k.dtype))
+    v.index_put_((bidx, slot.long()), v_new[:, 0].to(v.dtype))
+
+    # absolute positions held in each cache slot; ring: slot i holds
+    # position p - ((slot - i) mod max_len), a floor modulo
+    idx = torch.arange(max_len, dtype=torch.int32, device=x.device)
+    abs_pos = torch.where(
+        ring, pos[:, None] - torch.remainder(slot[:, None] - idx[None, :],
+                                             max_len),
+        idx[None, :])
+    valid = (abs_pos >= 0) & (abs_pos <= pos[:, None])
+    if dims.window > 0:
+        valid &= abs_pos > (pos[:, None] - dims.window)
+
+    KV = k.shape[2]
+    g = dims.n_heads // dims.n_kv
+    qg = q.reshape(B, 1, KV, g, -1)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
+                          k.float()) / math.sqrt(dims.head_dim)
+    scores = torch.where(valid[:, None, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
+    out = out.reshape(B, 1, dims.n_heads, dims.head_dim).to(x.dtype)
+    y = _proj_out(params, out)
+    return y, {"k": k, "v": v, "pos": pos + 1, "ring": ring}
+
+
+def attn_prefill(params, x, dims: AttnDims, cache_len: int,
+                 n_chunks: int = 1, ring=None):
+    """Full-sequence forward that also returns a populated cache.
+
+    ``ring`` marks a sliding-window ring buffer (local layers pass True
+    explicitly: it must hold even when the prompt is shorter than the
+    window).  A cache shorter than the prompt keeps the prompt's tail,
+    rolled to its ring slots; a longer one is zero-padded."""
+    B, S, _ = x.shape
+    if ring is None:
+        ring = cache_len < S
+    y = attn_train(params, x, dims, n_chunks)
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    _, k, v = _qkv(params, x, dims, positions)
+    if cache_len < S:  # keep the tail, placed at its ring slots
+        k = torch.roll(k[:, S - cache_len:], S % cache_len, dims=1)
+        v = torch.roll(v[:, S - cache_len:], S % cache_len, dims=1)
+    elif cache_len > S:  # positions p < S already sit at slot p
+        pad = (0, 0, 0, 0, 0, cache_len - S)
+        k, v = F.pad(k, pad), F.pad(v, pad)
+    cache = {"k": k.contiguous(), "v": v.contiguous(),
+             "pos": torch.full((B,), S, dtype=torch.int32, device=x.device),
+             "ring": torch.tensor(bool(ring), device=x.device)}
+    return y, cache

@@ -1,5 +1,5 @@
-"""Decoder blocks and the layer stack (counterpart of
-``repro.models.lm.blocks``; the training half).
+"""Decoder blocks and the layer stack — training, prefill and decode
+(counterpart of ``repro.models.lm.blocks``).
 
 Layer kinds (ModelConfig.layer_kinds):
   attn          dense attention + SwiGLU MLP
@@ -19,6 +19,12 @@ segment, the port runs one Python loop over its layers and indexes the
 stacked tensors, so parameters and optimizer state convert leaf for leaf.
 The shared block's gradient is the sum over its occurrences, as autograd
 accumulates it.
+
+Decode caches keep the reference's tree too: per segment, a tuple over
+the pattern's positions of per-kind caches stacked over the segment's
+layers (a shared block has one cache per occurrence).  :func:`stack_decode`
+updates that tree in place — each layer's new cache is written back into
+its slice of the stacked tensors — and returns it.
 """
 
 from __future__ import annotations
@@ -29,13 +35,18 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.lm import rowexec
-from repro_torch.models.lm.attention import AttnDims, attn_train, init_attn
-from repro_torch.models.lm.common import init_rms, rms_norm
+from repro_torch.models.lm.attention import (
+    AttnDims, attn_decode, attn_prefill, attn_train, init_attn, init_cache,
+)
+from repro_torch.models.lm.common import init_rms, rms_norm, torch_dtype
 from repro_torch.models.lm.config import ModelConfig
 from repro_torch.models.lm.mlp import init_mlp, mlp_apply
-from repro_torch.models.lm.ssm import SSMDims, init_ssm, ssm_train
+from repro_torch.models.lm.ssm import (
+    SSMDims, init_ssm, init_ssm_state, ssm_decode, ssm_train,
+)
 from repro_torch.models.lm.xlstm import (
-    XLSTMDims, init_mlstm, init_slstm, mlstm_train, slstm_train,
+    XLSTMDims, init_mlstm, init_mlstm_state, init_slstm, init_slstm_state,
+    mlstm_decode, mlstm_train, slstm_decode, slstm_train,
 )
 
 ATTN_KINDS = ("attn", "local", "global", "shared_attn")
@@ -44,8 +55,10 @@ RECURRENT_KINDS = ("mamba", "mlstm", "slstm")
 
 def _check_kind(kind: str) -> None:
     if kind not in ATTN_KINDS + RECURRENT_KINDS:
+        waits = " (training and serving wait for the MoE slice, moe.py)" \
+            if kind == "moe" else ""
         raise NotImplementedError(
-            f"layer kind {kind!r} is not ported yet; ported: "
+            f"layer kind {kind!r} is not ported yet{waits}; ported: "
             f"{ATTN_KINDS + RECURRENT_KINDS}")
 
 
@@ -77,6 +90,8 @@ def xlstm_dims(cfg: ModelConfig) -> XLSTMDims:
 _RECURRENT = {"mamba": (init_ssm, ssm_train, ssm_dims),
               "mlstm": (init_mlstm, mlstm_train, xlstm_dims),
               "slstm": (init_slstm, slstm_train, xlstm_dims)}
+_DECODE = {"mamba": ssm_decode, "mlstm": mlstm_decode,
+           "slstm": slstm_decode}
 
 
 def init_block(gen, kind: str, cfg: ModelConfig, stack: int = 0):
@@ -108,6 +123,63 @@ def block_train(params, x, kind: str, cfg: ModelConfig):
     x = x + attn_train(params["attn"], h, attn_dims(cfg, kind), nc)
     h = rms_norm(x, params["norm2"]["scale"], eps)
     return x + mlp_apply(params["mlp"], h, nc), zero_aux(x.device)
+
+
+def init_block_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int,
+                     dtype, device=None):
+    """One block's decode cache for ``batch`` rows (``dtype``: a torch
+    dtype or its name; recurrent states other than Mamba's conv inputs
+    are fp32)."""
+    _check_kind(kind)
+    dt = torch_dtype(dtype) if isinstance(dtype, str) else dtype
+    if kind == "local":
+        return init_cache(batch, min(cfg.sliding_window, max_len),
+                          cfg.n_kv_heads, cfg.head_dim, dt, ring=True,
+                          device=device)
+    if kind in ATTN_KINDS:
+        return init_cache(batch, max_len, cfg.n_kv_heads, cfg.head_dim, dt,
+                          device=device)
+    if kind == "mamba":
+        return init_ssm_state(batch, ssm_dims(cfg), dt, device=device)
+    if kind == "mlstm":
+        return init_mlstm_state(batch, xlstm_dims(cfg), device=device)
+    return init_slstm_state(batch, cfg.d_model, device=device)
+
+
+def block_decode(params, x, cache, kind: str, cfg: ModelConfig):
+    """One-token step.  Returns (x, new_cache)."""
+    _check_kind(kind)
+    eps = cfg.norm_eps
+    h = rms_norm(x, params["norm1"]["scale"], eps)
+    if kind in RECURRENT_KINDS:
+        _, _, dims = _RECURRENT[kind]
+        y, cache = _DECODE[kind](params["ssm"], h, cache, dims(cfg))
+        return x + y, cache
+    y, cache = attn_decode(params["attn"], h, cache, attn_dims(cfg, kind))
+    x = x + y
+    h = rms_norm(x, params["norm2"]["scale"], eps)
+    return x + mlp_apply(params["mlp"], h, 1), cache
+
+
+def block_prefill(params, x, kind: str, cfg: ModelConfig, cache_len: int,
+                  dtype=None):
+    """Full-sequence forward returning (x, cache) for the decode that
+    follows (``dtype`` is the reference's argument, unused there too)."""
+    _check_kind(kind)
+    eps = cfg.norm_eps
+    nc = cfg.row_chunks if cfg.remat in ("rows", "block_rows") else 1
+    h = rms_norm(x, params["norm1"]["scale"], eps)
+    if kind in RECURRENT_KINDS:
+        _, train, dims = _RECURRENT[kind]
+        y, cache = train(params["ssm"], h, dims(cfg), return_state=True)
+        return x + y, cache
+    clen = min(cfg.sliding_window, cache_len) if kind == "local" \
+        else cache_len
+    y, cache = attn_prefill(params["attn"], h, attn_dims(cfg, kind), clen,
+                            nc, ring=(kind == "local"))
+    x = x + y
+    h = rms_norm(x, params["norm2"]["scale"], eps)
+    return x + mlp_apply(params["mlp"], h, nc), cache
 
 
 def init_stack(gen, cfg: ModelConfig):
@@ -154,3 +226,53 @@ def stack_train(params, x, cfg: ModelConfig):
                     x, a2 = block_train(p, x, kind, cfg)
                 aux = {k: aux[k] + a2[k] for k in aux}
     return x, aux
+
+
+def _stack_layers(caches):
+    """Per-layer cache dicts -> one dict of tensors stacked over layers."""
+    return {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
+
+
+def init_stack_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                      device=None):
+    caches = []
+    for pat, count in cfg.scan_segments():
+        group = []
+        for kind in pat:
+            c = init_block_cache(kind, cfg, batch, max_len, dtype, device)
+            group.append({k: v.expand((count,) + v.shape).clone()
+                          for k, v in c.items()})
+        caches.append(tuple(group))
+    return caches
+
+
+def stack_decode(params, x, caches, cfg: ModelConfig):
+    """One token through every layer.  ``caches`` is updated in place
+    (each layer's new cache copied into its stacked slice, unless the
+    layer already wrote there) and returned."""
+    for (pat, count), seg, cgroup in zip(cfg.scan_segments(),
+                                         params["segments"], caches):
+        for i in range(count):
+            for j, kind in enumerate(pat):
+                p = params["shared"] if kind == "shared_attn" \
+                    else _layer(seg[j], i)
+                view = _layer(cgroup[j], i)
+                x, new = block_decode(p, x, view, kind, cfg)
+                for k, t in new.items():
+                    if t is not view[k]:
+                        view[k].copy_(t)
+    return x, caches
+
+
+def stack_prefill(params, x, cfg: ModelConfig, cache_len: int, dtype=None):
+    caches = []
+    for (pat, count), seg in zip(cfg.scan_segments(), params["segments"]):
+        per_layer = [[] for _ in pat]
+        for i in range(count):
+            for j, kind in enumerate(pat):
+                p = params["shared"] if kind == "shared_attn" \
+                    else _layer(seg[j], i)
+                x, c = block_prefill(p, x, kind, cfg, cache_len, dtype)
+                per_layer[j].append(c)
+        caches.append(tuple(_stack_layers(cs) for cs in per_layer))
+    return x, caches

@@ -1,6 +1,6 @@
-"""Top-level decoder-only LM: init and the training loss (counterpart of
-``repro.models.lm.model``; the dense, SSM and hybrid families — prefill,
-decode, MoE and the VLM projector wait for later slices).
+"""Top-level decoder-only LM: init, the training loss, prefill and decode
+(counterpart of ``repro.models.lm.model``; the dense, SSM and hybrid
+families — MoE and the VLM projector wait for later slices).
 """
 
 from __future__ import annotations
@@ -11,7 +11,9 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.lm.blocks import init_stack, stack_train
+from repro_torch.models.lm.blocks import (
+    init_stack, init_stack_caches, stack_decode, stack_prefill, stack_train,
+)
 from repro_torch.models.lm.common import (
     embed_apply, embed_init, init_rms, rms_norm, torch_dtype, unembed_apply,
     unembed_init,
@@ -32,8 +34,9 @@ def check_ported(cfg: ModelConfig) -> None:
         waits = _WAITS_FOR.get(cfg.family, "a later slice")
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} with frontend "
-            f"{cfg.frontend!r} is not ported yet (it waits for {waits}); "
-            f"the port runs the {', '.join(PORTED_FAMILIES)} families")
+            f"{cfg.frontend!r} is not ported yet (its training and serving "
+            f"wait for {waits}); the port trains and serves the "
+            f"{', '.join(PORTED_FAMILIES)} families")
 
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig):
@@ -63,6 +66,14 @@ def params_from_reference(tree, device="cuda"):
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_reference(v, device) for v in tree)
     return torch.from_numpy(np.array(tree, copy=True)).to(device)
+
+
+def caches_from_reference(tree, device="cuda"):
+    """A decode-cache tree of the JAX package (``init_caches``' or
+    ``lm_prefill``'s, as numpy arrays) as torch tensors on ``device``,
+    leaf for leaf: a list over segments of tuples over pattern positions
+    of ``{"k", "v", "pos", "ring"}`` / recurrent-state dicts."""
+    return params_from_reference(tree, device)
 
 
 def _embed_inputs(params, batch, cfg: ModelConfig, dtype):
@@ -130,3 +141,28 @@ def lm_loss(params, batch, cfg: ModelConfig,
     ce = tot / torch.clamp(cnt, min=1.0)
     loss = ce + lb_coeff * aux["load_balance"] + z_coeff * aux["z_loss"]
     return loss, {"ce": ce, **aux}
+
+
+def lm_prefill(params, batch, cfg: ModelConfig, cache_len: int):
+    """Full-sequence forward; returns (last-token logits (B, 1, V), caches
+    sized for ``cache_len`` positions)."""
+    check_ported(cfg)
+    dtype = torch_dtype(cfg.dtype)
+    x = _embed_inputs(params, batch, cfg, dtype)
+    x, caches = stack_prefill(params["stack"], x, cfg, cache_len, dtype)
+    return _logits(params, x[:, -1:], cfg, dtype), caches
+
+
+def lm_decode(params, tokens, caches, cfg: ModelConfig):
+    """One-token decode.  tokens: (B, 1) integer.  Returns (logits (B, 1,
+    V), caches); the caches are updated in place and returned."""
+    dtype = torch_dtype(cfg.dtype)
+    x = embed_apply(params["embed"], tokens.long(), dtype)
+    x, caches = stack_decode(params["stack"], x, caches, cfg)
+    return _logits(params, x, cfg, dtype), caches
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None):
+    check_ported(cfg)
+    return init_stack_caches(cfg, batch, max_len, torch_dtype(cfg.dtype),
+                             device)

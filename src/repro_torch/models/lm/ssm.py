@@ -1,6 +1,6 @@
-"""Mamba2 (SSD, chunked), the training half (counterpart of
-``repro.models.lm.ssm``; ``init_ssm_state`` and ``ssm_decode`` wait for the
-decode slice).
+"""Mamba2 (SSD, chunked): the training forward, the prefill that also
+returns the recurrent state, and the one-token decode (counterpart of
+``repro.models.lm.ssm``).
 
 The recurrent-scan family where LR-CNN's 2PS is native: the inter-chunk
 recurrent state *is* the two-phase boundary cache, computed once and
@@ -173,3 +173,44 @@ def ssm_train(params, x, dims: SSMDims, return_state: bool = False):
     if return_state:
         return out, {"h": h_fin, "conv": conv_state}
     return out
+
+
+def init_ssm_state(batch, dims: SSMDims, dtype=torch.float32, device=None):
+    """Decode state: the fp32 recurrent state ``h`` and the causal conv's
+    trailing ``conv_k - 1`` inputs in ``dtype``."""
+    return {
+        "h": torch.zeros((batch, dims.n_heads, dims.head_p, dims.state_n),
+                         device=device),
+        "conv": torch.zeros((batch, dims.conv_k - 1,
+                             dims.inner + 2 * dims.state_n), dtype=dtype,
+                            device=device),
+    }
+
+
+def ssm_decode(params, x, state, dims: SSMDims):
+    """One-token decode.  x: (B, 1, d).  O(1) state, no KV growth; it
+    continues from ``ssm_train(..., return_state=True)``'s state."""
+    Bt = x.shape[0]
+    dt_ = x.dtype
+    proj = x @ params["w_in"].to(dt_)
+    xs, z, B, C, dtproj = _split_proj(proj, dims)
+    conv_in = torch.cat([xs, B, C], dim=-1)
+    conv_out, conv_state = _causal_conv(conv_in, params["conv_w"].to(dt_),
+                                        state["conv"])
+    xs = conv_out[..., :dims.inner]
+    B = conv_out[..., dims.inner:dims.inner + dims.state_n]
+    C = conv_out[..., dims.inner + dims.state_n:]
+
+    H, P = dims.n_heads, dims.head_p
+    xh = xs.reshape(Bt, 1, H, P).float()[:, 0]                  # (B, H, P)
+    dt_act = softplus(dtproj.float()[:, 0] + params["dt_bias"])  # (B, H)
+    a = torch.exp(-dt_act * torch.exp(params["a_log"]))
+    Bf = B.float()[:, 0]                                         # (B, N)
+    Cf = C.float()[:, 0]
+    h = state["h"] * a[:, :, None, None] \
+        + torch.einsum("bhp,bn,bh->bhpn", xh, Bf, dt_act)
+    y = torch.einsum("bn,bhpn->bhp", Cf, h) \
+        + xh * params["d_skip"][None, :, None]
+    y = (y.reshape(Bt, 1, dims.inner) * F.silu(z.float())).to(dt_)
+    out = y @ params["w_out"].to(dt_)
+    return out, {"h": h, "conv": conv_state}

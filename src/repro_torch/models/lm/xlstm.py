@@ -1,7 +1,7 @@
-"""xLSTM blocks (arXiv:2405.04517), the training half (counterpart of
-``repro.models.lm.xlstm``; the decode steps and states wait for the decode
-slice): mLSTM (matrix memory, exponential gating) and sLSTM (scalar
-memory, hidden-state recurrence).
+"""xLSTM blocks (arXiv:2405.04517): mLSTM (matrix memory, exponential
+gating) and sLSTM (scalar memory, hidden-state recurrence) — training,
+the prefill that returns the final state, and the one-token decode
+(counterpart of ``repro.models.lm.xlstm``).
 
 Both are recurrent scans, so the LR-CNN 2PS mapping (carried state =
 boundary cache) applies directly: training runs an outer chunk scan
@@ -9,7 +9,8 @@ through :func:`repro_torch.models.lm.rowexec.scan_rows` (the checkpointed
 chunk loop with per-chunk BP recompute, or the residency-placing
 row-program executor when the active plan offloads), and an exact
 token-by-token scan inside the chunk.  In eager PyTorch that inner scan
-is a Python loop: a few kernel launches per token.
+is a Python loop: a few kernel launches per token.  Decode is one
+recurrence step with O(1) state.
 
 Stabilised exponential gating follows the paper: ``m_t = max(f̃+m, ĩ)``,
 ``i' = exp(ĩ−m)``, ``f' = exp(f̃+m_prev−m)``; the stabiliser starts at
@@ -148,6 +149,33 @@ def mlstm_train(params, x, dims: XLSTMDims, return_state: bool = False):
     return out
 
 
+def init_mlstm_state(batch, dims: XLSTMDims, device=None):
+    H, hd = dims.n_heads, dims.head_dim
+    return {"C": torch.zeros((batch, H, hd, hd), device=device),
+            "n": torch.zeros((batch, H, hd), device=device),
+            "m": torch.full((batch, H), M_INIT, device=device)}
+
+
+def mlstm_decode(params, x, state, dims: XLSTMDims):
+    B = x.shape[0]
+    dt = x.dtype
+    proj = x @ params["w_in"].to(dt)
+    xi, z = torch.chunk(proj, 2, dim=-1)
+    H, hd = dims.n_heads, dims.head_dim
+    q = (xi @ params["wq"].to(dt)).reshape(B, 1, H, hd).float()[:, 0]
+    k = (xi @ params["wk"].to(dt)).reshape(B, 1, H, hd).float()[:, 0] \
+        / math.sqrt(hd)
+    v = (xi @ params["wv"].to(dt)).reshape(B, 1, H, hd).float()[:, 0]
+    gates = (xi @ params["w_if"].to(dt)).float()[:, 0]
+    ig = gates[:, :H]
+    fg = F.logsigmoid(gates[:, H:] + params["f_bias"])
+    (C, n, m), h = _mlstm_step((state["C"], state["n"], state["m"]),
+                               (q, k, v, ig, fg))
+    h = h.reshape(B, 1, dims.inner) * F.silu(z.float())
+    out = h.to(dt) @ params["w_out"].to(dt)
+    return out, {"C": C, "n": n, "m": m}
+
+
 # ---------------------------------------------------------------------------
 # sLSTM
 # ---------------------------------------------------------------------------
@@ -223,3 +251,20 @@ def slstm_train(params, x, dims: XLSTMDims, return_state: bool = False):
         return out, {"c": carry[0], "n": carry[1], "h": carry[2],
                      "m": carry[3]}
     return out
+
+
+def init_slstm_state(batch, d, device=None):
+    return {"c": torch.zeros((batch, d), device=device),
+            "n": torch.zeros((batch, d), device=device),
+            "h": torch.zeros((batch, d), device=device),
+            "m": torch.full((batch, d), M_INIT, device=device)}
+
+
+def slstm_decode(params, x, state, dims: XLSTMDims):
+    dt = x.dtype
+    xp = (x[:, 0] @ params["w_x"].to(dt)).float()
+    pf32 = (params["r_h"].float(), params["f_bias"])
+    carry = (state["c"], state["n"], state["h"], state["m"])
+    (c, n, h, m), h_t = _slstm_step(pf32, dims, carry, xp)
+    out = h_t[:, None].to(dt) @ params["w_out"].to(dt)
+    return out, {"c": c, "n": n, "h": h, "m": m}

@@ -51,3 +51,11 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert r.stdout.startswith("ok")
+
+
+def test_serving_modules_are_walked():
+    """The walk covers the serving subpackage and its CLI."""
+    names = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
+    assert {"serve/__init__.py", "serve/cache_pool.py", "serve/engine.py",
+            "serve/pages.py", "serve/request.py", "serve/scheduler.py",
+            "launch/serve.py"} <= names

@@ -210,8 +210,8 @@ def test_kernelize_fallbacks_and_retile():
 
 
 def test_unported_planning_raises():
-    """What is still unported raises: the serving planner, and staging
-    over a model axis (in ``stagedize`` and as the costed chooser's staged
+    """What is still unported raises: the serving planner over a mesh
+    (sharded decode pools), and staging over a model axis (in ``stagedize`` and as the costed chooser's staged
     alternates).  The costed chooser and ``autotune_kernel`` themselves
     are ported (``tests/test_torch_costmodel.py``)."""
     from repro_torch.exec import CostTable, MeshSpec
@@ -221,8 +221,10 @@ def test_unported_planning_raises():
         Planner.for_budget(mods, (32, 32, 3), 2, 2**20,
                            mesh=MeshSpec.parse("data=1,model=2"),
                            cost_table=CostTable(fingerprint="t"))
+    from repro_torch.configs import get_reduced
     with pytest.raises(NotImplementedError, match="for_serve"):
-        Planner.for_serve(None)
+        Planner.for_serve(get_reduced("qwen1_5_4b"), 32,
+                          mesh=MeshSpec.parse("data=2"))
     tuned = planner.autotune_kernel(planner.plan("twophase", 2),
                                     time_fn=lambda c: 1.0)
     assert "no cuda alternate" in tuned.get("kernel_fallback")
