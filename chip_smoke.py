@@ -113,6 +113,21 @@ printing one line:
                 2 layers, as a fwd+bwd probe with no optimizer state (one
                 layer with fp32 AdamW is ~62 GB of xi, so the trainer
                 cannot run it on one card; the line says so).
+   train_lm_moe     DeepSeek-MoE-16B at published widths (64 experts
+                top-6 of width 1408, 2 shared), 4 of 28 layers, batch 1,
+                seq 4096, 2 steps under the config's plan (``--residency
+                device``: ``seq_chunked`` N=8), its ``load_balance`` and
+                ``z_loss`` printed and positive; Qwen3-MoE at published
+                widths (128 experts top-8), 2 of 94 layers, as a fwd+bwd
+                probe with no optimizer: finite loss and gradient norm,
+                the peak beside the plan's estimate.
+   train_lm_vlm_encdec  LLaVA-NeXT-34B at published widths, 4 of 60
+                layers, 2880 zero patch embeddings before 1216 text tokens
+                (4096 positions, which the plan's N divides), 2 steps;
+                SeamlessM4T-medium at full depth (12 + 12 layers), seq 4096
+                frames and tokens, 3 steps; both under the config's plan.
+                Every train run of both phases has its audit in
+                ``train_step_lm``'s band.
    serve        serving at published widths and full depth through
                 ``repro_torch.launch.serve``'s functions, each run traced
                 with its artefact written (``--trace``/``--out`` into the
@@ -140,7 +155,17 @@ printing one line:
                 device and host residency.  Zamba2-7B (81 layers), 8
                 requests: decode batch 4 on the card and under host
                 residency, identical streams.  xLSTM-125M (12 layers) under
-                ``full``; ``paged_kv`` must raise.
+                ``full``; ``paged_kv`` must raise.  Then the other
+                families, each with its decode step timed alone (slots,
+                ms, launches, device-busy ms, top kernels; for MoE the
+                bound of casting every expert weight to bf16 each step):
+                DeepSeek-MoE-16B at full depth (28 layers), 8 requests of
+                128-512 prompt and 16 generated tokens; LLaVA-NeXT-34B, 24
+                of 60 layers, 4 requests of 256 tokens with 2880 patch
+                embeddings each; SeamlessM4T-medium at full depth, 8
+                requests with frames as long as ``--prompt-len`` (the
+                pool's enc_len), whose ``paged_kv`` pool must raise
+                ``ValueError``; Qwen3-MoE, 4 of 94 layers, 4 requests.
 
 Every train run above carries ``--trace`` and ``--metrics-out`` (into a
 temporary ``obs`` directory) and prints its step-0 ``plan audit:`` line.
@@ -291,6 +316,18 @@ LM_AUDIT_BAND = (0.2, 20.0)
 #: seq 4096, through a --budget-gb plan; qwen1_5_110b as a 2-layer
 #: forward + backward probe
 DENSE_LAYERS, DENSE_BUDGET_GB, QWEN110_LAYERS = 8, 0.05, 2
+#: the MoE, VLM and encoder-decoder families on the card, published
+#: widths, batch 1, each cut by its bytes on one 80 GB card: the trainer's
+#: in-place fp32 AdamW keeps 16 B a parameter, a fwd+bwd probe 8 B.
+#: DeepSeek-MoE-16B 4 of 28 layers (2.77 B parameters, ~44 GB of state);
+#: Qwen3-MoE 2 of 94 layers as a probe (6.2 B parameters, ~50 GB of
+#: parameters and gradients, plus the bf16 expert casts autograd saves);
+#: LLaVA-NeXT-34B 4 of 60 layers (~3.2 B, ~51 GB) with 2880 patch
+#: embeddings and 1216 text tokens (4096 positions, which the plan's N
+#: divides); SeamlessM4T-medium at full depth (12 + 12 layers, ~1 B)
+MOE_LAYERS, MOE_STEPS, QWEN3_PROBE_LAYERS = 4, 2, 2
+LLAVA_LAYERS, LLAVA_TEXT, LLAVA_STEPS = 4, 4096 - 2880, 2
+SEAMLESS_STEPS = 3
 #: serving at published widths and full depth, a 2 GiB pool budget:
 #: Gemma-3 4B (34 layers), 24 Poisson requests with prompts of 256, 512
 #: and 1024 tokens and 64 generated tokens each; the host-residency
@@ -303,6 +340,21 @@ ZAMBA_SERVE_FLAGS = ["--requests", "8", "--traffic", "poisson",
                      "--mixed-prompts", "--prompt-len", "512", "--gen", "16"]
 XLSTM_SERVE_FLAGS = ["--requests", "6", "--traffic", "poisson",
                      "--mixed-prompts", "--prompt-len", "256", "--gen", "16"]
+#: serving the other families in the same 2 GiB pool: DeepSeek-MoE-16B at
+#: full depth (28 layers, 67.5 GB of fp32 parameters), LLaVA-NeXT-34B 24
+#: of 60 layers (57 GB; each request carries 2880 patch embeddings),
+#: SeamlessM4T-medium at full depth (frames as long as the prompt are the
+#: pool's enc_len) and Qwen3-MoE 4 of 94 layers (45 GB)
+MOE_SERVE_FLAGS = ["--requests", "8", "--traffic", "poisson",
+                   "--mixed-prompts", "--prompt-len", "512", "--gen", "16"]
+LLAVA_SERVE_LAYERS, QWEN3_SERVE_LAYERS = 24, 4
+LLAVA_SERVE_FLAGS = ["--requests", "4", "--traffic", "poisson",
+                     "--prompt-len", "256", "--gen", "16"]
+SEAMLESS_SERVE_FLAGS = ["--requests", "8", "--traffic", "poisson",
+                        "--mixed-prompts", "--prompt-len", "512", "--gen",
+                        "16"]
+QWEN3_SERVE_FLAGS = ["--requests", "4", "--traffic", "poisson",
+                     "--mixed-prompts", "--prompt-len", "512", "--gen", "16"]
 #: requests of the one-slot sequential loop held against the pooled run;
 #: requests and pinned slots of the bursty pair (each prefill there runs in
 #: row chunks): 4 slots fill, so a high-priority arrival evicts an
@@ -563,8 +615,10 @@ def _finish_run(torch, tmp, name, recs, steps):
     # step 0 includes first-call set-up
     ends = [r["elapsed_s"] for r in recs]
     step_s = [b - a for a, b in zip([0.0] + ends, ends)]
+    aux = [{k: r[k] for k in ("load_balance", "z_loss") if k in r}
+           for r in recs]
     return {"losses": losses, "grad_norms": grad_norms, "peak": peak,
-            "plan": log["plan"],
+            "aux": aux, "plan": log["plan"],
             "step_s": step_s, "audit": log["plan_audit"],
             "counters": counters, "plan_terms": log.get("plan_terms"),
             "plan_sd": log.get("plan_sd")}
@@ -1009,8 +1063,11 @@ def _fwd_bwd_peak(torch, cfg, params, row_chunks, kernel="cuda"):
     grads = torch.autograd.grad(loss, tree_leaves(params))
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
+    # a norm per leaf, then of those: no squared copy of a large leaf
+    gnorm = float(torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g.float()) for g in grads])))
     del grads
-    return peak, plan.est_bytes, loss.detach().item()
+    return peak, plan.est_bytes, loss.detach().item(), gnorm
 
 
 def phase_train_lm_rows(torch, out, tmp):
@@ -1031,7 +1088,7 @@ def phase_train_lm_rows(torch, out, tmp):
     out["lm_rows"] = {"losses": run["losses"], "rel": rel,
                       "step_s": run["step_s"], "peak": run["peak"],
                       "probe": peaks}
-    (p8, e8, _), (p1, e1, _) = peaks[cfg.row_chunks], peaks[1]
+    (p8, e8, _, _), (p1, e1, _, _) = peaks[cfg.row_chunks], peaks[1]
     print(f"train_lm_rows: step-0 loss kernel={k0} plain="
           f"{run['losses'][0]} rel diff {rel:.3e}; fwd+bwd peak "
           f"row_chunks={cfg.row_chunks} {p8} B (est {e8}) vs row_chunks=1 "
@@ -1258,8 +1315,8 @@ def phase_train_lm_dense(torch, out, tmp):
     # one layer and the embeddings, with params, grads and two AdamW
     # moments in fp32
     xi_one_layer = 16 * (n_all - n_stack + n_stack // QWEN110_LAYERS)
-    peak, est, loss = _fwd_bwd_peak(torch, cfg, params, cfg.row_chunks,
-                                    kernel="plain")
+    peak, est, loss, _ = _fwd_bwd_peak(torch, cfg, params, cfg.row_chunks,
+                                       kernel="plain")
     del params
     out["dense"] = {"runs": runs, "qwen110b": {
         "params": n_all, "peak": peak, "est": est, "loss": loss,
@@ -1271,6 +1328,171 @@ def phase_train_lm_dense(torch, out, tmp):
           f"{xi_one_layer} B of xi", flush=True)
     if not math.isfinite(loss):
         raise AssertionError(f"qwen1_5_110b probe loss {loss}")
+
+
+def _lm_params(torch, cfg):
+    """Seeded parameters of ``cfg``'s family on the card."""
+    from repro_torch.models.lm.model import family_fns
+    return family_fns(cfg).init(torch.Generator(device="cuda").manual_seed(0),
+                                cfg)
+
+
+def _n_params(params):
+    from repro_torch.optim.adamw import tree_leaves
+    return sum(t.numel() for t in tree_leaves(params))
+
+
+def _check_lm_run(name, run):
+    """The plan audit in ``train_step_lm``'s band (finite losses are
+    ``_finish_run``'s)."""
+    _lm_report(name, run)
+    lo, hi = LM_AUDIT_BAND
+    if not lo <= run["audit"]["ratio"] <= hi:
+        raise AssertionError(f"{name}: audit ratio {run['audit']['ratio']} "
+                             f"out of {LM_AUDIT_BAND}")
+
+
+def phase_train_lm_moe(torch, out, tmp):
+    """DeepSeek-MoE-16B (4 layers) under the config's plan, with its
+    router's aux terms; Qwen3-MoE (2 layers) as a forward + backward
+    probe with no optimizer state."""
+    from repro_torch.optim.adamw import tree_leaves
+    cfg = _lm_config("deepseek_moe_16b", MOE_LAYERS)
+    print(f"train_lm_moe: deepseek_moe_16b at published widths, "
+          f"{MOE_LAYERS} of 28 layers (fp32 AdamW of all 28 is ~262 GB)",
+          flush=True)
+    run = _train_lm_arch(torch, tmp, "moe_deepseek", "deepseek_moe_16b", cfg,
+                         LM_SEQ, MOE_STEPS, "--residency", "device")
+    _check_lm_run("deepseek_moe_16b", run)
+    if run["plan"]["engine"] != "seq_chunked":
+        raise AssertionError(f"deepseek: plan {run['plan']['engine']}")
+    bad = [a for a in run["aux"] if not (
+        math.isfinite(a["load_balance"]) and a["load_balance"] > 0
+        and math.isfinite(a["z_loss"]) and a["z_loss"] > 0)]
+    if bad:
+        raise AssertionError(f"deepseek: aux terms {run['aux']}")
+    cfg = _lm_config("qwen3_moe_235b_a22b", QWEN3_PROBE_LAYERS)
+    params = _lm_params(torch, cfg)
+    for t in tree_leaves(params):
+        t.requires_grad_()
+    n = _n_params(params)
+    peak, est, loss, gnorm = _fwd_bwd_peak(torch, cfg, params,
+                                           cfg.row_chunks, kernel="plain")
+    del params
+    torch.cuda.empty_cache()
+    out["moe"] = {"deepseek": run, "qwen3": {
+        "params": n, "peak": peak, "est": est, "loss": loss,
+        "grad_norm": gnorm}}
+    print(f"train_lm_moe: deepseek_moe_16b aux per step {run['aux']}; "
+          f"qwen3_moe_235b_a22b at published widths, {QWEN3_PROBE_LAYERS} "
+          f"of 94 layers ({n} params), seq {LM_SEQ}: fwd+bwd peak {peak} B "
+          f"(plan est {est}), loss {loss}, gradient norm {gnorm}; the "
+          f"trainer cannot hold it on one card (16 B a parameter)",
+          flush=True)
+    if not (math.isfinite(loss) and math.isfinite(gnorm)):
+        raise AssertionError(f"qwen3 probe loss {loss} grad norm {gnorm}")
+
+
+def phase_train_lm_vlm_encdec(torch, out, tmp):
+    """LLaVA-NeXT-34B (4 layers; 2880 patch embeddings before 1216 text
+    tokens) and SeamlessM4T-medium (12 + 12 layers, 4096 frames and
+    tokens) under the config's plan."""
+    cfg = _lm_config("llava_next_34b", LLAVA_LAYERS)
+    print(f"train_lm_vlm_encdec: llava_next_34b at published widths, "
+          f"{LLAVA_LAYERS} of 60 layers, {cfg.n_frontend_tokens} patch "
+          f"embeddings + {LLAVA_TEXT} text tokens", flush=True)
+    llava = _train_lm_arch(torch, tmp, "vlm_llava", "llava_next_34b", cfg,
+                           LLAVA_TEXT, LLAVA_STEPS, "--residency", "device")
+    _check_lm_run("llava_next_34b", llava)
+    n_pos = cfg.n_frontend_tokens + LLAVA_TEXT
+    if n_pos % llava["plan"]["n_rows"]:
+        raise AssertionError(f"llava: {n_pos} positions do not divide by "
+                             f"N={llava['plan']['n_rows']}")
+    cfg = _lm_config("seamless_m4t_medium")
+    seamless = _train_lm_arch(torch, tmp, "encdec_seamless",
+                              "seamless_m4t_medium", cfg, LM_SEQ,
+                              SEAMLESS_STEPS, "--residency", "device")
+    _check_lm_run("seamless_m4t_medium", seamless)
+    out["vlm_encdec"] = {"llava": llava, "seamless": seamless}
+
+
+def _decode_step(torch, cfg, params, plan, reqs):
+    """The whole-pool decode step of ``plan``'s slots, each holding the
+    longest request's prefilled cache: its ms (median of 5), kernel
+    launches, device-busy ms and top kernels."""
+    from repro_torch.serve import ServeEngine, make_pool
+    engine = ServeEngine(params, cfg, plan)
+    longest = max(reqs, key=lambda r: r.prompt_len)
+    _, cache, _ = engine.prefill(longest)
+    pool = make_pool(cfg, plan, device="cuda")
+    for slot in range(plan.n_rows):
+        pool.acquire(slot, longest.prompt_len)
+        pool.write(slot, cache)
+    del cache
+    view = pool.decode_view()
+    tokens = [int(t) for t in longest.prompt[:plan.n_rows]]
+    tokens += tokens[:1] * (plan.n_rows - len(tokens))
+    engine.decode_step(tokens, view)          # warm
+    ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.decode_step(tokens, view)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    prof = _device_profile(torch, lambda: engine.decode_step(tokens, view))
+    del pool, view
+    torch.cuda.empty_cache()
+    return {"slots": plan.n_rows, "decode_step_ms": sorted(ms)[2], **prof}
+
+
+def _serve_family(torch, tmp, name, arch, cfg, flags, cut="",
+                  paged_raises=False):
+    """One model of another family served through the CLI's functions:
+    the run, then its decode step alone; with ``paged_raises`` a
+    ``paged_kv`` pool must raise ``ValueError`` (enc-dec pools are full
+    only, as in the reference).  ``cut`` says why the depth is cut."""
+    from repro_torch.exec import Planner
+    from repro_torch.launch.serve import make_serve_requests
+    from repro_torch.models.lm.blocks import moe_dims
+    params = _lm_params(torch, cfg)
+    n = _n_params(params)
+    print(f"serve: {arch} at published widths, {cfg.n_layers} layers"
+          + (f" + {cfg.n_enc_layers} encoder" if cfg.n_enc_layers else "")
+          + f", {n} params" + (f" ({cut})" if cut else ""), flush=True)
+    run = _serve(torch, tmp, name, arch, params, flags, cfg=cfg)
+    if paged_raises:
+        try:
+            _serve(torch, tmp, f"{name}_paged", arch, params,
+                   flags + ["--cache-kind", "paged_kv"], cfg=cfg)
+        except ValueError as e:
+            print(f"  {arch} paged_kv raises as it must: {e}", flush=True)
+        else:
+            raise AssertionError(f"serve: {arch} paged_kv did not raise")
+    reqs = make_serve_requests(_serve_args(arch, flags), cfg)
+    plan = Planner.for_serve(
+        cfg, max(r.prompt_len + r.max_new_tokens for r in reqs)
+        + (cfg.n_frontend_tokens if cfg.frontend == "vision" else 0),
+        budget=int(SERVE_BUDGET_GB * 2**30), n_max=len(reqs),
+        enc_len=reqs[0].features.shape[0] if cfg.family == "encdec" else 0)
+    step = _decode_step(torch, cfg, params, plan, reqs)
+    if cfg.family == "moe":
+        # every decode step casts each expert weight to bf16: 4 B read and
+        # 2 B written per expert parameter, at the card's HBM rate
+        d = moe_dims(cfg)
+        experts = cfg.n_layers * 3 * d.n_experts * d.d * d.d_expert
+        step["expert_cast_bound_ms"] = 6 * experts / PEAK_HBM_BYTES * 1e3
+    print(f"  {arch} decode step at {step['slots']} slots: "
+          f"{step['decode_step_ms']:.2f} ms, {step['launches']} launches, "
+          f"device busy {step['busy_ms']:.2f} ms"
+          + (f", expert casts' bound {step['expert_cast_bound_ms']:.2f} ms"
+             if "expert_cast_bound_ms" in step else "")
+          + f"; top kernels {step['top_us']}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return {**{k: run[k] for k in ("slots", "wall_s", "tok_s", "audit_ratio",
+                                   "summary", "peak", "chunks")},
+            "params": n, "decode": step}
 
 
 def _serve(torch, tmp, name, arch, params, flags, **over):
@@ -1637,6 +1859,24 @@ def phase_serve(torch, out, tmp):
                                          "audit_ratio", "summary")}
     del params
     torch.cuda.empty_cache()
+
+    # ---- the MoE, VLM and encoder-decoder families
+    res["deepseek"] = _serve_family(
+        torch, tmp, "deepseek_full", "deepseek_moe_16b",
+        _lm_config("deepseek_moe_16b"), MOE_SERVE_FLAGS)
+    res["llava"] = _serve_family(
+        torch, tmp, "llava_full", "llava_next_34b",
+        _lm_config("llava_next_34b", LLAVA_SERVE_LAYERS), LLAVA_SERVE_FLAGS,
+        cut="all 60 layers are 138 GB of fp32 parameters")
+    res["seamless"] = _serve_family(
+        torch, tmp, "seamless_full", "seamless_m4t_medium",
+        _lm_config("seamless_m4t_medium"), SEAMLESS_SERVE_FLAGS,
+        paged_raises=True)
+    res["qwen3"] = _serve_family(
+        torch, tmp, "qwen3_full", "qwen3_moe_235b_a22b",
+        _lm_config("qwen3_moe_235b_a22b", QWEN3_SERVE_LAYERS),
+        QWEN3_SERVE_FLAGS, cut="all 94 layers are ~940 GB of fp32 "
+                                "parameters")
     out["serve"] = res
 
 
@@ -2180,6 +2420,10 @@ def main() -> int:
                   ("train_lm_ssm", lambda: phase_train_lm_ssm(
                       torch, out, tmp)),
                   ("train_lm_dense", lambda: phase_train_lm_dense(
+                      torch, out, tmp)),
+                  ("train_lm_moe", lambda: phase_train_lm_moe(
+                      torch, out, tmp)),
+                  ("train_lm_vlm_encdec", lambda: phase_train_lm_vlm_encdec(
                       torch, out, tmp)),
                   ("serve", lambda: phase_serve(torch, out, tmp)),
                   ("memory", lambda: phase_memory(torch, out, tmp)),

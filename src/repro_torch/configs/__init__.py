@@ -2,10 +2,9 @@
 architecture, each citing its source in its docstring.
 
 ``get_config(name)`` returns the full-size ModelConfig and
-``get_reduced(name)`` the smoke-test variant.  The registry knows every
-architecture the reference has; those whose layers the port does not run
-yet raise ``NotImplementedError`` saying so.  The CNN configs live in their
-own modules (``configs/vgg16.py``, ``configs/resnet50.py``).
+``get_reduced(name)`` the smoke-test variant, for every LM architecture
+the reference has.  The CNN configs live in their own modules
+(``configs/vgg16.py``, ``configs/resnet50.py``).
 """
 
 from __future__ import annotations
@@ -25,15 +24,6 @@ _ARCHS = [
     "seamless_m4t_medium",
     "qwen1_5_4b",
 ]
-#: architectures whose config the port carries
-PORTED = ("gemma3_4b", "llama3_2_3b", "qwen1_5_4b", "qwen1_5_110b",
-          "zamba2_7b", "xlstm_125m")
-#: the slice each other architecture's training and serving wait for
-WAITS_FOR = {"qwen3_moe_235b_a22b": "the MoE slice (moe.py)",
-             "deepseek_moe_16b": "the MoE slice (moe.py)",
-             "llava_next_34b": "the VLM slice (the vision frontend)",
-             "seamless_m4t_medium":
-                 "the encoder-decoder slice (encdec.py)"}
 
 
 def canonical(name: str) -> str:
@@ -44,13 +34,7 @@ def canonical(name: str) -> str:
 
 
 def _module(name: str):
-    key = canonical(name)
-    if key not in PORTED:
-        raise NotImplementedError(
-            f"arch {key!r} is not ported yet (its training and serving wait "
-            f"for {WAITS_FOR.get(key, 'a later slice')}); ported LM archs: "
-            f"{list(PORTED)}")
-    return importlib.import_module(f"repro_torch.configs.{key}")
+    return importlib.import_module(f"repro_torch.configs.{canonical(name)}")
 
 
 def get_config(name: str):

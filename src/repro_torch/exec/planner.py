@@ -30,8 +30,7 @@ integers equal the reference's.
 
 Not ported yet, and raising :class:`NotImplementedError` with what they
 wait for: ``stagedize`` where it would have to stage (and the staged
-alternates of the costed chooser), and serving plans over a mesh or for
-the encoder-decoder family.
+alternates of the costed chooser), and serving plans over a mesh.
 """
 
 from __future__ import annotations
@@ -372,14 +371,6 @@ def serve_cache_kinds() -> Tuple[str, ...]:
     return tuple(sorted(kinds))
 
 
-def _check_serve_family(cfg) -> None:
-    if cfg.family == "encdec":
-        raise _not_ported(
-            f"{cfg.name}: serving the encoder-decoder family (its "
-            f"cross-attention caches wait for the encoder-decoder slice, "
-            f"encdec.py)")
-
-
 class _ServePlannerMixin:
     """decode_slot_bytes / page_bytes / for_serve, mixed into
     :class:`Planner` below."""
@@ -388,14 +379,24 @@ class _ServePlannerMixin:
     def decode_slot_bytes(cfg, max_len: int, enc_len: int = 0,
                           cache_kind: str = "full") -> int:
         """Decode-state bytes ONE request pins for its whole lifetime: KV
-        rows for attention kinds (ring-capped for 'local') and recurrent
-        state for SSM kinds — Eq. 7 applied to serving, with decode slots
-        as the rows.  ``cache_kind`` routes each layer kind through its
-        qualified estimator when one is registered, so under
-        ``"paged_kv"`` this is the slot's *resident* bytes (pages are
-        priced by :meth:`page_bytes`)."""
-        _check_serve_family(cfg)
+        rows for attention kinds (ring-capped for 'local'), recurrent
+        state for SSM kinds, plus the cross-attention K/V of ``enc_len``
+        encoder positions for the encoder-decoder — Eq. 7 applied to
+        serving, with decode slots as the rows.  ``cache_kind`` routes
+        each layer kind through its qualified estimator when one is
+        registered, so under ``"paged_kv"`` this is the slot's *resident*
+        bytes (pages are priced by :meth:`page_bytes`).  Enc-dec pools
+        are ``full`` only (their cross caches are precomputed whole)."""
         db = 2 if cfg.dtype == "bfloat16" else 4
+        if cfg.family == "encdec":
+            if cache_kind != "full":
+                raise ValueError(
+                    f"cache kind {cache_kind!r} does not support enc-dec "
+                    f"pools (cross-attention caches are precomputed "
+                    f"whole); use cache_kind='full'")
+            # decoder layers: self-attn KV + precomputed cross K/V (no pos)
+            cross = 2 * enc_len * cfg.n_kv_heads * cfg.head_dim * db
+            return cfg.n_layers * (_kv_bytes(cfg, max_len, db) + cross)
         total = 0
         for kind in cfg.layer_kinds():
             fn = SERVE_CACHE_BYTES.get(f"{cache_kind}/{kind}") \
@@ -450,7 +451,6 @@ class _ServePlannerMixin:
             raise _not_ported(
                 f"Planner.for_serve(mesh={mesh.describe()}): sharded "
                 f"decode-slot pools (they wait for the sharding slice)")
-        _check_serve_family(cfg)
         known = serve_cache_kinds()
         if cache_kind not in known:
             raise KeyError(
@@ -513,6 +513,8 @@ class _ServePlannerMixin:
             est = min(n_slots, hot * (
                 1 + decode_residency.prefetch_depth)) * dense_slot
         extras["slots_per_device"] = n_slots
+        if cfg.family == "encdec":
+            extras["enc_len"] = enc_len
         return ExecutionPlan(
             engine="serve_pool", n_rows=n_slots, in_shape=None,
             batch=n_slots, dtype_bytes=2 if cfg.dtype == "bfloat16" else 4,

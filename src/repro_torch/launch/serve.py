@@ -8,10 +8,11 @@ they free up, under the byte budget the Planner turns into a slot count.
       --preset full --requests 24 --traffic poisson --mixed-prompts \\
       --prompt-len 1024 --gen 64 --budget-gb 2
 
-``--arch`` is any dense, SSM or hybrid config (``gemma3_4b``,
-``llama3_2_3b``, ``qwen1_5_4b``, ``qwen1_5_110b``, ``zamba2_7b``,
-``xlstm_125m``); the MoE, VLM and encoder-decoder archs raise (they wait
-for the slice that ports their layers).  Every flag of the reference is
+``--arch`` is any of the ten LM configs.  As in the reference, a VLM's
+requests carry ``n_frontend_tokens`` patch embeddings each, and an
+encoder-decoder's carry frames as long as ``--prompt-len`` (the pool's
+``enc_len``; enc-dec pools are ``--cache-kind full`` only).  Every flag of
+the reference is
 here except ``--mesh``, which raises (sharded pools wait for the sharding
 slice); ``--torch-profile DIR`` stands for ``--jax-profile``, and
 ``--device`` (default ``cuda``; it raises when no card is present and
@@ -113,6 +114,11 @@ def _device(name: str) -> torch.device:
     return device
 
 
+def _enc_len(args, cfg) -> int:
+    """The encoder-decoder pool's frames per request: ``--prompt-len``."""
+    return args.prompt_len if cfg.family == "encdec" else 0
+
+
 def make_serve_requests(args, cfg):
     """The run's traffic, from the flags (the reference's mapping)."""
     from repro_torch.serve import make_requests
@@ -124,12 +130,22 @@ def make_serve_requests(args, cfg):
                              max(4, args.prompt_len // 2), args.prompt_len})
     priority = 0 if args.priority_levels <= 1 \
         else (0, args.priority_levels - 1)
+    # per-request feature stubs: patch embeddings for a VLM, frames as
+    # long as --prompt-len (the pool's enc_len) for the encoder-decoder
+    feature = {}
+    if cfg.frontend == "vision":
+        feature = {"frontend": "vision",
+                   "n_feature_tokens": cfg.n_frontend_tokens}
+    elif cfg.family == "encdec":
+        feature = {"frontend": "audio",
+                   "n_feature_tokens": _enc_len(args, cfg),
+                   "feature_dim": cfg.d_model}
     return make_requests(
         args.requests or args.batch, cfg.vocab, seed=args.seed,
         traffic=args.traffic, prompt_len=prompt_len,
         max_new_tokens=args.gen, mean_interarrival=args.mean_interarrival,
         temperature=args.temperature, top_k=args.top_k,
-        priority=priority, burst_size=args.burst)
+        priority=priority, burst_size=args.burst, **feature)
 
 
 def serve_from_args(args, cfg=None, params=None, **overrides):
@@ -142,7 +158,7 @@ def serve_from_args(args, cfg=None, params=None, **overrides):
     count under a budget, as the card check does to compare cache kinds
     at one decode shape)."""
     from repro_torch.configs import get_config, get_reduced
-    from repro_torch.models.lm.model import check_ported, init_lm
+    from repro_torch.models.lm.model import family_fns
     from repro_torch.obs.cli import configure_from_args, profiled
     from repro_torch.serve import SLO, serve
 
@@ -154,18 +170,19 @@ def serve_from_args(args, cfg=None, params=None, **overrides):
     if cfg is None:
         cfg = get_reduced(args.arch) if args.preset == "reduced" \
             else get_config(args.arch)
-    check_ported(cfg)
+    fns = family_fns(cfg)
     configure_from_args(args, tool="serve", arch=args.arch,
                         cache_kind=args.cache_kind, traffic=args.traffic)
     budget = int(args.budget_gb * 2**30)
     requests = make_serve_requests(args, cfg)
     if params is None:
-        params = init_lm(torch.Generator(device=device).manual_seed(
+        params = fns.init(torch.Generator(device=device).manual_seed(
             args.seed), cfg)
     slo = None
     if args.slo_p50 or args.slo_p95:
         slo = SLO(p50_latency=args.slo_p50, p95_latency=args.slo_p95)
     kw = dict(budget=budget, n_slots=0 if budget else args.batch,
+              enc_len=_enc_len(args, cfg),
               prefill_budget=budget, residency=args.residency,
               cache_kind=args.cache_kind, page_size=args.page_size,
               decode_residency=args.decode_residency,

@@ -9,6 +9,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.models.lm.model import family_fns
 from repro_torch.optim.adamw import (
     AdamWConfig, adamw_update_, tree_leaves, tree_map,
 )
@@ -30,8 +31,8 @@ def make_train_step(cfg, opt_cfg: Optional[AdamWConfig] = None, plan=None):
         from repro_torch.exec import build_apply
         loss_apply = build_apply((None, cfg), plan)
     else:
-        from repro_torch.models.lm.model import lm_loss
-        loss_apply = lambda p, b: lm_loss(p, b, cfg)  # noqa: E731
+        loss_fn = family_fns(cfg).loss
+        loss_apply = lambda p, b: loss_fn(p, b, cfg)  # noqa: E731
 
     def train_step(state, batch):
         p = tree_map(lambda t: t.detach().requires_grad_(), state["params"])
@@ -52,11 +53,11 @@ def make_prefill_step(cfg, cache_len: int):
     """``prefill_step(params, batch) -> (token, caches)``: the prompt's
     forward with caches for ``cache_len`` positions (the reference's
     ``shape.seq``), and the greedy (argmax) next token per row, int32."""
-    from repro_torch.models.lm.model import lm_prefill
+    prefill = family_fns(cfg).prefill
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        logits, caches = lm_prefill(params, batch, cfg, cache_len)
+        logits, caches = prefill(params, batch, cfg, cache_len)
         token = torch.argmax(logits[:, -1].float(), dim=-1).to(torch.int32)
         return token, caches
 
@@ -67,11 +68,11 @@ def make_serve_step(cfg):
     """``serve_step(params, caches, batch) -> (token, caches)``: one
     decode step of ``batch["tokens"]`` (B, 1) and its greedy next token
     per row, int32."""
-    from repro_torch.models.lm.model import lm_decode
+    decode = family_fns(cfg).decode
 
     @torch.no_grad()
     def serve_step(params, caches, batch):
-        logits, caches = lm_decode(params, batch["tokens"], caches, cfg)
+        logits, caches = decode(params, batch["tokens"], caches, cfg)
         token = torch.argmax(logits[:, -1].float(), dim=-1).to(torch.int32)
         return token, caches
 

@@ -18,9 +18,14 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3_4b \\
         --preset full --batch 1 --seq 4096 --kernel cuda --steps 3
 
-  ``--arch`` is any dense, SSM or hybrid config (``gemma3_4b``,
-  ``llama3_2_3b``, ``qwen1_5_4b``, ``qwen1_5_110b``, ``zamba2_7b``,
-  ``xlstm_125m``).  ``--budget-gb``, ``--residency`` or ``--kernel``
+  ``--arch`` is any of the ten LM configs: dense (``gemma3_4b``,
+  ``llama3_2_3b``, ``qwen1_5_4b``, ``qwen1_5_110b``), MoE
+  (``deepseek_moe_16b``, ``qwen3_moe_235b_a22b``), SSM and hybrid
+  (``zamba2_7b``, ``xlstm_125m``), VLM (``llava_next_34b``: zero patch
+  embeddings of ``n_frontend_tokens`` go before the ``--seq`` text tokens)
+  and encoder-decoder (``seamless_m4t_medium``: ``--seq`` frames drawn
+  from ``np.random.default_rng((seed, step))``, the reference's, and
+  ``--seq`` tokens).  ``--budget-gb``, ``--residency`` or ``--kernel``
   plans the sequence axis (``Planner.for_model``; an explicit
   ``--row-chunks`` wins and skips the plan): the budget picks the chunk
   count, ``--residency host|recompute`` places the carried state of the
@@ -61,9 +66,8 @@ Observability and planning flags, on both trainers:
 Differences from the reference: ``--batch`` defaults to the config's batch
 for CNNs (32 for the full preset), ``--lr`` to 0.05 for CNNs and 3e-4 for
 LMs, the kernel backends are named ``plain``/``cuda``, and
-``--torch-profile`` stands for ``--jax-profile``.  ``--mesh`` and the
-MoE, VLM and encoder-decoder archs are not ported yet and raise; ``--save``
-(checkpoints) is not there yet.
+``--torch-profile`` stands for ``--jax-profile``.  ``--mesh`` is not
+ported yet and raises; ``--save`` (checkpoints) is not there yet.
 """
 
 from __future__ import annotations
@@ -73,6 +77,7 @@ import dataclasses
 import os
 import time
 
+import numpy as np
 import torch
 
 from repro_torch import obs
@@ -286,9 +291,28 @@ def train_cnn(args, params=None):
     return steplog.records
 
 
+def lm_batch(cfg, hb, step: int, seed: int, device):
+    """The step's LM batch on ``device``, as the reference builds it: the
+    token dataset's tokens and labels, plus zero patch embeddings (B,
+    n_frontend_tokens, frontend_dim) for a VLM, or for the encoder-decoder
+    the frames (B, seq, d_model) drawn from ``default_rng((seed,
+    step))``."""
+    batch = {k: torch.from_numpy(hb[k]).long().to(device)
+             for k in ("tokens", "labels")}
+    B, S = hb["tokens"].shape
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.zeros(
+            (B, cfg.n_frontend_tokens, cfg.frontend_dim), device=device)
+    if cfg.family == "encdec":
+        frames = np.random.default_rng((seed, step)).normal(
+            0, 1, (B, S, cfg.d_model)).astype(np.float32)
+        batch["frames"] = torch.from_numpy(frames).to(device)
+    return batch
+
+
 def train_lm(args, cfg=None, params=None):
-    """Train ``args.steps`` AdamW steps of a decoder-only LM; returns the
-    step records.  ``cfg`` (a ModelConfig) replaces the preset's and
+    """Train ``args.steps`` AdamW steps of an LM; returns the step
+    records.  ``cfg`` (a ModelConfig) replaces the preset's and
     ``params`` (a tree on the target device) the seeded init: the chip
     smoke cuts the depth through the first, the parity tests pass the
     reference's init through the second."""
@@ -296,7 +320,7 @@ def train_lm(args, cfg=None, params=None):
     from repro_torch.configs import get_config, get_reduced
     from repro_torch.exec import Planner, ResidencySpec
     from repro_torch.launch.steps import make_train_step
-    from repro_torch.models.lm.model import init_lm
+    from repro_torch.models.lm.model import family_fns
 
     device = _device(args.device)
     # fp32 matmuls stay fp32 (bf16 activations are the config's choice)
@@ -326,8 +350,8 @@ def train_lm(args, cfg=None, params=None):
                 kernel=args.kernel or None), device)
         print("plan:", plan.describe(), flush=True)
     if params is None:
-        params = init_lm(torch.Generator(device=device).manual_seed(
-            args.seed), cfg)
+        params = family_fns(cfg).init(torch.Generator(
+            device=device).manual_seed(args.seed), cfg)
     n_params = sum(l.numel() for l in tree_leaves(params))
     row_chunks = plan.n_rows if plan is not None else cfg.row_chunks
     print(f"arch={cfg.name} params={n_params / 1e6:.1f}M "
@@ -347,9 +371,8 @@ def train_lm(args, cfg=None, params=None):
     for step in range(args.steps):
         with obs.profile_range(f"train_step {step}"):
             with obs.profile_range("data"):
-                hb = ds.batch_at(step)
-                data = {k: torch.from_numpy(hb[k]).long().to(device)
-                        for k in ("tokens", "labels")}
+                data = lm_batch(cfg, ds.batch_at(step), step, args.seed,
+                                device)
             if step == 0 and obs.enabled():
                 # the plan prices the sequence-chunk term; the paper's ξ
                 # (params + grads + two AdamW moments, fp32 beside the

@@ -1,8 +1,8 @@
 """GQA attention with RoPE, optional QKV bias, sliding-window masking,
 row-centric query chunking, and KV caches (full and ring-buffer) for
-prefill and decode (counterpart of ``repro.models.lm.attention``;
-bidirectional and cross-attention wait for the encoder-decoder slice, and
-``cache_spec_axes`` for sharded pools).
+prefill and decode, and the encoder-decoder's bidirectional and cross
+attention (counterpart of ``repro.models.lm.attention``;
+``cache_spec_axes`` waits for sharded pools).
 
 Row-centric notes: full causal attention has a *strong* dependency along
 the sequence, but its score matrix is still the dominant live activation
@@ -77,22 +77,27 @@ def _qkv(params, x, dims: AttnDims, positions):
             rope(k, positions, dims.rope_theta), v)
 
 
-def _scores_mask(q_pos, k_pos, window: int):
-    """(Sq, Sk) causal (+ window) mask of additive NEG_INF, fp32."""
+def _scores_mask(q_pos, k_pos, window: int, causal: bool = True):
+    """(Sq, Sk) causal (+ window) mask of additive NEG_INF, fp32; all
+    zeros when not ``causal``."""
+    if not causal:
+        return torch.zeros((q_pos.shape[0], k_pos.shape[0]),
+                           device=q_pos.device)
     ok = k_pos[None, :] <= q_pos[:, None]
     if window > 0:
         ok &= k_pos[None, :] > (q_pos[:, None] - window)
     return torch.where(ok, 0.0, NEG_INF).float()
 
 
-def _attend(q, k, v, q_pos, k_pos, window: int, n_q_per_kv: int):
-    """q: (B,Sq,Hq,D), k/v: (B,Sk,KV,D) -> (B,Sq,Hq,D); causal."""
+def _attend(q, k, v, q_pos, k_pos, window: int, n_q_per_kv: int,
+            causal: bool = True):
+    """q: (B,Sq,Hq,D), k/v: (B,Sk,KV,D) -> (B,Sq,Hq,D)."""
     B, Sq, Hq, D = q.shape
     KV = k.shape[2]
     qg = q.reshape(B, Sq, KV, n_q_per_kv, D)
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
                           k.float()) / math.sqrt(D)
-    scores = scores + _scores_mask(q_pos, k_pos, window)
+    scores = scores + _scores_mask(q_pos, k_pos, window, causal)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
     return out.reshape(B, Sq, Hq, D).to(q.dtype)
@@ -138,6 +143,48 @@ def attn_train(params, x, dims: AttnDims, n_chunks: int = 1):
                 k_pos[a:a + c], k_pos[lo:a + c], dims.window, g,
                 use_reentrant=False))
         out = torch.cat(outs, dim=1)
+    return _proj_out(params, out)
+
+
+def attn_bidir(params, x, dims: AttnDims, n_chunks: int = 1):
+    """Bidirectional self-attention (encoder side), query-chunked; each
+    query chunk attends to every key under ``torch.utils.checkpoint``."""
+    B, S, _ = x.shape
+    k_pos = torch.arange(S, device=x.device)
+    q, k, v = _qkv(params, x, dims, k_pos.expand(B, S))
+    g = dims.n_heads // dims.n_kv
+    if n_chunks <= 1 or S % n_chunks:
+        out = _attend(q, k, v, k_pos, k_pos, 0, g, causal=False)
+    else:
+        c = S // n_chunks
+        out = torch.cat([checkpoint(
+            _attend, q[:, a:a + c], k, v, k_pos[a:a + c], k_pos, 0, g,
+            False, use_reentrant=False) for a in range(0, S, c)], dim=1)
+    return _proj_out(params, out)
+
+
+def cross_kv(params, y, dims: AttnDims):
+    """Encoder-side K/V for cross-attention (no RoPE)."""
+    dt = y.dtype
+    k = torch.einsum("bsd,dhk->bshk", y, params["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", y, params["wv"].to(dt))
+    if dims.qkv_bias:
+        k = k + params["bk"].to(dt)
+        v = v + params["bv"].to(dt)
+    return {"k": k, "v": v}
+
+
+def attn_cross(params, x, kv, dims: AttnDims):
+    """Cross-attention of decoder states over precomputed encoder K/V
+    (no RoPE, no mask)."""
+    dt = x.dtype
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
+    if dims.qkv_bias:
+        q = q + params["bq"].to(dt)
+    out = _attend(q, kv["k"], kv["v"],
+                  torch.arange(x.shape[1], device=x.device),
+                  torch.arange(kv["k"].shape[1], device=x.device),
+                  0, dims.n_heads // dims.n_kv, causal=False)
     return _proj_out(params, out)
 
 

@@ -4,12 +4,13 @@
 Layer kinds (ModelConfig.layer_kinds):
   attn          dense attention + SwiGLU MLP
   local/global  gemma3-style sliding-window / full attention + MLP
+  moe           attention + MoE FFN (optional shared experts); its
+                training forward returns the router's aux losses
   mamba         Mamba2 mixer only (norm + ssm + residual)
   mlstm/slstm   xLSTM mixers
   shared_attn   zamba2-style attention + MLP block whose parameters are
                 SHARED by all its occurrences (held once, under
                 ``params["shared"]``, not stacked)
-The reference's ``moe`` kind raises "not ported yet".
 
 Stacking keeps the reference's parameter tree: per
 ``ModelConfig.scan_segments()`` segment, a tuple over the pattern's
@@ -41,6 +42,7 @@ from repro_torch.models.lm.attention import (
 from repro_torch.models.lm.common import init_rms, rms_norm, torch_dtype
 from repro_torch.models.lm.config import ModelConfig
 from repro_torch.models.lm.mlp import init_mlp, mlp_apply
+from repro_torch.models.lm.moe import MoEDims, init_moe, moe_apply
 from repro_torch.models.lm.ssm import (
     SSMDims, init_ssm, init_ssm_state, ssm_decode, ssm_train,
 )
@@ -49,17 +51,14 @@ from repro_torch.models.lm.xlstm import (
     mlstm_decode, mlstm_train, slstm_decode, slstm_train,
 )
 
-ATTN_KINDS = ("attn", "local", "global", "shared_attn")
+ATTN_KINDS = ("attn", "local", "global", "shared_attn", "moe")
 RECURRENT_KINDS = ("mamba", "mlstm", "slstm")
 
 
 def _check_kind(kind: str) -> None:
     if kind not in ATTN_KINDS + RECURRENT_KINDS:
-        waits = " (training and serving wait for the MoE slice, moe.py)" \
-            if kind == "moe" else ""
-        raise NotImplementedError(
-            f"layer kind {kind!r} is not ported yet{waits}; ported: "
-            f"{ATTN_KINDS + RECURRENT_KINDS}")
+        raise ValueError(f"unknown layer kind {kind!r}; known: "
+                         f"{ATTN_KINDS + RECURRENT_KINDS}")
 
 
 def zero_aux(device) -> Dict[str, torch.Tensor]:
@@ -87,6 +86,14 @@ def xlstm_dims(cfg: ModelConfig) -> XLSTMDims:
                      expand=cfg.ssm_expand)
 
 
+def moe_dims(cfg: ModelConfig) -> MoEDims:
+    return MoEDims(d=cfg.d_model, d_expert=cfg.d_expert,
+                   n_experts=cfg.n_experts, top_k=cfg.top_k,
+                   n_shared=cfg.n_shared_experts,
+                   capacity_factor=cfg.capacity_factor,
+                   seq_groups=cfg.moe_seq_groups)
+
+
 _RECURRENT = {"mamba": (init_ssm, ssm_train, ssm_dims),
               "mlstm": (init_mlstm, mlstm_train, xlstm_dims),
               "slstm": (init_slstm, slstm_train, xlstm_dims)}
@@ -103,12 +110,23 @@ def init_block(gen, kind: str, cfg: ModelConfig, stack: int = 0):
         init, _, dims = _RECURRENT[kind]
         return {"norm1": {"scale": init_rms(d, pd, gen, stack)},
                 "ssm": init(gen, dims(cfg), pd, stack)}
-    return {
+    p = {
         "norm1": {"scale": init_rms(d, pd, gen, stack)},
         "attn": init_attn(gen, attn_dims(cfg, kind), pd, stack),
         "norm2": {"scale": init_rms(d, pd, gen, stack)},
-        "mlp": init_mlp(gen, d, cfg.d_ff, pd, stack),
     }
+    if kind == "moe":
+        p["moe"] = init_moe(gen, moe_dims(cfg), pd, stack)
+    else:
+        p["mlp"] = init_mlp(gen, d, cfg.d_ff, pd, stack)
+    return p
+
+
+def _ffn(params, h, kind: str, cfg: ModelConfig, nc: int):
+    """The block's feed-forward half: (y, aux or None)."""
+    if kind == "moe":
+        return moe_apply(params["moe"], h, moe_dims(cfg), nc)
+    return mlp_apply(params["mlp"], h, nc), None
 
 
 def block_train(params, x, kind: str, cfg: ModelConfig):
@@ -122,7 +140,8 @@ def block_train(params, x, kind: str, cfg: ModelConfig):
     nc = cfg.row_chunks if cfg.remat in ("rows", "block_rows") else 1
     x = x + attn_train(params["attn"], h, attn_dims(cfg, kind), nc)
     h = rms_norm(x, params["norm2"]["scale"], eps)
-    return x + mlp_apply(params["mlp"], h, nc), zero_aux(x.device)
+    y, aux = _ffn(params, h, kind, cfg, nc)
+    return x + y, aux if aux is not None else zero_aux(x.device)
 
 
 def init_block_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int,
@@ -158,7 +177,7 @@ def block_decode(params, x, cache, kind: str, cfg: ModelConfig):
     y, cache = attn_decode(params["attn"], h, cache, attn_dims(cfg, kind))
     x = x + y
     h = rms_norm(x, params["norm2"]["scale"], eps)
-    return x + mlp_apply(params["mlp"], h, 1), cache
+    return x + _ffn(params, h, kind, cfg, 1)[0], cache
 
 
 def block_prefill(params, x, kind: str, cfg: ModelConfig, cache_len: int,
@@ -179,7 +198,7 @@ def block_prefill(params, x, kind: str, cfg: ModelConfig, cache_len: int,
                             nc, ring=(kind == "local"))
     x = x + y
     h = rms_norm(x, params["norm2"]["scale"], eps)
-    return x + mlp_apply(params["mlp"], h, nc), cache
+    return x + _ffn(params, h, kind, cfg, nc)[0], cache
 
 
 def init_stack(gen, cfg: ModelConfig):

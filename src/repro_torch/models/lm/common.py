@@ -29,8 +29,10 @@ def dense_init(gen: torch.Generator, shape, dtype,
     fan_in = shape[0] if len(shape) >= 2 else 1
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     full = ((stack,) if stack else ()) + shape
+    # scaled in place: a stacked expert leaf is tens of GB at full width,
+    # and a second temporary of its size would not fit beside the rest
     w = torch.randn(full, generator=gen, device=gen.device,
-                    dtype=torch.float32) * scale
+                    dtype=torch.float32).mul_(scale)
     return w.to(torch_dtype(dtype))
 
 

@@ -1,42 +1,63 @@
 """Top-level decoder-only LM: init, the training loss, prefill and decode
-(counterpart of ``repro.models.lm.model``; the dense, SSM and hybrid
-families — MoE and the VLM projector wait for later slices).
+(counterpart of ``repro.models.lm.model``) for the dense, MoE, SSM, hybrid
+and VLM families; the encoder-decoder family has its own model,
+:mod:`repro_torch.models.lm.encdec`.
+
+The VLM vision tower is the reference's stub: ``batch["patch_embeds"]``
+carries precomputed patch embeddings (B, n_patches, frontend_dim), which a
+learned 2-layer projector maps into d_model and puts before the token
+embeddings (LLaVA's order); the loss drops the image positions, which
+carry no labels.
 """
 
 from __future__ import annotations
 
+import types
 from typing import Any, Dict
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.lm.blocks import (
     init_stack, init_stack_caches, stack_decode, stack_prefill, stack_train,
 )
 from repro_torch.models.lm.common import (
-    embed_apply, embed_init, init_rms, rms_norm, torch_dtype, unembed_apply,
-    unembed_init,
+    dense_init, embed_apply, embed_init, init_rms, rms_norm, torch_dtype,
+    unembed_apply, unembed_init,
 )
 from repro_torch.models.lm.config import ModelConfig
 
 
-#: families the port trains, and the slice each other family waits for
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
-_WAITS_FOR = {"moe": "the MoE slice (moe.py)",
-              "vlm": "the VLM slice (the vision frontend)",
-              "encdec": "the encoder-decoder slice (encdec.py)"}
+#: families this module runs (``encdec`` runs through ``encdec.py``)
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise for a family or frontend the port does not run yet."""
-    if cfg.family not in PORTED_FAMILIES or cfg.frontend != "none":
-        waits = _WAITS_FOR.get(cfg.family, "a later slice")
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} with frontend "
-            f"{cfg.frontend!r} is not ported yet (its training and serving "
-            f"wait for {waits}); the port trains and serves the "
-            f"{', '.join(PORTED_FAMILIES)} families")
+    """Raise for a family this module does not run: the encoder-decoder
+    family has its own model functions in ``encdec.py``."""
+    if cfg.family not in PORTED_FAMILIES:
+        where = " (use repro_torch.models.lm.encdec)" \
+            if cfg.family == "encdec" else ""
+        raise ValueError(
+            f"{cfg.name}: family {cfg.family!r} is not a decoder-only "
+            f"family{where}; this module runs {', '.join(PORTED_FAMILIES)}")
+
+
+def family_fns(cfg: ModelConfig) -> types.SimpleNamespace:
+    """The model functions of ``cfg``'s family, ``init``, ``loss``,
+    ``prefill`` and ``decode``: ``encdec.py``'s for the encoder-decoder
+    family, this module's for the others (the reference's ``if
+    cfg.family == "encdec"`` branches in one place)."""
+    if cfg.family == "encdec":
+        from repro_torch.models.lm import encdec as ED
+        return types.SimpleNamespace(
+            init=ED.init_encdec, loss=ED.encdec_loss,
+            prefill=ED.encdec_prefill, decode=ED.encdec_decode)
+    check_ported(cfg)
+    return types.SimpleNamespace(init=init_lm, loss=lm_loss,
+                                 prefill=lm_prefill, decode=lm_decode)
 
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig):
@@ -51,6 +72,13 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig):
     if not cfg.tie_embeddings:
         params["unembed"] = unembed_init(gen, cfg.d_model, cfg.vocab,
                                          cfg.param_dtype)
+    if cfg.frontend == "vision":
+        params["projector"] = {
+            "w1": dense_init(gen, (cfg.frontend_dim, cfg.d_model),
+                             cfg.param_dtype),
+            "w2": dense_init(gen, (cfg.d_model, cfg.d_model),
+                             cfg.param_dtype),
+        }
     return params
 
 
@@ -77,7 +105,15 @@ def caches_from_reference(tree, device="cuda"):
 
 
 def _embed_inputs(params, batch, cfg: ModelConfig, dtype):
-    return embed_apply(params["embed"], batch["tokens"].long(), dtype)
+    x = embed_apply(params["embed"], batch["tokens"].long(), dtype)
+    if cfg.frontend == "vision":
+        pe = batch["patch_embeds"].to(dtype)
+        # jax.nn.gelu's default is the tanh approximation
+        pe = F.gelu(pe @ params["projector"]["w1"].to(dtype),
+                    approximate="tanh")
+        pe = pe @ params["projector"]["w2"].to(dtype)
+        x = torch.cat([pe, x], dim=1)  # image tokens first (LLaVA)
+    return x
 
 
 def _logits(params, x, cfg: ModelConfig, dtype):
@@ -130,13 +166,16 @@ def chunked_xent(x, labels, logits_fn, n_chunks: int):
 def lm_loss(params, batch, cfg: ModelConfig,
             lb_coeff: float = 0.01, z_coeff: float = 1e-3):
     """Next-token CE (labels = batch["labels"], -1 = ignore) + MoE aux
-    (zero for the dense family)."""
+    (zero for the families without a ``moe`` layer)."""
     check_ported(cfg)
     dtype = torch_dtype(cfg.dtype)
     x = _embed_inputs(params, batch, cfg, dtype)
     x, aux = stack_train(params["stack"], x, cfg)
+    labels = batch["labels"]
+    if cfg.frontend == "vision":  # image positions carry no labels
+        x = x[:, x.shape[1] - labels.shape[1]:]
     nc = cfg.row_chunks if cfg.remat in ("rows", "block_rows") else 1
-    tot, cnt = chunked_xent(x, batch["labels"],
+    tot, cnt = chunked_xent(x, labels,
                             lambda xc: _logits(params, xc, cfg, dtype), nc)
     ce = tot / torch.clamp(cnt, min=1.0)
     loss = ce + lb_coeff * aux["load_balance"] + z_coeff * aux["z_loss"]
@@ -145,7 +184,8 @@ def lm_loss(params, batch, cfg: ModelConfig,
 
 def lm_prefill(params, batch, cfg: ModelConfig, cache_len: int):
     """Full-sequence forward; returns (last-token logits (B, 1, V), caches
-    sized for ``cache_len`` positions)."""
+    sized for ``cache_len`` positions).  A VLM's image tokens come first
+    and occupy cache positions too."""
     check_ported(cfg)
     dtype = torch_dtype(cfg.dtype)
     x = _embed_inputs(params, batch, cfg, dtype)

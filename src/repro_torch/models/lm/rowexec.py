@@ -68,15 +68,16 @@ def plan_cfg(cfg, plan):
 
 
 def build_lm_apply(cfg, plan):
-    """``apply(params, batch) -> (loss, aux)``: the family loss with the
-    plan active for the layer-stack hooks."""
-    from repro_torch.models.lm.model import check_ported, lm_loss
-    check_ported(cfg)
+    """``apply(params, batch) -> (loss, aux)``: the family loss
+    (``encdec_loss`` for the encoder-decoder family, ``lm_loss`` for the
+    others) with the plan active for the layer-stack hooks."""
+    from repro_torch.models.lm.model import family_fns
+    loss_fn = family_fns(cfg).loss
     run_cfg = plan_cfg(cfg, plan)
 
     def apply(params, batch):
         with use_plan(plan):
-            return lm_loss(params, batch, run_cfg)
+            return loss_fn(params, batch, run_cfg)
 
     return apply
 

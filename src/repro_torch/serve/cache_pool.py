@@ -144,12 +144,17 @@ def init_pool_caches(cfg, n_slots: int, max_len: int, enc_len: int = 0,
                      geom: Optional[PageGeometry] = None, device=None):
     """Pool-shaped caches: batch axis = slot axis.  Same structure the
     model's prefill emits (for layers a ``cache_kind`` overrides, the
-    override's structure), so slot writes are a pure tree zip."""
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"{cfg.name}: enc-dec decode pools are not ported yet (they "
-            f"wait for the encoder-decoder slice, encdec.py)")
+    override's structure), so slot writes are a pure tree zip.  An
+    enc-dec pool is ``encdec_init_caches``' tree (``full`` only): each
+    slot's self KV and the cross K/V of its ``enc_len`` frames, which a
+    slot write carries in with the prefill's cache."""
     dtype = torch_dtype(cfg.dtype)
+    if cfg.family == "encdec":
+        if cache_kind != "full":
+            raise ValueError(f"cache kind {cache_kind!r} does not support "
+                             f"enc-dec pools; use cache_kind='full'")
+        from repro_torch.models.lm.encdec import encdec_init_caches
+        return encdec_init_caches(cfg, n_slots, max_len, enc_len, device)
     caches = []
     for pat, count in cfg.scan_segments():
         group = []

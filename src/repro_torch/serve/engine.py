@@ -1,6 +1,8 @@
 """ServeEngine: the compute half of the serving subsystem (counterpart of
-``repro.serve.engine``), for the decoder-only dense, SSM and hybrid
-families through :mod:`repro_torch.models.lm.model`:
+``repro.serve.engine``), for the whole config zoo through two model paths
+— :mod:`repro_torch.models.lm.model` for the decoder-only families (dense,
+MoE, SSM, hybrid, VLM) and :mod:`repro_torch.models.lm.encdec` for the
+encoder-decoder — with one surface:
 
 * ``prefill(request)`` — batch=1 full-prompt forward producing the slot
   cache and first-token logits.  The prompt is *budget-chunked*: a
@@ -10,6 +12,9 @@ families through :mod:`repro_torch.models.lm.model`:
   already using.  As in the reference, the prefill runs the config's own
   layers with that chunk count and enters no plan: local attention takes
   the halo chunk loop, and no kernel of ``repro_torch.kernels`` runs here.
+  A VLM request carries its patch embeddings and an enc-dec request its
+  frames (``Request.features``); the frames must be the pool's
+  ``enc_len`` long, since the cross-attention caches are fixed-shape.
 * ``decode_step(tokens, caches)`` — one batched decode step over the
   pool's slots (the continuous batch); the caches are updated in place.
 * ``sample(logits_row, request, step)`` — greedy / temperature / top-k.
@@ -88,7 +93,7 @@ class ServeEngine:
             raise NotImplementedError(
                 f"sharded serving (mesh={plan.mesh.describe()}) is not "
                 f"ported yet (it waits for the sharding slice)")
-        LM.check_ported(cfg)
+        self._fns = LM.family_fns(cfg)
         self.params = params
         self.cfg = cfg
         self.plan = plan
@@ -119,17 +124,41 @@ class ServeEngine:
         remat = {"none": "rows", "block": "block_rows"}.get(cfg.remat,
                                                             cfg.remat)
         pcfg = dataclasses.replace(cfg, row_chunks=n_chunks, remat=remat)
-        return lambda p, b: LM.lm_prefill(p, b, pcfg, self.max_len)
+        prefill = self._fns.prefill
+        return lambda p, b: prefill(p, b, pcfg, self.max_len)
 
     def _prefill_batch(self, req: Request) -> dict:
         tokens = torch.from_numpy(np.asarray(req.prompt[None, :], np.int64))
-        return {"tokens": tokens.to(self.device)}
+        batch = {"tokens": tokens.to(self.device)}
+        cfg = self.cfg
+        if cfg.family == "encdec":
+            if req.features is None:
+                raise ValueError(f"request {req.rid}: enc-dec serving needs "
+                                 f"frame features")
+            if req.features.shape[0] != self.enc_len:
+                raise ValueError(
+                    f"request {req.rid}: frames length "
+                    f"{req.features.shape[0]} != pool enc_len {self.enc_len}"
+                    f" (cross-attention caches are fixed-shape per pool)")
+            batch["frames"] = self._features(req)
+        elif cfg.frontend == "vision":
+            if req.features is None:
+                raise ValueError(f"request {req.rid}: VLM serving needs "
+                                 f"patch embeddings")
+            batch["patch_embeds"] = self._features(req)
+        return batch
+
+    def _features(self, req: Request):
+        return torch.from_numpy(np.asarray(req.features[None], np.float32)) \
+            .to(self.device)
 
     @torch.no_grad()
     def prefill(self, req: Request):
         """Run one request's prompt.  Returns (last-token logits (V,),
         batch=1 cache tree, n_chunks the plan picked)."""
         total = req.prompt_len + req.max_new_tokens
+        if self.cfg.frontend == "vision":
+            total += self.cfg.n_frontend_tokens
         if total > self.max_len:
             raise ValueError(f"request {req.rid}: prompt+gen {total} "
                              f"exceeds pool max_len {self.max_len}")
@@ -147,8 +176,8 @@ class ServeEngine:
         (the last token per slot; value irrelevant for free slots).
         Returns (logits (n_slots, V), caches updated in place)."""
         t = torch.from_numpy(np.asarray(tokens, np.int64)[:, None])
-        logits, caches = LM.lm_decode(self.params, t.to(self.device),
-                                      caches, self.cfg)
+        logits, caches = self._fns.decode(self.params, t.to(self.device),
+                                          caches, self.cfg)
         return logits[:, -1], caches
 
     # ------------------------------------------------------------------

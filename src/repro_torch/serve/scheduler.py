@@ -539,6 +539,8 @@ def serve(params, cfg, requests: Sequence[Request], *,
             f"serve(mesh={mesh.describe()}): sharded decode pools are not "
             f"ported yet (they wait for the sharding slice)")
     need = [r.prompt_len + r.max_new_tokens for r in requests]
+    if cfg.frontend == "vision":
+        need = [n + cfg.n_frontend_tokens for n in need]
     if not max_len:
         max_len = max(need)
     if cache_kind == "paged_kv" and not avg_len:

@@ -188,14 +188,23 @@ def test_params_tree_and_init_match_reference_layout():
 
 
 def test_unported_families_raise():
+    """Every LM arch of the reference now has its config and runs (the
+    MoE, VLM and encoder-decoder families since the slice that ported
+    them); an unknown arch still raises, and ``model.py`` refuses the
+    encoder-decoder family, which runs through ``encdec.py``."""
     import repro_torch.configs as C
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        C.get_reduced("deepseek_moe_16b")
+    from repro.configs import list_configs as ref_list
+    for arch in ref_list():
+        assert dataclasses.asdict(C.get_reduced(arch)) \
+            == dataclasses.asdict(ref_get_reduced(arch))
     with pytest.raises(KeyError, match="unknown arch"):
         C.get_config("nope")
-    cfg = dataclasses.replace(get_reduced("gemma3_4b"), family="moe")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        model.init_lm(torch.Generator(), cfg)
+    for arch in ("deepseek_moe_16b", "llava_next_34b"):
+        cfg = C.get_reduced(arch)
+        assert model.family_fns(cfg).init is model.init_lm
+        model.init_lm(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(ValueError, match="encdec"):
+        model.init_lm(torch.Generator(), C.get_reduced("seamless_m4t_medium"))
 
 
 def test_seq_engine_forms():
@@ -217,6 +226,195 @@ def test_seq_engine_forms():
     for name in ("seq_swa_overlap", "seq_swa_cuda"):
         with pytest.raises(ValueError, match="'window' extra"):
             build_apply((None, cfg), ExecutionPlan.explicit(name, 2))
-    moe = dataclasses.replace(cfg, family="moe")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_apply((None, moe), ExecutionPlan.explicit("seq_chunked", 2))
+    # the MoE family's LM form is its loss with the router's aux terms
+    moe = get_reduced("deepseek_moe_16b")
+    params = model.init_lm(torch.Generator().manual_seed(0), moe)
+    tokens, labels = _batch()
+    batch = {"tokens": torch.tensor(tokens) % moe.vocab,
+             "labels": torch.tensor(labels) % moe.vocab}
+    loss, aux = build_apply((None, moe), ExecutionPlan.explicit(
+        "seq_chunked", 2))(params, batch)
+    assert torch.isfinite(loss) and float(aux["load_balance"]) > 0
+
+
+# ---------------------------------------------------------------------------
+# the VLM frontend (reduced LLaVA-NeXT: 16 patch embeddings of width 1152
+# before the text tokens)
+# ---------------------------------------------------------------------------
+
+VLM = "llava_next_34b"
+
+
+@pytest.fixture
+def one_cpu_thread():
+    """One torch CPU thread: bit-reproducible reductions (the 1e-5
+    gradient tests below)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def _rel64(want, got):
+    w = np.asarray(want, np.float64)
+    g = got.detach().numpy().astype(np.float64) \
+        if isinstance(got, torch.Tensor) else np.asarray(got, np.float64)
+    assert w.shape == g.shape, (w.shape, g.shape)
+    return float(np.abs(w - g).max() / max(np.abs(w).max(), 1e-30))
+
+
+@functools.lru_cache(maxsize=None)
+def _vlm_ref_params():
+    tree = ref_model.init_lm(jax.random.PRNGKey(0), ref_get_reduced(VLM))
+    return jax.tree.map(np.asarray, tree)
+
+
+def _vlm_batch(S=16):
+    cfg = get_reduced(VLM)
+    rng = np.random.default_rng(12)
+    pe = rng.standard_normal((B, cfg.n_frontend_tokens, cfg.frontend_dim)) \
+        .astype(np.float32)
+    tokens = rng.integers(0, 512, size=(B, S)).astype(np.int32)
+    labels = rng.integers(0, 512, size=(B, S)).astype(np.int32)
+    labels[:, -2:] = -1
+    return pe, tokens, labels
+
+
+def test_vlm_config_and_projector_layout():
+    ref, cfg = ref_get_reduced(VLM), get_reduced(VLM)
+    assert dataclasses.asdict(ref) == dataclasses.asdict(cfg)
+    ours = model.init_lm(torch.Generator().manual_seed(0), cfg)
+    assert [tuple(t.shape) for t in tree_leaves(ours)] \
+        == [a.shape for a in jax.tree.leaves(_vlm_ref_params())]
+    assert tuple(ours["projector"]["w1"].shape) == (1152, 256)
+    assert tuple(ours["projector"]["w2"].shape) == (256, 256)
+
+
+def test_vlm_embed_inputs_put_image_tokens_first():
+    """The projector (two matmuls around the tanh GELU) and the order:
+    image tokens, then text."""
+    cfg = get_reduced(VLM)
+    pe, tokens, _ = _vlm_batch()
+    want = ref_model._embed_inputs(
+        jax.tree.map(jnp.asarray, _vlm_ref_params()),
+        {"tokens": jnp.asarray(tokens), "patch_embeds": jnp.asarray(pe)},
+        ref_get_reduced(VLM), jnp.float32)
+    got = model._embed_inputs(
+        model.params_from_reference(_vlm_ref_params(), "cpu"),
+        {"tokens": torch.tensor(tokens), "patch_embeds": torch.tensor(pe)},
+        cfg, torch.float32)
+    assert got.shape == (B, cfg.n_frontend_tokens + tokens.shape[1], 256)
+    assert _rel64(want, got) < 1e-5
+
+
+@pytest.mark.usefixtures("one_cpu_thread")
+@pytest.mark.parametrize("S,row_chunks", [(16, 1), (16, 2), (15, 2)])
+def test_vlm_loss_and_every_grad(S, row_chunks):
+    """``lm_loss`` (image positions dropped before the chunked head) and
+    every gradient leaf, the projector's included; at 16 + 15 positions
+    the attention and MLP cannot chunk (31 % 2), as in the reference."""
+    rcfg = dataclasses.replace(ref_get_reduced(VLM), row_chunks=row_chunks)
+    cfg = dataclasses.replace(get_reduced(VLM), row_chunks=row_chunks)
+    pe, tokens, labels = _vlm_batch(S)
+    rb = {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels),
+          "patch_embeds": jnp.asarray(pe)}
+    (rl, raux), rg = jax.value_and_grad(
+        lambda p: ref_model.lm_loss(p, rb, rcfg), has_aux=True)(
+        jax.tree.map(jnp.asarray, _vlm_ref_params()))
+    params = model.params_from_reference(_vlm_ref_params(), "cpu")
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_()
+    loss, aux = model.lm_loss(params, {
+        "tokens": torch.tensor(tokens), "labels": torch.tensor(labels),
+        "patch_embeds": torch.tensor(pe)}, cfg)
+    grads = torch.autograd.grad(loss, leaves)
+    assert _rel64(rl, loss) < 1e-5 and _rel64(raux["ce"], aux["ce"]) < 1e-5
+    want = jax.tree.leaves(rg)
+    assert len(want) == len(grads)
+    bad = [(i, _rel64(a, b)) for i, (a, b) in enumerate(zip(want, grads))
+           if not _rel64(a, b) < 1e-5]
+    assert not bad, bad
+
+
+@pytest.mark.usefixtures("one_cpu_thread")
+def test_vlm_prefill_then_greedy_decode():
+    """``lm_prefill`` with patch embeddings (the image tokens take cache
+    positions 0-15), then six greedy decode steps: logits, caches and
+    the token streams equal the reference's."""
+    rcfg, cfg = ref_get_reduced(VLM), get_reduced(VLM)
+    pe, tokens, _ = _vlm_batch(12)
+    params = jax.tree.map(jnp.asarray, _vlm_ref_params())
+    tp = model.params_from_reference(_vlm_ref_params(), "cpu")
+    rl, rc = ref_model.lm_prefill(params, {"tokens": jnp.asarray(tokens),
+                                           "patch_embeds": jnp.asarray(pe)},
+                                  rcfg, 40)
+    with torch.no_grad():
+        lg, c = model.lm_prefill(tp, {"tokens": torch.tensor(tokens),
+                                      "patch_embeds": torch.tensor(pe)},
+                                 cfg, 40)
+    assert _rel64(rl, lg) < 1e-5
+    assert c[0][0]["pos"].tolist() == [[28, 28]] * 2  # 2 layers, 2 rows
+    want, got = [], []
+    rt = np.argmax(np.asarray(rl)[:, -1], -1).astype(np.int32)
+    gt = torch.argmax(lg[:, -1], -1)
+    for step in range(6):
+        want.append(rt.tolist())
+        got.append(gt.tolist())
+        rl, rc = ref_model.lm_decode(params, jnp.asarray(rt[:, None]), rc,
+                                     rcfg)
+        with torch.no_grad():
+            lg, c = model.lm_decode(tp, gt[:, None], c, cfg)
+        assert _rel64(rl, lg) < 1e-5, step
+        rt = np.argmax(np.asarray(rl)[:, -1], -1).astype(np.int32)
+        gt = torch.argmax(lg[:, -1], -1)
+    assert got == want
+    for a, b in zip(jax.tree.leaves(rc), tree_leaves(c)):
+        a = np.asarray(a)
+        if a.dtype.kind in "biu":
+            assert np.array_equal(a, b.numpy())
+        else:
+            assert _rel64(a, b) < 1e-5
+
+
+@pytest.mark.usefixtures("one_cpu_thread")
+def test_vlm_trainer_losses_equal_reference_loop(tmp_path):
+    """``repro_torch.launch.train --arch llava_next_34b`` (batch 2, seq
+    16, 3 steps, zero patch embeddings as the reference's trainer feeds)
+    from the reference's parameters against the reference's ``lm_loss`` +
+    ``adamw_update`` on the same batches; 1e-5 relative at step 0, times
+    10 per step."""
+    from repro.data.pipeline import TokenDataset as RefTokenDataset
+    from repro.data.pipeline import TokenDatasetConfig as RefTokenConfig
+    from repro.optim import adamw as ref_opt
+    from repro_torch.launch import train as T
+    rcfg = ref_get_reduced(VLM)
+    opt_cfg = ref_opt.AdamWConfig(lr=3e-4)
+
+    @jax.jit
+    def step_fn(p, opt, b):
+        (loss, _), g = jax.value_and_grad(
+            lambda p: ref_model.lm_loss(p, b, rcfg), has_aux=True)(p)
+        p, opt, _ = ref_opt.adamw_update(p, g, opt, opt_cfg)
+        return p, opt, loss
+
+    p = jax.tree.map(jnp.asarray, _vlm_ref_params())
+    opt = ref_opt.adamw_init(p)
+    ds = RefTokenDataset(RefTokenConfig(vocab=512, seq_len=16, batch=2))
+    want = []
+    for step in range(3):
+        hb = ds.batch_at(step)
+        p, opt, loss = step_fn(p, opt, {
+            "tokens": jnp.asarray(hb["tokens"]),
+            "labels": jnp.asarray(hb["labels"]),
+            "patch_embeds": jnp.zeros((2, 16, 1152), jnp.float32)})
+        want.append(float(loss))
+    args = T.build_parser().parse_args(
+        ["--arch", VLM, "--preset", "reduced", "--device", "cpu", "--batch",
+         "2", "--seq", "16", "--steps", "3", "--log-every", "1", "--out",
+         str(tmp_path)])
+    recs = T.train_lm(args, params=model.params_from_reference(
+        _vlm_ref_params(), "cpu"))
+    got = [r["loss"] for r in recs]
+    for step, (a, b) in enumerate(zip(want, got)):
+        assert abs(a - b) / abs(a) < 1e-5 * 10 ** step, (step, want, got)

@@ -23,6 +23,7 @@ from repro.data.pipeline import TokenDataset as RefTokenDataset
 from repro.data.pipeline import TokenDatasetConfig as RefTokenDatasetConfig
 from repro.models.lm import model as ref_model
 from repro.optim import adamw as ref_opt
+from repro_torch.configs import get_reduced
 from repro_torch.data.pipeline import TokenDataset, TokenDatasetConfig
 from repro_torch.launch import train as T
 from repro_torch.models.lm.model import params_from_reference
@@ -109,15 +110,19 @@ def test_cli_plain_kernel_keeps_the_halo_loop(tmp_path):
 
 
 def test_unported_lm_archs_and_flags_raise(tmp_path):
-    """The MoE, VLM and encoder-decoder archs and ``--mesh`` still raise
-    (``--budget-gb`` and ``--residency`` run on the LM path since the SSM
-    slice: ``tests/test_torch_seqrow.py``)."""
+    """The MoE, VLM and encoder-decoder archs train since the slice that
+    ported them (one step each, finite; their parity with the reference
+    trainer is in ``tests/test_torch_{moe,encdec,lm}.py``); ``--mesh``
+    still raises (``--budget-gb`` and ``--residency`` run on the LM path
+    since the SSM slice: ``tests/test_torch_seqrow.py``)."""
     for arch in ("deepseek_moe_16b", "llava_next_34b",
                  "seamless_m4t_medium"):
         args = _args(tmp_path, "--steps", "1")
         args.arch = arch
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            T.train_lm(args)
+        recs = T.train_lm(args)
+        assert len(recs) == 1 and np.isfinite(recs[0]["loss"])
+        log = json.load(open(os.path.join(tmp_path, "train_log.json")))
+        assert log["arch"] == get_reduced(arch).name
     with pytest.raises(NotImplementedError, match="--mesh"):
         T.train_lm(_args(tmp_path, "--steps", "1", "--mesh", "data=2"))
 

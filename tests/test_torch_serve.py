@@ -38,9 +38,11 @@ from repro_torch.optim.adamw import tree_leaves
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-5
-SERVE_ARCHS = ["gemma3_4b", "qwen1_5_4b", "zamba2_7b", "xlstm_125m"]
+SERVE_ARCHS = ["gemma3_4b", "qwen1_5_4b", "zamba2_7b", "xlstm_125m",
+               "deepseek_moe_16b", "qwen3_moe_235b_a22b"]
 ALL_PORTED = ["gemma3_4b", "llama3_2_3b", "qwen1_5_4b", "qwen1_5_110b",
-              "zamba2_7b", "xlstm_125m"]
+              "zamba2_7b", "xlstm_125m", "deepseek_moe_16b",
+              "qwen3_moe_235b_a22b", "llava_next_34b", "seamless_m4t_medium"]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -205,7 +207,7 @@ def test_xlstm_decode_continues_prefill_state(kind):
 BLOCK_KINDS = [("gemma3_4b", "local"), ("gemma3_4b", "global"),
                ("qwen1_5_4b", "attn"), ("zamba2_7b", "shared_attn"),
                ("zamba2_7b", "mamba"), ("xlstm_125m", "mlstm"),
-               ("xlstm_125m", "slstm")]
+               ("xlstm_125m", "slstm"), ("deepseek_moe_16b", "moe")]
 
 
 @pytest.mark.parametrize("arch,kind", BLOCK_KINDS)
@@ -232,9 +234,18 @@ def test_block_prefill_then_decode_matches_reference(arch, kind):
 
 
 def test_moe_block_cache_raises_naming_its_slice():
-    cfg = get_reduced("gemma3_4b")
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        blocks.init_block_cache("moe", cfg, 1, 8, torch.float32)
+    """The ``moe`` kind's decode cache is a full-attention KV cache, since
+    the MoE slice ported it (it raised before); the pool's init and the
+    planner's bytes use it."""
+    from repro_torch.serve.cache_pool import CACHE_INITS
+    rcfg, cfg = ref_get_reduced("qwen3_moe_235b_a22b"), \
+        get_reduced("qwen3_moe_235b_a22b")
+    want = ref_blocks.init_block_cache("moe", rcfg, 2, 8, jnp.float32)
+    _assert_tree(want, blocks.init_block_cache("moe", cfg, 2, 8,
+                                               torch.float32))
+    _assert_tree(want, CACHE_INITS["moe"](cfg, 2, 8, torch.float32))
+    with pytest.raises(ValueError, match="unknown layer kind"):
+        blocks.init_block_cache("nope", cfg, 1, 8, torch.float32)
 
 
 @pytest.mark.parametrize("arch", SERVE_ARCHS)
@@ -331,6 +342,9 @@ SERVE_QUERIES = [
         {"budget": 2**31, "decode_residency": "host", "decode_batch": 4},
         {"n_slots": 6, "cache_kind": "quant_kv",
          "decode_residency": "host"},
+        {"budget": 2**31, "enc_len": 40, "n_max": 24},
+        {"n_slots": 3, "enc_len": 24, "decode_residency": "host",
+         "decode_batch": 1},
     )]
 
 PLANNER_CHILD = r'''
@@ -538,9 +552,24 @@ def test_serve_cli_without_a_card_raises_for_cuda():
 
 @pytest.mark.parametrize("argv,match", [
     (["--arch", "qwen1_5_4b", "--mesh", "data=2"], "--mesh"),
-    (["--arch", "seamless_m4t_medium"], "not ported"),
-    (["--arch", "llava_next_34b"], "not ported"),
+    (["--arch", "seamless_m4t_medium"], None),
+    (["--arch", "llava_next_34b"], None),
 ])
-def test_serve_cli_unported_raise(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
-        _main(argv + ["--device", "cpu"])
+def test_serve_cli_unported_raise(argv, match, capsys):
+    """``--mesh`` still raises; the encoder-decoder and VLM archs serve
+    since the slice that ported them (they raised before): frames of
+    ``--prompt-len`` as the pool's ``enc_len``, patch embeddings before
+    each prompt."""
+    argv = argv + ["--device", "cpu", "--requests", "3", "--prompt-len",
+                   "12", "--gen", "3"]
+    if match:
+        with pytest.raises(NotImplementedError, match=match):
+            _main(argv)
+        return
+    _main(argv)
+    out = capsys.readouterr().out
+    assert out.rstrip().endswith("serve OK")
+    if "seamless" in argv[1]:
+        assert "enc_len=12" in out
+    else:  # 16 image tokens + 12 prompt + 3 generated
+        assert "max_len=31" in out

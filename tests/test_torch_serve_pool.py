@@ -33,6 +33,7 @@ import pytest
 import torch
 
 from repro.configs import get_reduced as ref_get_reduced
+from repro.models.lm import encdec as ref_encdec
 from repro.models.lm import model as ref_model
 from repro_torch import obs
 from repro_torch.configs import get_reduced
@@ -70,6 +71,13 @@ REQS = {
     "sampled": dict(n=4, seed=1, traffic="poisson", prompt_len=[8, 16],
                     max_new_tokens=(3, 6), mean_interarrival=1.5,
                     temperature=0.8, top_k=5),
+    # VLM requests carry 16 patch embeddings, enc-dec ones 12 frames
+    "vision": dict(n=4, seed=3, traffic="poisson", prompt_len=[8, 12],
+                   max_new_tokens=(2, 5), mean_interarrival=1.5,
+                   frontend="vision", n_feature_tokens=16),
+    "audio": dict(n=5, seed=4, traffic="poisson", prompt_len=[6, 12],
+                  max_new_tokens=(2, 5), mean_interarrival=1.5,
+                  frontend="audio", n_feature_tokens=12, feature_dim=128),
 }
 #: name -> (arch, request spec, serve kwargs)
 SCENARIOS = {
@@ -106,6 +114,17 @@ SCENARIOS = {
     "zamba_host": ("zamba2_7b", "mixed", dict(
         n_slots=3, decode_residency="host", decode_batch=2)),
     "xlstm_full": ("xlstm_125m", "mixed", dict(n_slots=2)),
+    "dsmoe_full": ("deepseek_moe_16b", "mixed", dict(n_slots=2)),
+    "qwen3moe_paged": ("qwen3_moe_235b_a22b", "mixed", dict(
+        n_slots=2, cache_kind="paged_kv", page_size=8)),
+    "llava_full": ("llava_next_34b", "vision", dict(n_slots=2)),
+    # paged: the scheduler pre-allocates pages for the image tokens too
+    "llava_paged": ("llava_next_34b", "vision", dict(
+        n_slots=2, cache_kind="paged_kv", page_size=8)),
+    "seamless_full": ("seamless_m4t_medium", "audio", dict(n_slots=2,
+                                                           enc_len=12)),
+    "seamless_host": ("seamless_m4t_medium", "audio", dict(
+        n_slots=3, enc_len=12, decode_residency="host", decode_batch=2)),
 }
 ARCHS = sorted({a for a, _, _ in SCENARIOS.values()})
 #: (n, traffic, kwargs) of the traffic comparisons
@@ -132,6 +151,7 @@ if not hasattr(jax.sharding, "TransferToMemoryKind"):
         jax.memory.Space.Host if "host" in kind else jax.memory.Space.Device)
 from repro import obs
 from repro.configs import get_reduced
+from repro.models.lm import encdec as ED
 from repro.models.lm import model as LM
 from repro.serve import SLO, make_requests, serve
 from repro.serve.pages import PageManager, gather_pages, quantise, \
@@ -156,7 +176,8 @@ def requests(arch, name):
     return reqs
 
 
-params = {a: LM.init_lm(jax.random.PRNGKey(0), get_reduced(a))
+params = {a: (ED.init_encdec if get_reduced(a).family == "encdec"
+              else LM.init_lm)(jax.random.PRNGKey(0), get_reduced(a))
           for a in spec["archs"]}
 for name, (arch, rname, kw) in spec["scenarios"].items():
     cfg = get_reduced(arch)
@@ -298,11 +319,14 @@ _PARAMS = {}
 
 
 def _params(arch):
-    """The reference's init_lm(PRNGKey(0)) parameters, as torch tensors."""
+    """The reference's init_lm(PRNGKey(0)) parameters (init_encdec's for
+    the encoder-decoder), as torch tensors."""
     if arch not in _PARAMS:
+        rcfg = ref_get_reduced(arch)
+        init = ref_encdec.init_encdec if rcfg.family == "encdec" \
+            else ref_model.init_lm
         _PARAMS[arch] = model.params_from_reference(
-            ref_model.init_lm(jax.random.PRNGKey(0), ref_get_reduced(arch)),
-            "cpu")
+            init(jax.random.PRNGKey(0), rcfg), "cpu")
     return _PARAMS[arch]
 
 
@@ -456,6 +480,8 @@ def test_cache_kinds_and_policies_keep_full_pool_tokens(reference):
         == ref["qwen_full_budget"]["tokens"]
     assert ref["zamba_paged"]["tokens"] == ref["zamba_full"]["tokens"] \
         == ref["zamba_host"]["tokens"]
+    assert ref["seamless_host"]["tokens"] == ref["seamless_full"]["tokens"]
+    assert ref["llava_paged"]["tokens"] == ref["llava_full"]["tokens"]
 
 
 def test_paged_pool_admits_more_at_one_budget(reference):

@@ -472,14 +472,23 @@ def test_shared_block_gradient_sums_its_occurrences():
 
 
 def test_unported_families_name_their_slice():
+    """The four archs that waited for the MoE, VLM and encoder-decoder
+    slice now have their configs and models: each reduced preset's
+    parameters have the reference's leaf shapes (their values are held in
+    ``tests/test_torch_{moe,encdec,lm}.py``), and ``model.py`` sends the
+    encoder-decoder family to ``encdec.py``."""
     import repro_torch.configs as C
+    from repro.models.lm import encdec as ref_encdec
     for arch in ("deepseek_moe_16b", "qwen3_moe_235b_a22b",
                  "llava_next_34b", "seamless_m4t_medium"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            C.get_reduced(arch)
-    base = get_reduced("llama3_2_3b")
-    for family, word in (("moe", "MoE"), ("vlm", "VLM"),
-                         ("encdec", "encoder-decoder")):
-        cfg = dataclasses.replace(base, family=family)
-        with pytest.raises(NotImplementedError, match=word):
-            model.init_lm(torch.Generator(), cfg)
+        rcfg, cfg = ref_get_reduced(arch), C.get_reduced(arch)
+        ref_init = ref_encdec.init_encdec if rcfg.family == "encdec" \
+            else ref_model.init_lm
+        want = jax.eval_shape(lambda: ref_init(jax.random.PRNGKey(0), rcfg))
+        got = model.family_fns(cfg).init(torch.Generator().manual_seed(0),
+                                         cfg)
+        assert [tuple(a.shape) for a in jax.tree.leaves(want)] \
+            == [tuple(t.shape) for t in tree_leaves(got)], arch
+    cfg = dataclasses.replace(get_reduced("llama3_2_3b"), family="encdec")
+    with pytest.raises(ValueError, match="encdec"):
+        model.init_lm(torch.Generator(), cfg)

@@ -175,12 +175,17 @@ def test_unported_arch_and_engine_raise(tmp_path):
     # granularity bound, in the reference as here
     with pytest.raises(ValueError, match="granularity bound"):
         T.train_cnn(_args(tmp_path, "--steps", "1"))
-    # --residency runs on the LM path since the SSM slice; the MoE archs
-    # still wait for theirs
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        T.train_lm(T.build_parser().parse_args(
-            ["--arch", "deepseek_moe_16b", "--residency", "host",
-             "--device", "cpu"]))
+    # --residency runs on the LM path since the SSM slice, and the MoE
+    # archs (which raised here before) since the MoE slice: a host
+    # residency rides along on their seq_chunked plan
+    recs = T.train_lm(T.build_parser().parse_args(
+        ["--arch", "deepseek_moe_16b", "--residency", "host", "--device",
+         "cpu", "--steps", "1", "--batch", "2", "--seq", "32", "--out",
+         str(tmp_path)]))
+    assert len(recs) == 1 and recs[0]["load_balance"] > 0
+    plan = json.load(open(tmp_path / "train_log.json"))["plan"]
+    assert plan["engine"] == "seq_chunked"
+    assert plan["residency"]["default"] == "host"
 
 
 def test_cuda_device_without_card_raises(tmp_path, monkeypatch):
