@@ -51,6 +51,38 @@ printing one line:
                 engine must be ``overlap_cuda`` and ``conv2d_rows`` (the
                 stem) must launch 3 times; step-0 losses within 1e-4 of
                 base's.
+   pipeline     the row pipeline: VGG-16 ``--strategy
+                pipeline_rows --rows 4`` (N=4 rows through S=2 stages,
+                0:16|16:31), 3 steps under ``--residency device``,
+                ``host`` and ``recompute``, then ResNet-50 once (2 steps,
+                lr 1e-5).  Each run's plan, step-0 loss against its
+                ``base`` (1e-4 relative), peak beside
+                ``estimate_staged``'s estimate, audit ratio (in
+                ``train_step``'s [0.25, 4.0]), ``rowprog.*`` /
+                ``pipeline.*`` counters, bubble gauge and step times;
+                the three residencies' losses within 1e-6 (under cuDNN's
+                deterministic algorithms: the default ones sum with
+                atomics), and the host run's offloaded bytes equal to the
+                stash the plan's OverL chains imply; steady steps against
+                OverL N=4's.
+   mesh         two trainer ranks on the one card in a ``gloo``
+                group (NCCL refuses two ranks on one device), VGG-16 at
+                224², batch 32 (16 a rank): ``--mesh data=2`` under
+                ``overlap_cuda`` N=4 (``conv2d_rows`` runs under the shard
+                wrapper) and under ``twophase_h``, 2 steps each, and
+                ``--mesh data=1,model=2`` under ``pipeline_rows`` N=4 (S=2
+                from the model extent; column-parallel convs), 1 step.
+                Each step-0 loss within 1e-4 relative of its
+                single-process run; each rank's peak printed.  NCCL stays
+                unverified (the line says so).
+   ckpt         VGG-16's full-width parameters and SGD momentum
+                through ``store.save`` / ``store.restore`` on the card,
+                every leaf bit-equal, seconds and bytes printed; then
+                ``train_lm --save`` on xLSTM-125M (full preset, seq 256,
+                2 steps, ``--residency device``), its parameters, AdamW
+                state and plan restored and the third step taken through
+                ``make_train_step``: loss within 1e-6 relative of an
+                uninterrupted 3-step run's third, the plan equal.
 6. kernel_swa   ``swa_attention`` against its plain version at Gemma-3 4B's
                 local-layer shape (B 1, H 8 after the GQA repeat, S 4096,
                 D 256, window 1024): bf16 at the plan's bq/bk, ``allclose``
@@ -170,8 +202,8 @@ printing one line:
 Every train run above carries ``--trace`` and ``--metrics-out`` (into a
 temporary ``obs`` directory) and prints its step-0 ``plan audit:`` line.
 
-10. memory      VGG-16 ``base``, ``overlap`` N=4, ``overlap_h`` N=8 and
-                ``--budget-gb 1.0``, 2 steps each, under
+10. memory      VGG-16 ``base``, ``overlap`` N=4, ``overlap_h`` N=8,
+                ``--budget-gb 1.0`` and ``pipeline_rows`` N=4, 2 steps each, under
                 ``torch.cuda.memory._record_memory_history`` and a
                 saved-tensor hook; the allocator trace is replayed to its
                 peak and every live block classed by the module and function
@@ -372,6 +404,29 @@ SERVE_PREFILL_SHARE = 0.99
 SERVE_CHUNKED_TOL = 1.5e-2
 #: the serve_pool audit band (analysis/audit.py)
 SERVE_AUDIT_BAND = (0.95, 1.10)
+#: the row pipeline on the card: VGG-16 at 224², batch 32, N=4 row
+#: microbatches through S=2 stages (the default without a model axis), 3
+#: steps under each residency; ResNet-50 once, 2 steps
+PIPE_ROWS, PIPE_STEPS, PIPE_RESNET_STEPS = 4, 3, 2
+#: the train_step audit band (analysis/audit.py)
+TRAIN_AUDIT_BAND = (0.25, 4.0)
+#: two ranks on the one card (gloo: NCCL refuses two ranks on one
+#: device), VGG-16 at 224², batch 32 (16 a rank): (name, flags, steps, the
+#: single-process run its step-0 loss is held to)
+MESH_RUNS = [
+    ("data2_overlap_cuda", ["--strategy", "overlap", "--rows", "4",
+                            "--kernel", "cuda", "--mesh", "data=2"], 2,
+     "kernel"),
+    ("data2_twophase_h", ["--strategy", "twophase_h", "--mesh", "data=2"], 2,
+     "twophase_h"),
+    ("model2_pipeline", ["--strategy", "pipeline_rows", "--rows", "4",
+                         "--mesh", "data=1,model=2"], 1, "pipeline"),
+]
+#: the group's own timeout, and how long the smoke waits for its ranks
+MESH_GROUP_TIMEOUT_S, MESH_WAIT_S = 300, 420
+#: the LM checkpoint round trip: xLSTM-125M at its full preset, seq 256
+CKPT_LM_ARCH, CKPT_LM_SEQ = "xlstm_125m", 256
+CKPT_LM_TOL = 1e-6
 
 
 def _timed_ms(torch, fn, iters=5, warmup=2):
@@ -604,7 +659,8 @@ def _finish_run(torch, tmp, name, recs, steps):
     with open(os.path.join(tmp, name, "train_log.json")) as f:
         log = json.load(f)
     with open(os.path.join(tmp, "obs", f"{name}.metrics.json")) as f:
-        counters = json.load(f)["counters"]
+        metrics = json.load(f)
+    counters = metrics["counters"]
     losses = [r["loss"] for r in recs]
     grad_norms = [r.get("grad_norm") for r in recs]
     if len(losses) != steps or not all(math.isfinite(l) for l in losses):
@@ -620,7 +676,8 @@ def _finish_run(torch, tmp, name, recs, steps):
     return {"losses": losses, "grad_norms": grad_norms, "peak": peak,
             "aux": aux, "plan": log["plan"],
             "step_s": step_s, "audit": log["plan_audit"],
-            "counters": counters, "plan_terms": log.get("plan_terms"),
+            "counters": counters, "gauges": metrics["gauges"],
+            "plan_terms": log.get("plan_terms"),
             "plan_sd": log.get("plan_sd")}
 
 
@@ -665,7 +722,8 @@ def phase_train_rows(torch, out, tmp):
         ("overlap", runs["overlap"]["losses"][0]),
         ("overlap_cuda", out["kernel_run"]["losses"][0]))}
     out["rows"] = {n: {"peak": r["peak"], "est": r["plan"]["est_bytes"],
-                       "losses": r["losses"]} for n, r in runs.items()}
+                       "losses": r["losses"], "step_s": r["step_s"]}
+                   for n, r in runs.items()}
     print(f"train_rows: step-0 loss base={base0} rel diff {rel}; peak "
           f"overlap={runs['overlap']['peak']} (est "
           f"{runs['overlap']['plan']['est_bytes']}) base="
@@ -803,6 +861,309 @@ def phase_train_resnet(torch, out, tmp):
     bad = {n: r for n, r in rel.items() if not r <= LOSS_TOL}
     if bad:
         raise AssertionError(f"step-0 loss differs from base: {bad}")
+
+
+def _stash_bytes(plan):
+    """Bytes of the GPipe stash one forward of a VGG-16 ``plan`` carries:
+    every microbatch's activation at each stage input past the first, over
+    its OverL interval (halo included), which is what the executor
+    places."""
+    from repro_torch.core.overlap import plan_overlap
+    from repro_torch.core.rowplan import shape_chain
+    from repro_torch.exec import StageSpec
+    from repro_torch.models.cnn import vgg
+    mods = vgg.vgg16_modules(1.0)
+    shape = tuple(plan["in_shape"])
+    ov = plan_overlap(mods, shape[0], plan["n_rows"])
+    shapes = shape_chain(mods, shape)
+    total = 0
+    for a, _ in StageSpec.from_dict(plan["stage"]).stages[1:]:
+        _, w, c = shapes[a]
+        total += sum(ch[a][1] - ch[a][0] for ch in ov.chains) * w * c \
+            * plan["dtype_bytes"] * plan["batch"]
+    return total
+
+
+def _pipe_report(name, run, ref0):
+    plan, audit = run["plan"], run["audit"]
+    est = plan["est_bytes_per_device"]
+    rel = _rel0(run, ref0)
+    counters = {k: v for k, v in sorted(run["counters"].items())
+                if k.startswith(("rowprog.", "pipeline."))}
+    print(f"  {name}: engine={plan['engine']} N={plan['n_rows']} "
+          f"stages={plan['stage']['stages']} residency="
+          f"{(plan.get('residency') or {}).get('default')} peak="
+          f"{run['peak']} estimate_staged={est} peak/est="
+          f"{run['peak'] / est:.3f} audit ratio {audit['ratio']:.3f} "
+          f"bubble={run['gauges'].get('pipeline.bubble_fraction')} "
+          f"step_s={run['step_s']} step-0 loss {run['losses'][0]} (rel "
+          f"{rel:.3e}) counters {counters}", flush=True)
+    lo, hi = TRAIN_AUDIT_BAND
+    if not lo <= audit["ratio"] <= hi:
+        raise AssertionError(f"{name}: audit ratio {audit['ratio']} "
+                             f"outside {TRAIN_AUDIT_BAND}")
+    return rel
+
+
+def phase_pipeline(torch, out, tmp):
+    """The row pipeline at full width: VGG-16 ``pipeline_rows`` N=4 (S=2)
+    under device, host and recompute residency, then ResNet-50 once.
+    cuDNN's default backward algorithms sum with atomics, so two runs of
+    one plan differ after a step (without the deterministic ones this
+    phase saw the residencies' losses 5.1e-6 apart by step 2 on an H100
+    80GB HBM3 at 700 W, their step-0 losses equal); the phase picks
+    cuDNN's deterministic algorithms, so that the residencies are held to
+    each other and not to that noise."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _pipeline_runs(torch, out, tmp)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _pipeline_runs(torch, out, tmp):
+    runs, rel = {}, {}
+    base0 = out["rows"]["base"]["losses"][0]
+    for res in ("device", "host", "recompute"):
+        runs[res] = run = _train(torch, tmp, f"pipe_{res}", "--strategy",
+                                 "pipeline_rows", "--rows", str(PIPE_ROWS),
+                                 "--residency", res, steps=PIPE_STEPS)
+        _check_plan(f"pipeline {res}", run, "pipeline_rows", PIPE_ROWS)
+        if run["plan"]["stage"]["stages"] != [[0, 16], [16, 31]]:
+            raise AssertionError(f"pipeline {res}: stages "
+                                 f"{run['plan']['stage']}")
+        rel[res] = _pipe_report(f"vgg16 {res}", run, base0)
+    runs["resnet"] = _train(torch, tmp, "pipe_resnet", "--strategy",
+                            "pipeline_rows", "--rows", str(PIPE_ROWS),
+                            steps=PIPE_RESNET_STEPS, arch="resnet50",
+                            lr=RESNET_LR)
+    _check_plan("pipeline resnet", runs["resnet"], "pipeline_rows",
+                PIPE_ROWS)
+    rel["resnet"] = _pipe_report("resnet50 device", runs["resnet"],
+                                 out["resnet"]["base"]["losses"][0])
+    out["pipeline"] = runs
+    host = runs["host"]
+    stash = _stash_bytes(host["plan"])
+    want = PIPE_STEPS * stash
+    got = host["counters"].get("rowprog.offload_bytes")
+    dev = runs["device"]["losses"]
+    spread = max(abs(r["losses"][i] - dev[i]) / abs(dev[i])
+                 for r in (runs["host"], runs["recompute"])
+                 for i in range(PIPE_STEPS))
+    over = out["rows"]["overlap"]["step_s"][-1]
+    stretch = {res: runs[res]["step_s"][-1] / over - 1
+               for res in ("device", "host", "recompute")}
+    print(f"pipeline: step-0 losses vs base: {rel}; residencies agree to "
+          f"{spread:.3e} relative; host offloaded {got} B in "
+          f"{PIPE_STEPS} steps, the plan's chains imply {want} "
+          f"({stash} B a step); steady step vs overlap N=4's {over:.4f} s: "
+          f"{stretch} (the roofline's bubble charges (S-1)/N = "
+          f"{1 / PIPE_ROWS})", flush=True)
+    bad = {n: r for n, r in rel.items() if not r <= LOSS_TOL}
+    if bad:
+        raise AssertionError(f"step-0 loss differs from base: {bad}")
+    if not spread <= RESIDENCY_TOL:
+        raise AssertionError(f"residency changed the losses by {spread}")
+    if got != want:
+        raise AssertionError(f"host offload bytes {got} != {want}")
+
+
+MESH_RANK = r'''
+import datetime, json, os, sys
+import torch
+import torch.distributed as dist
+
+rank, init, out, lr, timeout = sys.argv[1:6]
+rank = int(rank)
+runs = json.loads(sys.argv[6])
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method="file://" + init, rank=rank,
+                        world_size=2,
+                        timeout=datetime.timedelta(seconds=float(timeout)))
+res = {}
+try:
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as T
+    for name, flags, steps, _ in runs:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.conv2d.launches = 0
+        recs = T.main(["--arch", "vgg16", "--preset", "full", "--steps",
+                       str(steps), "--lr", lr, "--log-every", "1", "--out",
+                       os.path.join(out, name), *flags])
+        torch.cuda.synchronize()
+        ends = [r["elapsed_s"] for r in recs]
+        res[name] = {"losses": [r["loss"] for r in recs],
+                     "step_s": [b - a for a, b in zip([0.0] + ends, ends)],
+                     "peak": torch.cuda.max_memory_allocated(),
+                     "launches": ops.conv2d.launches,
+                     "backend": dist.get_backend()}
+finally:
+    dist.destroy_process_group()
+json.dump(res, open(os.path.join(out, f"rank{rank}.json"), "w"))
+'''
+
+
+def phase_mesh(torch, out, tmp):
+    """Two ranks on the one card in a gloo group, each a trainer process
+    (``--mesh``): data=2 under ``overlap_cuda`` (``conv2d_rows`` under the
+    shard wrapper) and ``twophase_h``, and data=1,model=2 under
+    ``pipeline_rows`` (column-parallel convs, S=2 from the model extent);
+    every step-0 loss against its single-process run."""
+    d = os.path.join(tmp, "mesh")
+    os.makedirs(d)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MESH_RANK, str(rank),
+         os.path.join(d, "init"), d, str(TRAIN_LR),
+         str(MESH_GROUP_TIMEOUT_S), json.dumps(MESH_RUNS)], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rank in range(2)]
+    try:
+        outs = [p.communicate(timeout=MESH_WAIT_S) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for rank, (p, (so, se)) in enumerate(zip(procs, outs)):
+        if p.returncode:
+            raise AssertionError(f"mesh rank {rank} exit {p.returncode}: "
+                                 f"{so[-2000:]} {se[-3000:]}")
+    ranks = []
+    for rank in range(2):
+        with open(os.path.join(d, f"rank{rank}.json")) as f:
+            ranks.append(json.load(f))
+    single = {"kernel": out["kernel_run"],
+              "twophase_h": out["2ps"]["twophase_h"],
+              "pipeline": out["pipeline"]["device"]}
+    rel, res = {}, {}
+    for name, _, _, ref in MESH_RUNS:
+        with open(os.path.join(d, name, "train_log.json")) as f:
+            plan = json.load(f)["plan"]
+        ref0 = single[ref]["losses"][0]
+        rel[name] = max(abs(r[name]["losses"][0] - ref0) / abs(ref0)
+                        for r in ranks)
+        res[name] = {"plan": plan, "ranks": [r[name] for r in ranks],
+                     "single_peak": single[ref]["peak"]}
+        print(f"  mesh {name}: engine={plan['engine']} N={plan['n_rows']} "
+              f"mesh={plan['mesh']['axes']} est/dev="
+              f"{plan['est_bytes_per_device']} backend="
+              f"{ranks[0][name]['backend']} rank peaks="
+              f"{[r[name]['peak'] for r in ranks]} (single process "
+              f"{single[ref]['peak']}) conv2d_rows launches="
+              f"{[r[name]['launches'] for r in ranks]} step-0 losses="
+              f"{[r[name]['losses'][0] for r in ranks]} vs single {ref0} "
+              f"(rel {rel[name]:.3e}) step_s="
+              f"{[r[name]['step_s'] for r in ranks]}", flush=True)
+    out["mesh"] = res
+    print(f"mesh: two gloo ranks on one card agree with one process: "
+          f"{rel}; NCCL is unverified: it needs a card a rank, and this "
+          f"run has {torch.cuda.device_count()}", flush=True)
+    bad = {n: r for n, r in rel.items() if not r <= LOSS_TOL}
+    if bad:
+        raise AssertionError(f"mesh step-0 loss differs: {bad}")
+    if not all(r["data2_overlap_cuda"]["launches"] > 0 for r in ranks):
+        raise AssertionError("conv2d_rows did not launch under the shard "
+                             "wrapper")
+
+
+def _dir_bytes(d, suffix):
+    return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d)
+               if f.endswith(suffix))
+
+
+def phase_ckpt(torch, out, tmp):
+    """Two checkpoint round trips: VGG-16's full-width parameters and SGD
+    momentum through the store on the card, bit for bit; then
+    ``train_lm --save`` on xLSTM-125M, resumed for its third step."""
+    import importlib
+    from repro_torch.ckpt import store
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenDataset, TokenDatasetConfig
+    from repro_torch.exec import ExecutionPlan
+    from repro_torch.launch import train as T
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.cnn import vgg
+    from repro_torch.models.lm.model import family_fns
+    from repro_torch.optim.adamw import (
+        AdamWConfig, adamw_init, sgd_init, tree_leaves, tree_map,
+    )
+    dev = torch.device("cuda")
+    ccfg = importlib.import_module("repro_torch.configs.vgg16").CONFIG
+    _, params = vgg.init_vgg16(torch.Generator().manual_seed(0),
+                               (224, 224, 3), ccfg.width_mult,
+                               ccfg.n_classes, device=dev)
+    opt = sgd_init(params)
+    opt["vel"] = tree_map(torch.randn_like, opt["vel"])
+    d = os.path.join(tmp, "ckpt_vgg")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    store.save(d, 1, params, opt)
+    write_s = time.time() - t0
+    t0 = time.time()
+    p2 = store.restore(d, params)
+    o2 = store.restore(d, opt, kind="opt")
+    torch.cuda.synchronize()
+    read_s = time.time() - t0
+    pairs = list(zip(tree_leaves(params) + tree_leaves(opt),
+                     tree_leaves(p2) + tree_leaves(o2)))
+    bad = [i for i, (a, b) in enumerate(pairs)
+           if b.device.type != "cuda" or not torch.equal(a, b)]
+    leaf_bytes = sum(int(a.nbytes) for a, _ in pairs)
+    file_bytes = _dir_bytes(d, ".npz")
+    print(f"  ckpt vgg16: {len(pairs)} leaves, {leaf_bytes} B of tensors, "
+          f"{file_bytes} B of npz; write {write_s:.3f} s, read "
+          f"{read_s:.3f} s; {len(pairs) - len(bad)} bit-equal on the card",
+          flush=True)
+    if bad:
+        raise AssertionError(f"ckpt: leaves {bad} differ after restore")
+    del params, opt, p2, o2, pairs
+    torch.cuda.empty_cache()
+
+    common = ["--arch", CKPT_LM_ARCH, "--preset", "full", "--seq",
+              str(CKPT_LM_SEQ), "--residency", "device", "--log-every", "1"]
+    full = T.main(common + ["--steps", "3", "--out",
+                            os.path.join(tmp, "ckpt_lm_full")])
+    d = os.path.join(tmp, "ckpt_lm")
+    t0 = time.time()
+    T.main(common + ["--steps", "2", "--save", "--out", d])
+    train_save_s = time.time() - t0
+    cfg = get_config(CKPT_LM_ARCH)
+    template = family_fns(cfg).init(
+        torch.Generator(device=dev).manual_seed(1), cfg)
+    t0 = time.time()
+    params = store.restore(d, template)
+    opt = store.restore(d, adamw_init(template), kind="opt")
+    plan = store.restore_plan(d)
+    torch.cuda.synchronize()
+    read_s = time.time() - t0
+    with open(os.path.join(d, "train_log.json")) as f:
+        saved = ExecutionPlan.from_dict(json.load(f)["plan"])
+    restored_step = opt["step"]
+    step = make_train_step(cfg, AdamWConfig(lr=T.LM_LR), plan=plan)
+    ds = TokenDataset(TokenDatasetConfig(vocab=cfg.vocab,
+                                         seq_len=CKPT_LM_SEQ, batch=8,
+                                         seed=0))
+    _, metrics = step({"params": params, "opt": opt},
+                      T.lm_batch(cfg, ds.batch_at(2), 2, 0, dev))
+    loss, want = float(metrics["loss"]), full[2]["loss"]
+    rel = abs(loss - want) / abs(want)
+    out["ckpt"] = {"vgg_leaf_bytes": leaf_bytes, "vgg_file_bytes": file_bytes,
+                   "vgg_write_s": write_s, "lm_rel": rel,
+                   "lm_bytes": _dir_bytes(d, ".npz")}
+    print(f"ckpt: xlstm_125m --save after 2 steps ({train_save_s:.1f} s "
+          f"with the save), {out['ckpt']['lm_bytes']} B of npz read in "
+          f"{read_s:.3f} s; restored plan {plan.describe()}; resumed "
+          f"third loss {loss} vs uninterrupted {want} (rel {rel:.3e}; "
+          f"AdamW step {restored_step} restored)", flush=True)
+    if plan != saved:
+        raise AssertionError(f"restored plan {plan} != saved {saved}")
+    if not rel <= CKPT_LM_TOL:
+        raise AssertionError(f"resumed loss differs by {rel}")
 
 
 def _gemma12(torch):
@@ -2002,7 +2363,7 @@ def _classify_peak(trace, saved, param_sizes):
 
 
 def phase_memory(torch, out, tmp):
-    """Allocator snapshots of four VGG-16 runs: every block live at the
+    """Allocator snapshots of five VGG-16 runs: every block live at the
     peak classed by what allocated it, beside the terms the Planner priced
     (``plan_terms`` in the train log); then OverL N=4 against ``base``
     with and without the cuDNN workspace class."""
@@ -2016,7 +2377,9 @@ def phase_memory(torch, out, tmp):
                         ("overlap", ["--strategy", "overlap", "--rows",
                                      "4"]),
                         ("overlap_h", ["--strategy", "overlap_h"]),
-                        ("budget", ["--budget-gb", str(BUDGET_GB)])):
+                        ("budget", ["--budget-gb", str(BUDGET_GB)]),
+                        ("pipeline", ["--strategy", "pipeline_rows",
+                                      "--rows", str(PIPE_ROWS)])):
         saved = []
 
         def pack(t):
@@ -2411,6 +2774,9 @@ def main() -> int:
                   ("budget", lambda: phase_budget(torch, out, tmp)),
                   ("train_resnet", lambda: phase_train_resnet(torch, out,
                                                               tmp)),
+                  ("pipeline", lambda: phase_pipeline(torch, out, tmp)),
+                  ("mesh", lambda: phase_mesh(torch, out, tmp)),
+                  ("ckpt", lambda: phase_ckpt(torch, out, tmp)),
                   ("kernel_swa", lambda: phase_kernel_swa(torch, out)),
                   ("kernel_ssd", lambda: phase_kernel_ssd(torch, out)),
                   ("train_lm_kernel", lambda: phase_train_lm_kernel(

@@ -89,3 +89,32 @@ class ImageDataset:
         imgs = imgs + rng.normal(0, 0.3, size=imgs.shape).astype(np.float32)
         return {"images": imgs.astype(np.float32),
                 "labels": labels.astype(np.int32)}
+
+
+def device_put_global(batch: Dict[str, np.ndarray], mesh,
+                      batch_axes=("pod", "data"), device="cpu"):
+    """This rank's slice of a host batch, each array's leading dim split
+    over the ``DeviceMesh``'s ``batch_axes`` (major to minor), as tensors
+    on ``device`` (counterpart of the reference's ``device_put_global``,
+    which places the global array; here each rank holds its own shard).
+    Only the slice is copied.  A batch the axes do not divide raises, as
+    the reference's placement does."""
+    import torch
+
+    from repro_torch.launch.sharding import (
+        axis_names, axis_sizes, placements, shard_of,
+    )
+    axes = tuple(a for a in batch_axes if a in axis_names(mesh))
+    extent = int(np.prod([axis_sizes(mesh)[a] for a in axes]))
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.asarray(v))
+        if t.ndim >= 1:
+            if t.shape[0] % extent:
+                raise ValueError(f"batch {k!r} of {t.shape[0]} does not "
+                                 f"divide over the mesh axes {axes} "
+                                 f"({extent})")
+            t = shard_of(t, placements((axes,) + (None,) * (t.ndim - 1),
+                                       mesh), mesh)
+        out[k] = t.to(device)
+    return out

@@ -17,6 +17,7 @@ from repro_torch.exec.registry import (
 from repro_torch.exec.rowprog import RowProgram, make_rowprog_apply
 from repro_torch.exec import engines as _engines  # noqa: F401  (registers)
 from repro_torch.exec import kernel_engines as _kernel_engines  # noqa: F401
+from repro_torch.exec import pipeline as _pipeline  # noqa: F401
 from repro_torch.exec.planner import (
     BUDGET_PREFERENCE, CNN_ENGINES, CUDA_ALTERNATE, CUDA_ENGINES,
     RESIDENCY_ENGINES, Planner, kernelize_plan, segment_row_capacity,

@@ -42,6 +42,7 @@ from typing import Iterator, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.exec.collectives import ColumnParallel, unwrap
 from repro_torch.exec.plan import ExecutionPlan, KernelSpec
 from repro_torch.exec.registry import register_engine
 from repro_torch.kernels import ops
@@ -70,7 +71,7 @@ def conv_tiles(modules: Sequence, in_shape: Tuple[int, int, int],
     shape = tuple(in_shape)
     for m in modules:
         out = m.out_shape(shape)
-        if isinstance(m, Conv):
+        if isinstance(unwrap(m), Conv):
             h_out, w_out, _ = out
             eligible = h_out >= 1 and w_out >= 1 \
                 and halo_ok(m.k, m.s, spec.block_h, h_out)
@@ -127,10 +128,12 @@ def _build_overlap_cuda(modules, plan: ExecutionPlan):
     spec = plan_kernel(plan)
     fns = []
     for m, _, out, eligible, _ in conv_tiles(modules, plan.in_shape, spec):
-        if eligible:
-            fns.append(_kernel_conv(m, max(1, min(spec.block_h, out[0]))))
-        else:
+        if not eligible:
             fns.append(m.apply)
+            continue
+        fn = _kernel_conv(unwrap(m), max(1, min(spec.block_h, out[0])))
+        # a column-parallel conv (model axis) runs the kernel on its slice
+        fns.append(m.wrap(fn) if isinstance(m, ColumnParallel) else fn)
 
     def apply(params, x):
         for fn, p in zip(fns, params):

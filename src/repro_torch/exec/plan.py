@@ -15,10 +15,11 @@ plan JSON written by the reference loads here.  The reference's
 kernel or plain version) and is dropped on load.
 
 :class:`ResidencySpec` is executed by the row-program executor
-(:mod:`repro_torch.exec.rowprog`).  :class:`MeshSpec` and
-:class:`StageSpec` are kept as plain data so such plans load; executing a
-plan with a multi-device mesh or stages is not ported yet, and
-:func:`repro_torch.exec.registry.build_apply` says so.
+(:mod:`repro_torch.exec.rowprog`), :class:`StageSpec` by the row pipeline
+(:mod:`repro_torch.exec.pipeline`), and a :class:`MeshSpec` by the shard
+wrappers :func:`repro_torch.exec.registry.build_apply` puts around an
+engine, over a ``torch.distributed`` group
+(:mod:`repro_torch.launch.mesh`).  All of them stay plain data here.
 """
 
 from __future__ import annotations
@@ -64,24 +65,47 @@ class MeshSpec:
         object.__setattr__(self, "axes", axes)
 
     @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return tuple(n for n, _ in self.axes)
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return tuple(s for _, s in self.axes)
+
+    @property
     def n_devices(self) -> int:
         n = 1
         for _, s in self.axes:
             n *= s
         return n
 
+    def extent(self, name: str) -> int:
+        """Size of axis ``name`` (1 when the axis is absent)."""
+        return dict(self.axes).get(name, 1)
+
+    @property
+    def data(self) -> int:
+        return self.extent(self.data_axis)
+
     @property
     def model(self) -> int:
         """Extent of the model axis (1 when the mesh has none)."""
-        return dict(self.axes).get(self.model_axis, 1)
+        return self.extent(self.model_axis)
+
+    @property
+    def batch_axes(self) -> Tuple[str, ...]:
+        """Axes the batch divides over: "pod" when present, then the data
+        axis (the logical name "batch" of :mod:`repro_torch.launch.
+        sharding`)."""
+        return tuple(n for n, _ in self.axes
+                     if n == "pod" or n == self.data_axis)
 
     @property
     def batch_extent(self) -> int:
         """Data-parallel extent (pod x data axes)."""
         n = 1
-        for name, s in self.axes:
-            if name == "pod" or name == self.data_axis:
-                n *= s
+        for name in self.batch_axes:
+            n *= self.extent(name)
         return n
 
     @classmethod
@@ -227,13 +251,42 @@ class StageSpec:
 
     def __post_init__(self):
         stages = tuple((int(a), int(b)) for a, b in self.stages)
-        if not stages or stages[0][0] != 0:
-            raise ValueError(f"stages must start at module 0: {stages}")
+        if not stages:
+            raise ValueError("StageSpec needs at least one stage")
+        if stages[0][0] != 0:
+            raise ValueError(f"first stage must start at module 0, got "
+                             f"{stages[0]}")
         for i, (a, b) in enumerate(stages):
-            if b <= a or (i and a != stages[i - 1][1]):
-                raise ValueError(f"stages must be non-empty and contiguous: "
-                                 f"{stages}")
+            if b <= a:
+                raise ValueError(f"stage {i} range ({a}, {b}) is empty")
+            if i and a != stages[i - 1][1]:
+                raise ValueError(f"stages must be contiguous: stage {i} "
+                                 f"starts at {a} but stage {i - 1} ends at "
+                                 f"{stages[i - 1][1]}")
         object.__setattr__(self, "stages", stages)
+
+    @property
+    def n_stages(self) -> int:
+        return len(self.stages)
+
+    @property
+    def n_modules(self) -> int:
+        return self.stages[-1][1]
+
+    @classmethod
+    def even(cls, n_modules: int, n_stages: int) -> "StageSpec":
+        """Split ``n_modules`` into ``n_stages`` contiguous near-even
+        ranges (the remainder spreads over the leading stages)."""
+        if not 1 <= n_stages <= n_modules:
+            raise ValueError(f"cannot split {n_modules} modules into "
+                             f"{n_stages} stages")
+        base, rem = divmod(n_modules, n_stages)
+        stages, start = [], 0
+        for s in range(n_stages):
+            end = start + base + (1 if s < rem else 0)
+            stages.append((start, end))
+            start = end
+        return cls(stages=tuple(stages))
 
     def describe(self) -> str:
         return "|".join(f"{a}:{b}" for a, b in self.stages)
@@ -315,14 +368,37 @@ class ExecutionPlan:
             + tuple(kv.items())
         return dataclasses.replace(self, extras=extras)
 
+    def per_device(self) -> "ExecutionPlan":
+        """This plan projected onto ONE device: batch and budget divided by
+        the data extent, estimates per device, mesh dropped (the stage
+        partition stays).  Identity for an unsharded plan."""
+        if self.mesh is None:
+            return self
+        k = self.data_shards
+        repl = dataclasses.replace(
+            self, mesh=None, batch=self.batch // k,
+            est_bytes=self.est_bytes_per_device,
+            est_bytes_per_device=self.est_bytes_per_device,
+            budget=self.budget // k)
+        if self.engine == "serve_pool":
+            # decode slots ARE the batch: shard the slot count too
+            repl = dataclasses.replace(repl, n_rows=max(1, self.n_rows // k))
+        return repl
+
     @classmethod
     def explicit(cls, engine: str, n_rows: int = 1,
                  in_shape: Optional[Tuple[int, int, int]] = None,
+                 n_segments: Optional[int] = None,
+                 mesh: Optional[MeshSpec] = None,
                  kernel: Optional[KernelSpec] = None,
+                 residency: Optional[ResidencySpec] = None,
+                 stage: Optional[StageSpec] = None,
                  **extras) -> "ExecutionPlan":
         """An unestimated plan pinning (engine, N)."""
         return cls(engine=engine, n_rows=n_rows, in_shape=in_shape,
-                   kernel=kernel, extras=tuple(extras.items()))
+                   n_segments=n_segments, mesh=mesh, kernel=kernel,
+                   residency=residency, stage=stage,
+                   extras=tuple(extras.items()))
 
     def describe(self) -> str:
         bits = [f"engine={self.engine}", f"N={self.n_rows}"]

@@ -28,9 +28,18 @@ The serving half sizes the decode-cache pool (``decode_slot_bytes``,
 per-layer-kind byte estimators in the ``SERVE_CACHE_BYTES`` registry; its
 integers equal the reference's.
 
-Not ported yet, and raising :class:`NotImplementedError` with what they
-wait for: ``stagedize`` where it would have to stage (and the staged
-alternates of the costed chooser), and serving plans over a mesh.
+The staged half plans the row pipeline (``pipeline_rows``,
+:mod:`repro_torch.exec.pipeline`): ``estimate_staged`` prices the worst
+stage per device (its GPipe stash, its OverL working set and its share of
+``xi`` over the model axis), ``plan_staged`` / ``solve_staged`` pin or
+solve N at an even S-stage partition, ``stagedize`` fits a
+single-stage-infeasible budget by pipelining stages over the model axis,
+the costed ``for_budget`` ranks the staged alternates beside the rest, and
+``predict_plan_us`` charges the GPipe bubble ``1 + (S-1)/N``.  Their
+integers and plan JSON equal the reference's.
+
+Not ported yet, and raising :class:`NotImplementedError`: serving plans
+over a mesh (slice 11).
 """
 
 from __future__ import annotations
@@ -44,7 +53,7 @@ from repro_torch.core import twophase as _tp
 from repro_torch.core.hybrid import auto_segments, max_rows_per_segment
 from repro_torch.exec.plan import (
     ExecutionPlan, KernelSpec, MeshSpec, PlanRequest, ResidencySpec,
-    batch_shards,
+    StageSpec, batch_shards,
 )
 from repro_torch.kernels import ssd_chunk as _ssd
 from repro_torch.kernels import swa_attention as _swa
@@ -450,7 +459,7 @@ class _ServePlannerMixin:
         if mesh is not None:
             raise _not_ported(
                 f"Planner.for_serve(mesh={mesh.describe()}): sharded "
-                f"decode-slot pools (they wait for the sharding slice)")
+                f"decode-slot pools (they wait for slice 11 of the port, the sharding slice)")
         known = serve_cache_kinds()
         if cache_kind not in known:
             raise KeyError(
@@ -526,9 +535,9 @@ class _ServePlannerMixin:
 
 class Planner(_ServePlannerMixin):
     """Solves (engine, N) for a CNN trunk.  ``xi`` is the paper's constant
-    (params + grads + optimizer state) added to every estimate.  A mesh is
-    accepted as plain data and divides batch and budget per device, as in
-    the reference; executing it is not ported yet.  With a ``cost_table``
+    (params + grads + optimizer state) added to every estimate.  A mesh
+    divides batch and budget per device, as in the reference, and its
+    model extent stages the row pipeline.  With a ``cost_table``
     (:class:`~repro_torch.exec.costmodel.CostTable`) budget-driven
     selection ranks feasible candidates by predicted step time instead of
     the static Table I order."""
@@ -616,10 +625,16 @@ class Planner(_ServePlannerMixin):
     def estimate(self, engine: str, n_rows: int,
                  n_segments: Optional[int] = None,
                  segments: Tuple[Tuple[int, int, int], ...] = (),
-                 residency: Optional[ResidencySpec] = None) -> int:
+                 residency: Optional[ResidencySpec] = None,
+                 stage: Optional[StageSpec] = None) -> int:
         """Peak activation bytes ONE device holds, plus ``xi``.
         ``residency`` re-prices the carry-based engines' SD caches; the
-        other engines carry nothing, so theirs is residency-invariant."""
+        other engines carry nothing, so theirs is residency-invariant.
+        ``stage`` routes ``"pipeline_rows"`` through the per-stage
+        accounting (:meth:`estimate_staged`)."""
+        if engine == "pipeline_rows":
+            return self.estimate_staged(
+                n_rows, stage or self._default_stage_spec())
         if engine == "base":
             return _rp.omega_column(self.modules, self.in_shape,
                                     self.dev_batch, self.dtype_bytes) + self.xi
@@ -665,7 +680,9 @@ class Planner(_ServePlannerMixin):
         hybrids add ``checkpoints`` and price their worst segment, whose
         terms carry a ``segment.`` prefix; every plan adds ``xi``.  The
         values sum to ``estimate`` for the plan's engine, N, segments and
-        residency.  A CUDA alternate keeps the estimate of the engine it
+        residency.  A pipelined plan prices its worst stage: ``stash``
+        (the GPipe stash at the stage's input), its OverL terms under a
+        ``stage.`` prefix and its share of ``xi``.  A CUDA alternate keeps the estimate of the engine it
         replaced, so ``overlap_cuda`` is split as ``overlap`` or, where
         that does not give its estimate, as ``base``."""
         if plan.engine == "overlap_cuda":
@@ -675,6 +692,9 @@ class Planner(_ServePlannerMixin):
                          == plan.est_bytes_per_device), split[0])
         engine = plan.engine
         res, n = plan.residency, max(1, plan.n_rows)
+        if engine == "pipeline_rows":
+            return self._staged_terms(n, plan.stage
+                                      or self._default_stage_spec())
         if engine == "base":
             terms = self._block_terms(self.modules, self.in_shape, "column",
                                       1, res)
@@ -701,6 +721,23 @@ class Planner(_ServePlannerMixin):
                              f"engine; known: {list(CNN_ENGINES)}")
         terms["xi"] = self.xi
         return terms
+
+    def _staged_terms(self, n_rows: int, stage: StageSpec) -> dict:
+        """:meth:`estimate_staged`'s worst stage as named terms."""
+        shapes = self._shapes()
+        db, B = self.dtype_bytes, self.dev_batch
+        worst = None
+        for a, b in stage.stages:
+            t = {"stash": (B * shapes[a][0] * shapes[a][1] * shapes[a][2]
+                           * db if a > 0 else 0)}
+            t.update({f"stage.{k}": v for k, v in self._block_terms(
+                self.modules[a:b], shapes[a], "overlap", n_rows,
+                None).items()})
+            if worst is None or sum(t.values()) > sum(worst.values()):
+                worst = t
+        model = self.mesh.model if self.mesh is not None else 1
+        worst["xi"] = self.xi // max(1, model)
+        return worst
 
     def sd_volume(self, plan: ExecutionPlan) -> Optional[dict]:
         """The SD caches one step of a 2PS plan moves, as priced (every
@@ -731,11 +768,16 @@ class Planner(_ServePlannerMixin):
     def plan(self, engine: str, n_rows: int = 1,
              n_segments: Optional[int] = None, budget: int = 0,
              residency: Optional[ResidencySpec] = None,
+             stage: Optional[StageSpec] = None,
              **extras) -> ExecutionPlan:
         """An explicit (engine, N) request as a full plan with estimates
         and, for the checkpointed engines, pinned segments; ``residency``
-        is priced and recorded on the plan."""
+        is priced and recorded on the plan.  ``"pipeline_rows"`` goes to
+        :meth:`plan_staged` (``stage`` pins the partition)."""
         n_rows = max(1, n_rows)
+        if engine == "pipeline_rows":
+            return self.plan_staged(n_rows, stage, budget=budget,
+                                    residency=residency, **extras)
         segments: Tuple[Tuple[int, int, int], ...] = ()
         if engine in INNER_STRATEGY:
             segments = self._segments(n_rows, INNER_STRATEGY[engine],
@@ -758,6 +800,8 @@ class Planner(_ServePlannerMixin):
         """min N s.t. estimate(engine, N) < budget (Eqs. 9/10/12/16 plus
         the Sec. IV validity bounds), as a plan; per device under a
         mesh."""
+        if engine == "pipeline_rows":
+            return self.solve_staged(budget=budget, residency=residency)
         if engine == "twophase" and _offloads(residency):
             # the validity-bounded scan solve_n does, against the
             # offloaded estimate
@@ -839,22 +883,107 @@ class Planner(_ServePlannerMixin):
                         f"N={p.n_rows}"))
         return plan
 
+    # -- staged (pipelined) plans: Eqs. 7-16 per stage --------------------
+    def _default_stage_spec(self, n_stages: Optional[int] = None
+                            ) -> StageSpec:
+        """Even partition with S = the mesh's model extent when it has one
+        (one stage per model shard), else 2 — capped at the module count."""
+        if n_stages is None:
+            model = self.mesh.model if self.mesh is not None else 1
+            n_stages = model if model > 1 else 2
+        return StageSpec.even(len(self.modules),
+                              max(1, min(n_stages, len(self.modules))))
+
+    def estimate_staged(self, n_rows: int, stage: StageSpec) -> int:
+        """Per-device bytes of the pipelined schedule: the worst stage's
+        (a) GPipe stash — one full feature map at the stage's input level
+        (stage 0 reads the batch input, which every engine already
+        charges, so its stash is 0) — plus (b) the OverL working set of its
+        own sub-trunk at granularity N, plus (c) its share of ``xi``, which
+        divides by the model extent (each model shard holds only its
+        stages' parameters)."""
+        if stage.n_modules != len(self.modules):
+            raise ValueError(
+                f"StageSpec covers {stage.n_modules} modules but the trunk "
+                f"has {len(self.modules)}")
+        shapes = self._shapes()
+        db, B = self.dtype_bytes, self.dev_batch
+        model = self.mesh.model if self.mesh is not None else 1
+        xi_s = self.xi // max(1, model)
+        worst = 0
+        for a, b in stage.stages:
+            stash = (B * shapes[a][0] * shapes[a][1] * shapes[a][2] * db
+                     if a > 0 else 0)
+            work = _rp.estimate_bytes(self.modules[a:b], shapes[a], B,
+                                      "overlap", n_rows, db)
+            worst = max(worst, stash + work + xi_s)
+        return worst
+
+    def plan_staged(self, n_rows: int, stage: Optional[StageSpec] = None,
+                    budget: int = 0,
+                    residency: Optional[ResidencySpec] = None,
+                    **extras) -> ExecutionPlan:
+        """Explicit ``pipeline_rows`` plan: N row microbatches through the
+        stage partition (default :meth:`_default_stage_spec`), feasible
+        per stage and per device."""
+        n_rows = max(1, n_rows)
+        stage = stage or self._default_stage_spec()
+        dev_est = self.estimate_staged(n_rows, stage)
+        return ExecutionPlan(
+            engine="pipeline_rows", n_rows=n_rows, in_shape=self.in_shape,
+            batch=self.batch, dtype_bytes=self.dtype_bytes,
+            est_bytes=dev_est * self.shards, est_bytes_per_device=dev_est,
+            budget=budget,
+            feasible=(budget == 0 or dev_est < budget // self.shards),
+            mesh=self.mesh, residency=residency, stage=stage,
+            extras=tuple(extras.items()))
+
+    def solve_staged(self, n_stages: Optional[int] = None, budget: int = 0,
+                     residency: Optional[ResidencySpec] = None
+                     ) -> Optional[ExecutionPlan]:
+        """min N such that the worst stage fits the per-device budget, at
+        the even S-stage partition; the smallest-estimate loser when
+        nothing fits."""
+        stage = self._default_stage_spec(n_stages)
+        best: Optional[ExecutionPlan] = None
+        for n in range(1, self.n_max + 1):
+            try:
+                p = self.plan_staged(n, stage, budget=budget,
+                                     residency=residency)
+            except ValueError:
+                break  # N exceeds a stage's row-split bound; larger N too
+            if p.feasible:
+                return p
+            if best is None or p.est_bytes < best.est_bytes:
+                best = p
+        return best
+
     def stagedize(self, plan: Optional[ExecutionPlan],
                   budget: Optional[int] = None,
                   residency: Optional[ResidencySpec] = None
                   ) -> Optional[ExecutionPlan]:
-        """The model-axis fallback: a feasible plan, a zero budget or a
-        mesh with no model extent come back unchanged, as in the
-        reference; pipelining stages over a model axis is not ported
-        yet."""
+        """Fit a single-stage-infeasible plan by pipelining stages over
+        the model axis (the model-parallel counterpart of
+        :meth:`residencize`, run after it): tries S = 2 .. min(model
+        extent, L) and returns the first feasible staged solve, recording
+        why under the ``pipeline`` extra.  A feasible plan, a zero budget
+        or a mesh with no model extent come back unchanged."""
         if plan is None or plan.feasible:
             return plan
         budget = plan.budget if budget is None else budget
         model = self.mesh.model if self.mesh is not None else 1
         if not budget or model <= 1:
             return plan
-        raise _not_ported("Planner.stagedize over a model axis (pipelined "
-                          "stages, exec/pipeline.py)")
+        dev_budget = budget // self.shards
+        for n_stages in range(2, min(model, len(self.modules)) + 1):
+            p = self.solve_staged(n_stages, budget, residency=residency)
+            if p is not None and p.feasible:
+                return p.with_extras(pipeline=(
+                    f"single-stage solve infeasible (best {plan.engine} "
+                    f"needs {plan.est_bytes_per_device} B/device > budget "
+                    f"{dev_budget}); S={n_stages} pipeline stages over the "
+                    f"model axis fit at N={p.n_rows}"))
+        return plan
 
     @classmethod
     def for_budget(cls, modules: Sequence, in_shape: Tuple[int, int, int],
@@ -1061,7 +1190,8 @@ class Planner(_ServePlannerMixin):
         under host residency, scaled by the audit-seeded byte-honesty
         ratio for the matching plan group.  The step pays ``max(compute,
         copy)`` (prefetch hides copies behind the adjacent row) plus
-        per-row dispatch overhead.
+        per-row dispatch overhead.  A pipelined plan also stretches its
+        compute by the GPipe fill/drain bubble ``1 + (S-1)/N``.
 
         One departure from the reference: the halo and SD terms split the
         trunk into at most as many rows as its last level has (OverL-H and
@@ -1085,7 +1215,8 @@ class Planner(_ServePlannerMixin):
         engine = plan.engine
         if engine in INNER_STRATEGY:  # segment recompute: one extra FP
             flops += fwd
-        if engine in ("overlap", "overlap_h", "overlap_cuda") and n > 1:
+        if engine in ("overlap", "overlap_h", "overlap_cuda",
+                      "pipeline_rows") and n > 1:
             halo = _rp.overlap_halo_bytes(self.modules, self.in_shape,
                                           self.dev_batch, n_split,
                                           self.dtype_bytes)
@@ -1112,6 +1243,10 @@ class Planner(_ServePlannerMixin):
                               else "device", "")
         scale = table.ratio(key)
         compute = table.compute_us(flops)
+        if engine == "pipeline_rows" and plan.stage is not None:
+            # GPipe fill/drain bubble: (S-1) of (N+S-1) ticks run below
+            # full stage occupancy, charged as compute stretch
+            compute *= 1.0 + (plan.stage.n_stages - 1) / n
         copy = table.copy_us(d2h * scale, h2d * scale)
         return {"us": max(compute, copy) + table.row_overhead_us * n,
                 "compute_us": compute, "copy_us": copy, "flops": flops,
@@ -1138,9 +1273,14 @@ class Planner(_ServePlannerMixin):
                     p = self.solve(engine, budget, residency=spec)
                     if p is not None:
                         pool.append(p)
-        if self.mesh is not None and self.mesh.model > 1:
-            raise _not_ported("the costed chooser's staged alternates over "
-                              "a model axis (exec/pipeline.py)")
+        model = self.mesh.model if self.mesh is not None else 1
+        if model > 1:
+            # staged alternates join the pool too: the roofline's bubble
+            # term prices their fill/drain ramp against the offload copies
+            for n_stages in range(2, min(model, len(self.modules)) + 1):
+                p = self.solve_staged(n_stages, budget, residency=residency)
+                if p is not None:
+                    pool.append(p)
         feasible = [p for p in pool if p.feasible]
         if not feasible:
             best = min(device_pool, key=lambda p: p.est_bytes)

@@ -21,13 +21,20 @@ per-row outputs.  A :class:`RowProgram` names that shape:
   it out; it writes into one preallocated gradient per arg, where
   autograd through ``x[:, a:b]`` would allocate a full-size zero tensor
   per row;
-* ``row_step(carry, row_args, r) -> (carry_out, y_r)`` — one row;
+* ``row_step(carry, row_args, r) -> (carry_out, y_r)`` — one row
+  (``y_r`` None for a row that outputs nothing, as a pipeline's fill
+  ticks);
 * ``finish(ys)``                — merge the per-row outputs;
 * ``out_cotangent(g, r)``       — row ``r``'s slice of the output
   cotangent (the transpose of ``finish``);
 * ``carry_names(r)``            — one name per carry leaf entering row
   ``r`` (or one string naming all), which a
-  :class:`~repro_torch.exec.plan.ResidencySpec` targets.
+  :class:`~repro_torch.exec.plan.ResidencySpec` targets;
+* ``row_vjp(carry_in, row_args, need, g, dcarry_out, r) -> (drow,
+  dcarry_in)`` — optional: row ``r``'s VJP done by the program itself
+  (the row pipeline backpropagates each stage of a tick on its own, in
+  rows of its own).  Without it the executor re-runs ``row_step`` under
+  ``enable_grad`` and differentiates the whole row at once.
 
 :func:`make_rowprog_apply` turns a program into ``apply(*args)`` backed by
 one ``torch.autograd.Function``: the forward sweeps the rows without a
@@ -337,36 +344,47 @@ class _RowProgFunction(torch.autograd.Function):
                          recomputes="recompute" in place.policies(leaves, r))
                 obs.counter("rowprog.bp_rows").inc()
             carry_in = place.regenerate(leaves, args, r)
-            c = [t.detach().requires_grad_() for t in carry_in]
-            ra = [_detached(t, n) for t, n in
-                  zip(prog.row_args(args, r), need)]
-            with torch.enable_grad(), obs.profile_range("row_recompute"):
-                carry_out, y = prog.row_step(tuple(c), tuple(ra), r)
-            outs, cots = [], []
-            if g is not None:
-                outs.append(y)
-                cots.append(prog.out_cotangent(g, r))
-            if dcarry is not None:
-                pairs = [(t, d) for t, d in zip(carry_out, dcarry)
-                         if d is not None and t.requires_grad]
-                outs += [t for t, _ in pairs]
-                cots += [d for _, d in pairs]
-                del pairs
-            used = [t for t in ra if t is not None and t.requires_grad]
-            grads = torch.autograd.grad(outs, used + c, cots,
-                                        allow_unused=True) \
-                if outs else (None,) * (len(used) + len(c))
-            it = iter(grads)
-            drow = [next(it) if t is not None and t.requires_grad else None
-                    for t in ra]
-            dcarry = list(it)
+            row_args = prog.row_args(args, r)
+            if hasattr(prog, "row_vjp"):
+                drow, dcarry = prog.row_vjp(carry_in, row_args, need, g,
+                                            dcarry, r)
+            else:
+                drow, dcarry = _recompute_vjp(prog, carry_in, row_args, need,
+                                              g, dcarry, r)
             prog.add_row_grad(dargs, drow, r)
-            # release this row's carry, recomputed outputs and input
-            # gradients (now in dargs) before the next row is recomputed
-            del grads, it, drow, outs, cots, carry_out, y, used, c, ra, \
-                leaves, carry_in
+            # release this row's carry and input gradients (now in dargs)
+            # before the next row is recomputed
+            del drow, row_args, leaves, carry_in
         _add_init_grad(prog, args, need, dargs, dcarry)
         return (None, None, *dargs)
+
+
+def _recompute_vjp(prog: RowProgram, carry_in, row_args, need, g, dcarry,
+                   r: int):
+    """Row ``r``'s VJP by recomputation: re-run ``row_step`` under
+    ``enable_grad`` and take the gradients of its outputs (row ``r``'s
+    slice of ``g``, and ``dcarry`` for the carry it exported) with respect
+    to its row args and incoming carry.  Returns ``(drow, dcarry_in)``."""
+    c = [t.detach().requires_grad_() for t in carry_in]
+    ra = [_detached(t, n) for t, n in zip(row_args, need)]
+    with torch.enable_grad(), obs.profile_range("row_recompute"):
+        carry_out, y = prog.row_step(tuple(c), tuple(ra), r)
+    outs, cots = [], []
+    if g is not None and y is not None:  # None: a tick no row drains
+        outs.append(y)
+        cots.append(prog.out_cotangent(g, r))
+    if dcarry is not None:
+        pairs = [(t, d) for t, d in zip(carry_out, dcarry)
+                 if d is not None and t.requires_grad]
+        outs += [t for t, _ in pairs]
+        cots += [d for _, d in pairs]
+    used = [t for t in ra if t is not None and t.requires_grad]
+    grads = torch.autograd.grad(outs, used + c, cots, allow_unused=True) \
+        if outs else (None,) * (len(used) + len(c))
+    it = iter(grads)
+    drow = [next(it) if t is not None and t.requires_grad else None
+            for t in ra]
+    return drow, list(it)
 
 
 def _add_init_grad(prog: RowProgram, args, need, dargs, dcarry) -> None:

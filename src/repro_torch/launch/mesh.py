@@ -1,0 +1,94 @@
+"""Process groups and meshes: the bridge from a plan's serializable
+:class:`~repro_torch.exec.plan.MeshSpec` to a live
+``torch.distributed.device_mesh.DeviceMesh`` (counterpart of
+``repro.launch.mesh``).
+
+One rank is one process.  Where the reference places a sharded array on
+the devices of one host, the port runs one process per mesh coordinate,
+each holding its own shard, and the collectives go through
+``torch.distributed``.  The process group's backend follows from where
+the ranks live (:func:`backend_for`): ``nccl`` when each rank has a card
+of its own, ``gloo`` on the CPU and when ranks share a card (NCCL refuses
+two ranks on one device).  Nothing falls back from one to the other: a
+backend that fails to start raises.
+
+Importing this module touches no device and no process group.  The
+reference's TPU v5e constants are not carried over; the H100's come with
+the roofline.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.exec.plan import MeshSpec
+
+
+def production_mesh_spec(*, multi_pod: bool = False) -> MeshSpec:
+    """The reference's production meshes, as plan-embeddable specs."""
+    if multi_pod:
+        return MeshSpec(axes=(("pod", 2), ("data", 16), ("model", 16)))
+    return MeshSpec(axes=(("data", 16), ("model", 16)))
+
+
+def backend_for(device: torch.device, world_size: int) -> str:
+    """``nccl`` when every rank has a card of its own, else ``gloo`` (the
+    CPU, or ranks that share a card)."""
+    device = torch.device(device)
+    if device.type == "cuda" and world_size <= torch.cuda.device_count():
+        return "nccl"
+    return "gloo"
+
+
+def init_from_env(device: torch.device) -> Optional[str]:
+    """Join the process group ``torchrun`` describes in the environment
+    (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
+    ``MASTER_PORT``), with the backend :func:`backend_for` picks; returns
+    it, or None when the group already exists (a caller that spawned its
+    ranks joined it itself) or the environment names no group.  Under
+    ``nccl`` each rank takes the card ``LOCAL_RANK``."""
+    if dist.is_initialized() or "WORLD_SIZE" not in os.environ:
+        return None
+    world = int(os.environ["WORLD_SIZE"])
+    backend = backend_for(device, world)
+    if backend == "nccl":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    dist.init_process_group(backend, init_method="env://")
+    return backend
+
+
+def rank_device(device: torch.device) -> torch.device:
+    """This rank's device: under ``nccl`` its own card, else ``device``
+    (gloo ranks on one card share it)."""
+    device = torch.device(device)
+    if device.type == "cuda" and dist.is_initialized() \
+            and dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def build_mesh(spec: MeshSpec):
+    """Realise a plan's :class:`MeshSpec` over the ranks of the default
+    process group (row-major: rank ``r`` sits at the coordinate ``r``
+    unravels to in ``spec.shape``).
+
+    Raises with a pointer to ``plan.per_device()`` when the group has
+    fewer ranks than the spec asks for (none at all counts as one): a
+    logged sharded plan still replays on one device through its
+    per-device sub-plan."""
+    from torch.distributed.device_mesh import DeviceMesh
+    have = dist.get_world_size() if dist.is_initialized() else 1
+    n = spec.n_devices
+    if have < n:
+        raise ValueError(
+            f"mesh {spec.describe()} needs {n} devices but the process "
+            f"group has {have} ranks; replay the plan's single-device "
+            f"projection (plan.per_device()) or start {n} ranks (torchrun "
+            f"--nproc-per-node {n})")
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    mesh = torch.arange(n).reshape(spec.shape)
+    return DeviceMesh(device_type, mesh, mesh_dim_names=spec.axis_names)

@@ -13,8 +13,8 @@ requests carry ``n_frontend_tokens`` patch embeddings each, and an
 encoder-decoder's carry frames as long as ``--prompt-len`` (the pool's
 ``enc_len``; enc-dec pools are ``--cache-kind full`` only).  Every flag of
 the reference is
-here except ``--mesh``, which raises (sharded pools wait for the sharding
-slice); ``--torch-profile DIR`` stands for ``--jax-profile``, and
+here except ``--mesh``, which raises (sharded pools wait for slice 11 of
+the port); ``--torch-profile DIR`` stands for ``--jax-profile``, and
 ``--device`` (default ``cuda``; it raises when no card is present and
 never falls back to the CPU) picks where parameters, pool and decode
 live.  Parameters are initialised from ``--seed`` on that device.  The
@@ -164,8 +164,8 @@ def serve_from_args(args, cfg=None, params=None, **overrides):
 
     if args.mesh:
         raise NotImplementedError("--mesh is not ported yet (sharded "
-                                  "decode pools wait for the sharding "
-                                  "slice)")
+                                  "decode pools wait for slice 11 of the "
+                                  "port, the sharding slice)")
     device = _device(args.device)
     if cfg is None:
         cfg = get_reduced(args.arch) if args.preset == "reduced" \

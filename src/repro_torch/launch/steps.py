@@ -1,6 +1,6 @@
 """The LM train, prefill and serve steps (counterpart of
 ``repro.launch.steps``; the sharded steps, ``build_jitted`` and the
-shape/sharding helpers wait for the sharding slice).
+shape/sharding helpers wait for slice 11 of the port).
 """
 
 from __future__ import annotations

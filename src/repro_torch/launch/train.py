@@ -63,11 +63,34 @@ Observability and planning flags, on both trainers:
   with it, so a budget-driven CNN solve ranks candidates by predicted
   step time.
 
+Sharding and checkpoints:
+
+* ``--mesh data=2`` (or ``data=1,model=2``, ``pod=...``) on the CNN
+  trainer runs one rank per mesh coordinate.  Under ``torchrun`` the
+  trainer joins the group the environment describes (``nccl`` when each
+  rank has a card, ``gloo`` on the CPU or when ranks share a card;
+  :mod:`repro_torch.launch.mesh`); a caller that spawned its ranks joins
+  the group itself first.  The Planner solves per device, the plan's mesh
+  makes ``build_apply`` wrap the engine in the CNN shard wrapper, and each
+  rank takes its slice of ``ImageDataset.batch_at(step)`` through
+  ``device_put_global``.  Only rank 0 prints and writes ``train_log.json``;
+  every rank returns the records::
+
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch vgg16 --preset reduced --strategy overlap --rows 2 \
+        --mesh data=2 --batch 4 --steps 3 --device cpu --out /tmp/t
+
+  ``--mesh`` on the LM trainer raises: the LM's sharded step comes with
+  slice 11 of the port.
+* ``--save`` on the LM trainer writes the params, the AdamW state,
+  ``{"arch": ...}`` and the plan into ``--out`` after the last step
+  (:mod:`repro_torch.ckpt.store`), as the reference does; the CNN trainer
+  saves nothing, as in the reference.
+
 Differences from the reference: ``--batch`` defaults to the config's batch
 for CNNs (32 for the full preset), ``--lr`` to 0.05 for CNNs and 3e-4 for
 LMs, the kernel backends are named ``plain``/``cuda``, and
-``--torch-profile`` stands for ``--jax-profile``.  ``--mesh`` is not
-ported yet and raises; ``--save`` (checkpoints) is not there yet.
+``--torch-profile`` stands for ``--jax-profile``.
 """
 
 from __future__ import annotations
@@ -93,19 +116,15 @@ from repro_torch.optim.adamw import (
     tree_map,
 )
 
-#: flags of the reference trainer that wait for later slices of the port
-_NOT_PORTED_FLAGS = ("mesh",)
 CNN_ARCHS = ("vgg16", "resnet50")
 #: the reference's CNN learning rate; LMs take AdamW's 3e-4
 CNN_LR, LM_LR = 0.05, 3e-4
 
 
 
-def _check_flags(args) -> None:
-    for name in _NOT_PORTED_FLAGS:
-        if getattr(args, name) not in (None, ""):
-            raise NotImplementedError(
-                f"--{name.replace('_', '-')} is not ported yet")
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 def _device(name: str) -> torch.device:
@@ -174,16 +193,33 @@ def _loss_grads(loss, params):
 def train_cnn(args, params=None):
     """Train ``args.steps`` SGD steps; returns the step records.  ``params``
     (a tree on the target device) replaces the seeded init — the parity
-    tests pass the reference's init through it."""
-    _check_flags(args)
+    tests pass the reference's init through it.  Under ``--mesh`` a
+    process group the run joins from the environment ends with the run."""
+    import torch.distributed as dist
+
+    from repro_torch.exec import MeshSpec
+    from repro_torch.launch.mesh import init_from_env, rank_device
     if args.arch not in CNN_ARCHS:
         raise ValueError(f"--arch {args.arch} is not a CNN; CNN archs: "
                          f"{list(CNN_ARCHS)}")
+    device = _device(args.device)
+    mesh_spec = MeshSpec.parse(args.mesh) if args.mesh else None
+    if mesh_spec is not None and init_from_env(device):
+        try:
+            return _train_cnn(args, params, rank_device(device), mesh_spec)
+        finally:
+            dist.destroy_process_group()
+    return _train_cnn(args, params, rank_device(device), mesh_spec)
+
+
+def _train_cnn(args, params, device, mesh_spec):
     import importlib
+    from repro_torch.data.pipeline import device_put_global
     from repro_torch.exec import Planner, build_apply
+    from repro_torch.launch.mesh import build_mesh
     from repro_torch.models.cnn import resnet, vgg
 
-    device = _device(args.device)
+    say = print if _rank() == 0 else (lambda *a, **k: None)
     # the parity the port is held to is fp32 (1e-5): cuDNN convolutions
     # default to TF32 on the card, which keeps ~3 decimal digits
     torch.backends.cudnn.allow_tf32 = False
@@ -233,11 +269,14 @@ def train_cnn(args, params=None):
              budget_gb=req.budget_gb, n_segments=req.n_segments,
              mesh=args.mesh or req.mesh, kernel=req.kernel,
              residency=req.residency),
-        lambda table: Planner(mods, shape, batch, xi=xi,
+        lambda table: Planner(mods, shape, batch, xi=xi, mesh=mesh_spec,
                               cost_table=table).resolve(req), device)
-    print("plan:", plan.describe(), flush=True)
+    say("plan:", plan.describe(), flush=True)
+    # plan.mesh makes build_apply wrap the engine in the CNN shard wrapper;
+    # the trainer holds no sharding code beyond its batch slice
     trunk_apply = build_apply(mods, plan)
-    print(f"arch={ccfg.arch} engine={plan.engine} N={plan.n_rows} "
+    mesh = build_mesh(mesh_spec) if mesh_spec is not None else None
+    say(f"arch={ccfg.arch} engine={plan.engine} N={plan.n_rows} "
           f"params={n_params / 1e6:.1f}M image={ccfg.image} batch={batch} "
           f"device={device}", flush=True)
 
@@ -271,7 +310,13 @@ def train_cnn(args, params=None):
         with obs.profile_range(f"train_step {step}"):
             with obs.profile_range("data"):
                 hb = ds.batch_at(step)
-                images = torch.from_numpy(hb["images"]).to(device)
+                if mesh is not None:
+                    # this rank's slice of the global batch; the trunk's
+                    # output comes back whole, and so do the labels
+                    images = device_put_global(hb, mesh,
+                                               device=device)["images"]
+                else:
+                    images = torch.from_numpy(hb["images"]).to(device)
                 labels = torch.from_numpy(hb["labels"]).long().to(device)
             if step == 0 and obs.enabled():
                 (params, opt, loss), audit = _audit_step(
@@ -281,13 +326,16 @@ def train_cnn(args, params=None):
                 params, opt, loss = train_step(params, opt, images, labels)
             if step % args.log_every == 0 or step == args.steps - 1:
                 steplog.log({"step": step, "loss": loss.item(),
-                             "elapsed_s": round(time.time() - t0, 3)})
-    # the estimate's terms, so a measured peak can be read against each
-    priced = Planner(mods, shape, batch, xi=xi)
-    steplog.dump(os.path.join(args.out, "train_log.json"),
-                 arch=ccfg.arch, mode="cnn", plan=plan.to_dict(),
-                 plan_audit=audit, plan_terms=priced.estimate_terms(plan),
-                 plan_sd=priced.sd_volume(plan))
+                             "elapsed_s": round(time.time() - t0, 3)},
+                            echo=_rank() == 0)
+    if _rank() == 0:
+        # the estimate's terms, so a measured peak can be read against each
+        priced = Planner(mods, shape, batch, xi=xi, mesh=mesh_spec)
+        steplog.dump(os.path.join(args.out, "train_log.json"),
+                     arch=ccfg.arch, mode="cnn", plan=plan.to_dict(),
+                     plan_audit=audit,
+                     plan_terms=priced.estimate_terms(plan),
+                     plan_sd=priced.sd_volume(plan))
     return steplog.records
 
 
@@ -316,7 +364,11 @@ def train_lm(args, cfg=None, params=None):
     ``params`` (a tree on the target device) the seeded init: the chip
     smoke cuts the depth through the first, the parity tests pass the
     reference's init through the second."""
-    _check_flags(args)
+    if args.mesh:
+        raise NotImplementedError(
+            "--mesh on the LM trainer is not ported yet: the LM's sharded "
+            "step comes with slice 11 of the port")
+    from repro_torch.ckpt import store
     from repro_torch.configs import get_config, get_reduced
     from repro_torch.exec import Planner, ResidencySpec
     from repro_torch.launch.steps import make_train_step
@@ -390,6 +442,11 @@ def train_lm(args, cfg=None, params=None):
                 rec = {k: float(v) for k, v in metrics.items()}
                 rec.update(step=step, elapsed_s=round(time.time() - t0, 3))
                 steplog.log(rec)
+    if args.save:
+        # the executed plan rides along as a JSON sidecar, so the
+        # checkpoint replays its own policy
+        store.save(args.out, args.steps, state["params"], state["opt"],
+                   {"arch": cfg.name}, plan=plan)
     steplog.dump(os.path.join(args.out, "train_log.json"),
                  arch=cfg.name, mode="lm",
                  plan=plan.to_dict() if plan is not None else None,
@@ -438,9 +495,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--out", default="experiments/train")
-    for flag in _NOT_PORTED_FLAGS:
-        ap.add_argument("--" + flag.replace("_", "-"), default=None,
-                        help="not ported yet")
+    ap.add_argument("--mesh", default="",
+                    help="CNN: device mesh, e.g. data=2 or data=1,model=2; "
+                         "one rank per coordinate (torchrun), the budget "
+                         "per device (LM: not ported yet, raises)")
+    ap.add_argument("--save", action="store_true",
+                    help="LM: checkpoint params, AdamW state and plan into "
+                         "--out after the last step")
     add_plan_cache_arg(ap)
     add_obs_args(ap)
     return ap

@@ -1,5 +1,6 @@
 """Optimizers on parameter trees: SGD-momentum (the paper's CNN regime) and
-AdamW, with global-norm clipping (counterpart of ``repro.optim.adamw``).
+AdamW, with global-norm clipping, and the LR schedules (counterpart of
+``repro.optim.adamw``).
 
 A parameter tree is nested dicts, lists and tuples of tensors, walked in the
 reference's leaf order (dict keys sorted); ``None`` is an empty subtree, as
@@ -12,6 +13,7 @@ the same end).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, List
 
 import torch
@@ -137,3 +139,24 @@ def sgd_update(params, grads, state, cfg: SGDConfig, lr_scale=1.0):
     vel = tree_map(momentum, params, grads, state["vel"])
     new_p = tree_map(descend, params, vel)
     return new_p, {"vel": vel}, {"grad_norm": gnorm}
+
+
+# ---------------------------------------------------------------------------
+# LR schedules (the reference's; its trainer calls neither, and neither
+# does this one)
+# ---------------------------------------------------------------------------
+
+
+def warmup_cosine(step, *, warmup: int, total: int, floor: float = 0.1):
+    """Linear warmup to 1 over ``warmup`` steps, then a cosine decay to
+    ``floor`` at ``total``.  ``step`` is a Python int or a 0-d tensor; the
+    result is an fp32 0-d tensor whose value equals the reference's."""
+    t = torch.as_tensor(step).to(torch.float32)
+    warm = torch.clamp(t / max(1, warmup), max=1.0)
+    prog = torch.clamp((t - warmup) / max(1, total - warmup), 0.0, 1.0)
+    cos = floor + (1 - floor) * 0.5 * (1 + torch.cos(math.pi * prog))
+    return warm * cos
+
+
+def constant(step, **_):
+    return 1.0

@@ -140,20 +140,27 @@ def test_plan_overlap_chains_equal(n_rows):
 
 
 def test_unported_engine_says_so():
+    """Every engine of the reference is ported (the row pipeline came
+    last); an unknown engine names the ported ones."""
+    from repro_torch.exec.registry import NOT_PORTED
+    assert NOT_PORTED == {}
     plan = ExecutionPlan.explicit("pipeline_rows", 2, in_shape=SHAPE)
-    with pytest.raises(KeyError, match="not ported yet") as e:
-        build_apply(vgg16_modules(0.125, 3), plan)
-    assert "base, ckp, overlap, overlap_cuda, overlap_h" in str(e.value)
-    with pytest.raises(KeyError, match="unknown engine"):
+    assert callable(build_apply(vgg16_modules(0.125, 3), plan))
+    with pytest.raises(KeyError, match="unknown engine") as e:
         build_apply([], ExecutionPlan.explicit("nope"))
+    assert "base, ckp, overlap, overlap_cuda, overlap_h" in str(e.value)
+    assert "pipeline_rows, pipeline_seq" in str(e.value)
 
 
 def test_sharded_and_offloading_plans_raise():
-    """Sharded plans still raise; offloading residencies now run."""
+    """A sharded plan needs as many ranks as its mesh has devices (one
+    process here: it raises and points to the per-device projection;
+    ``tests/test_torch_sharding.py`` runs them in process groups);
+    offloading residencies run."""
     import dataclasses
     plan = ExecutionPlan.explicit("overlap", 2, in_shape=SHAPE)
     mods = vgg16_modules(0.125, 3)
-    with pytest.raises(NotImplementedError, match="sharded"):
+    with pytest.raises(ValueError, match=r"per_device\(\)"):
         build_apply(mods, dataclasses.replace(
             plan, mesh=MeshSpec.parse("data=2")))
     # a one-device mesh is fine, and a residency reaches the engine (the

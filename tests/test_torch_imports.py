@@ -59,3 +59,12 @@ def test_serving_modules_are_walked():
     assert {"serve/__init__.py", "serve/cache_pool.py", "serve/engine.py",
             "serve/pages.py", "serve/request.py", "serve/scheduler.py",
             "launch/serve.py"} <= names
+
+
+def test_pipeline_mesh_and_checkpoint_modules_are_walked():
+    """The walk covers the row pipeline, the mesh, the sharding rules, the
+    shard wrappers' collectives and the checkpoint store."""
+    names = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
+    assert {"exec/pipeline.py", "exec/collectives.py", "launch/mesh.py",
+            "launch/sharding.py", "ckpt/__init__.py",
+            "ckpt/store.py"} <= names

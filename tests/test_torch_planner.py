@@ -211,16 +211,18 @@ def test_kernelize_fallbacks_and_retile():
 
 def test_unported_planning_raises():
     """What is still unported raises: the serving planner over a mesh
-    (sharded decode pools), and staging over a model axis (in ``stagedize`` and as the costed chooser's staged
-    alternates).  The costed chooser and ``autotune_kernel`` themselves
-    are ported (``tests/test_torch_costmodel.py``)."""
+    (sharded decode pools, slice 11).  Staging over a model axis (in
+    ``stagedize`` and as the costed chooser's staged alternates) is ported
+    and answers here; ``tests/test_torch_pipeline.py`` holds its answers
+    to the reference's.  The costed chooser and ``autotune_kernel``
+    themselves are ported (``tests/test_torch_costmodel.py``)."""
     from repro_torch.exec import CostTable, MeshSpec
     mods = vgg16_modules(0.125, 3)
     planner = Planner(mods, (32, 32, 3), 2)
-    with pytest.raises(NotImplementedError, match="staged alternates"):
-        Planner.for_budget(mods, (32, 32, 3), 2, 2**20,
-                           mesh=MeshSpec.parse("data=1,model=2"),
-                           cost_table=CostTable(fingerprint="t"))
+    costed = Planner.for_budget(mods, (32, 32, 3), 2, 2**20,
+                                mesh=MeshSpec.parse("data=1,model=2"),
+                                cost_table=CostTable(fingerprint="t"))
+    assert costed.feasible and costed.get("cost_model")
     from repro_torch.configs import get_reduced
     with pytest.raises(NotImplementedError, match="for_serve"):
         Planner.for_serve(get_reduced("qwen1_5_4b"), 32,
@@ -232,10 +234,13 @@ def test_unported_planning_raises():
     # raises only where it would have to stage
     tight = planner.plan("base", 1, budget=1)
     assert not tight.feasible and planner.stagedize(tight) is tight
-    staged = Planner(mods, (32, 32, 3), 2,
+    # with a model axis it stages: xi alone breaks one stage, half of it
+    # fits
+    staged = Planner(mods, (32, 32, 3), 2, xi=3 * 2**20,
                      mesh=MeshSpec.parse("data=1,model=2"))
-    with pytest.raises(NotImplementedError, match="stagedize"):
-        staged.stagedize(staged.plan("base", 1, budget=1))
+    tight = staged.plan("base", 1, budget=3 * 2**20)
+    assert not tight.feasible
+    assert staged.stagedize(tight).engine == "pipeline_rows"
     # the hybrids and 2PS have no CUDA alternate (as in the reference,
     # which has no 2PS kernel engine)
     for engine in ("ckp", "twophase_h", "overlap_h"):

@@ -119,16 +119,18 @@ def test_kernel_engine_trajectory_on_cpu_equals_overlap(tmp_path):
 
 @pytest.mark.parametrize("flags,match", [
     (["--metrics-out", "{tmp}/m.json"], None),
-    (["--mesh", "data=2"], "--mesh is not ported yet"),
-    (["--budget-gb", "1", "--mesh", "data=2"], "--mesh is not ported yet"),
+    (["--strategy", "base", "--mesh", "data=2"], "needs 2 devices"),
+    (["--budget-gb", "1", "--mesh", "data=2"], "needs 2 devices"),
     (["--plan-cache", "{tmp}/x"], None),
     (["--trace", "{tmp}/t.jsonl"], None),
 ])
 def test_unported_flags_raise(tmp_path, flags, match):
-    """``--mesh`` is not ported and raises; ``--metrics-out``,
-    ``--plan-cache`` and ``--trace`` are ported (``tests/test_torch_obs.py``
-    and ``test_torch_costmodel.py`` hold them against the reference) and
-    run."""
+    """``--mesh`` runs one rank per mesh device: in one process with no
+    group, ``data=2`` raises and points to the plan's per-device
+    projection (``tests/test_torch_sharding.py`` trains under it in a
+    process group); ``--metrics-out``, ``--plan-cache`` and ``--trace``
+    are ported (``tests/test_torch_obs.py`` and ``test_torch_costmodel.py``
+    hold them against the reference) and run."""
     flags = [f.format(tmp=tmp_path) for f in flags]
     if match is None:
         assert len(T.main(["--arch", "vgg16", "--preset", "reduced",
@@ -136,7 +138,7 @@ def test_unported_flags_raise(tmp_path, flags, match):
                            "--steps", "1", "--device", "cpu", "--out",
                            str(tmp_path / "out"), *flags])) == 1
         return
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         T.train_cnn(_args(tmp_path, "--steps", "1", *flags))
 
 
