@@ -160,6 +160,21 @@ printing one line:
                 frames and tokens, 3 steps; both under the config's plan.
                 Every train run of both phases has its audit in
                 ``train_step_lm``'s band.
+   mesh_lm      the LM's sharded train step: two ``train_lm`` ranks on
+                the one card in a ``gloo`` group, each holding only its
+                shard of the parameters and AdamW moments, seq 4096, 2
+                steps (``MESH_LM_RUNS``): Gemma-3 4B at 12 layers, batch
+                1, ``--mesh data=1,model=2 --kernel cuda`` (heads, ff and
+                the vocabulary split; held to train_lm_kernel's run);
+                Gemma-3 4B at 6 layers, batch 2, ``--mesh data=2`` (held to
+                a one-process run of that depth and batch); DeepSeek-MoE-16B
+                at 2 layers, ``--mesh data=1,model=2`` (its experts split;
+                held to a one-process run).  Each rank's step-0 loss within
+                1e-4 relative of its one-process run's, ``swa_attention``
+                launched local layers × steps times on every Gemma rank,
+                every rank's audit in ``train_step_lm``'s band; each rank's
+                peak beside the single run's, step seconds and the bytes
+                its collectives sent.  NCCL stays unverified.
    serve        serving at published widths and full depth through
                 ``repro_torch.launch.serve``'s functions, each run traced
                 with its artefact written (``--trace``/``--out`` into the
@@ -424,6 +439,21 @@ MESH_RUNS = [
 ]
 #: the group's own timeout, and how long the smoke waits for its ranks
 MESH_GROUP_TIMEOUT_S, MESH_WAIT_S = 300, 420
+#: the LM's sharded step on the card: two gloo ranks sharing it, each a
+#: train_lm process at published widths, seq 4096, TF32 off:
+#: (name, arch, layers, batch, flags, the one-process run it is held to).
+#: Gemma-3 4B at 12 layers over the model axis (the train_lm_kernel run's
+#: config); at 6 layers (5 local + 1 global), batch 2, over the data axis;
+#: DeepSeek-MoE-16B at 2 layers over the model axis (its experts split)
+MESH_LM_RUNS = [
+    ("lm_model2", "gemma3_4b", LM_LAYERS, 1,
+     ["--kernel", "cuda", "--mesh", "data=1,model=2"], "lm_kernel"),
+    ("lm_data2", "gemma3_4b", 6, 2,
+     ["--kernel", "cuda", "--mesh", "data=2"], "gemma6_b2"),
+    ("moe_model2", "deepseek_moe_16b", 2, 1,
+     ["--residency", "device", "--mesh", "data=1,model=2"], "moe2"),
+]
+MESH_LM_STEPS, MESH_LM_WAIT_S = 2, 600
 #: the LM checkpoint round trip: xLSTM-125M at its full preset, seq 256
 CKPT_LM_ARCH, CKPT_LM_SEQ = "xlstm_125m", 256
 CKPT_LM_TOL = 1e-6
@@ -1361,15 +1391,17 @@ def phase_kernel_ssd(torch, out):
           f"time(s)", flush=True)
 
 
-def _train_lm_arch(torch, tmp, name, arch, cfg, seq, steps, *flags):
+def _train_lm_arch(torch, tmp, name, arch, cfg, seq, steps, *flags,
+                   batch=LM_BATCH):
     """``steps`` trainer steps of LM ``arch`` with the config ``cfg`` (a
-    depth cut of the full preset), batch 1."""
+    depth cut of the full preset), batch 1 unless ``batch`` says
+    otherwise."""
     from repro_torch.launch import train as T
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     recs = T.main(["--arch", arch, "--preset", "full", "--batch",
-                   str(LM_BATCH), "--seq", str(seq), "--steps", str(steps),
+                   str(batch), "--seq", str(seq), "--steps", str(steps),
                    "--log-every", "1", "--out", os.path.join(tmp, name),
                    *_obs_flags(tmp, name), *flags], cfg=cfg)
     return _finish_run(torch, tmp, name, recs, steps)
@@ -1752,6 +1784,146 @@ def phase_train_lm_moe(torch, out, tmp):
           flush=True)
     if not (math.isfinite(loss) and math.isfinite(gnorm)):
         raise AssertionError(f"qwen3 probe loss {loss} grad norm {gnorm}")
+
+
+MESH_LM_RANK = r'''
+import datetime, json, os, sys
+import torch
+import torch.distributed as dist
+
+rank, init, out, timeout, seq, steps = sys.argv[1:7]
+rank = int(rank)
+runs = json.loads(sys.argv[7])
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method="file://" + init, rank=rank,
+                        world_size=2,
+                        timeout=datetime.timedelta(seconds=float(timeout)))
+res = {}
+try:
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as T
+    for name, arch, layers, batch, flags, _ in runs:
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        d = os.path.join(out, name)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.swa_attention.launches = 0
+        recs = T.main(["--arch", arch, "--preset", "full", "--batch",
+                       str(batch), "--seq", seq, "--steps", steps,
+                       "--log-every", "1", "--out", d,
+                       "--trace", os.path.join(d, f"rank{rank}.jsonl"),
+                       "--metrics-out",
+                       os.path.join(d, f"rank{rank}.metrics.json"),
+                       *flags], cfg=cfg)
+        torch.cuda.synchronize()
+        launches = ops.swa_attention.launches
+        with open(os.path.join(d, f"rank{rank}.metrics.json")) as f:
+            m = json.load(f)
+        ends = [r["elapsed_s"] for r in recs]
+        res[name] = {"losses": [r["loss"] for r in recs],
+                     "step_s": [b - a for a, b in zip([0.0] + ends, ends)],
+                     "peak": torch.cuda.max_memory_allocated(),
+                     "launches": launches,
+                     "audit": m["gauges"].get("audit.train_step_lm.ratio"),
+                     "gloo_bytes": m["counters"].get("collectives.bytes",
+                                                     0),
+                     "gloo_calls": m["counters"].get("collectives.calls",
+                                                     0),
+                     "backend": dist.get_backend()}
+finally:
+    dist.destroy_process_group()
+json.dump(res, open(os.path.join(out, f"rank{rank}.json"), "w"))
+'''
+
+
+def phase_mesh_lm(torch, out, tmp):
+    """The LM's sharded train step: two ``train_lm`` ranks on the one card
+    in a gloo group (``MESH_LM_RUNS``), each step-0 loss against its
+    one-process run, ``swa_attention`` launched on every Gemma rank (local
+    layers x steps), every rank's audit in ``train_step_lm``'s band; each
+    rank's peak beside the single run's, step seconds and the bytes the
+    collectives sent."""
+    single = {"lm_kernel": out["lm_kernel"]}
+    single["gemma6_b2"] = _train_lm_arch(
+        torch, tmp, "mesh_lm_gemma6", "gemma3_4b", _lm_config("gemma3_4b", 6),
+        LM_SEQ, MESH_LM_STEPS, "--kernel", "cuda", batch=2)
+    single["moe2"] = _train_lm_arch(
+        torch, tmp, "mesh_lm_moe2", "deepseek_moe_16b",
+        _lm_config("deepseek_moe_16b", 2), LM_SEQ, MESH_LM_STEPS,
+        "--residency", "device")
+    d = os.path.join(tmp, "mesh_lm")
+    os.makedirs(d)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MESH_LM_RANK, str(rank),
+         os.path.join(d, "init"), d, str(MESH_GROUP_TIMEOUT_S), str(LM_SEQ),
+         str(MESH_LM_STEPS), json.dumps(MESH_LM_RUNS)], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rank in range(2)]
+    try:
+        outs = [p.communicate(timeout=MESH_LM_WAIT_S) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for rank, (p, (so, se)) in enumerate(zip(procs, outs)):
+        if p.returncode:
+            raise AssertionError(f"mesh_lm rank {rank} exit {p.returncode}: "
+                                 f"{so[-2000:]} {se[-3000:]}")
+    ranks = []
+    for rank in range(2):
+        with open(os.path.join(d, f"rank{rank}.json")) as f:
+            ranks.append(json.load(f))
+    print(f"mesh_lm: rank 0's output: {outs[0][0][-1500:]}", flush=True)
+    rel, bad = {}, []
+    lo, hi = LM_AUDIT_BAND
+    for name, arch, layers, batch, flags, ref in MESH_LM_RUNS:
+        with open(os.path.join(d, name, "train_log.json")) as f:
+            plan = json.load(f)["plan"]
+        ref0 = single[ref]["losses"][0]
+        rs = [r[name] for r in ranks]
+        rel[name] = max(abs(r["losses"][0] - ref0) / abs(ref0) for r in rs)
+        peaks = [r["peak"] for r in rs]
+        print(f"  mesh_lm {name}: {arch} {layers} layers batch {batch} "
+              f"{flags[-1]} engine={plan['engine']} N={plan['n_rows']} "
+              f"backend={rs[0]['backend']} rank peaks={peaks} (single "
+              f"process {single[ref]['peak']}: "
+              f"{[round(p / single[ref]['peak'], 3) for p in peaks]}) "
+              f"audits={[r['audit'] for r in rs]} swa_attention launches="
+              f"{[r['launches'] for r in rs]} step-0 losses="
+              f"{[r['losses'][0] for r in rs]} vs single {ref0} (rel "
+              f"{rel[name]:.3e}) step_s={[r['step_s'] for r in rs]} "
+              f"(single {single[ref]['step_s']}) collective bytes sent="
+              f"{[r['gloo_bytes'] for r in rs]} in "
+              f"{[r['gloo_calls'] for r in rs]} calls", flush=True)
+        if arch == "gemma3_4b":
+            local = sum(k == "local" for k in
+                        _lm_config(arch, layers).layer_kinds())
+            want = local * MESH_LM_STEPS
+            if any(r["launches"] != want for r in rs):
+                bad.append(f"{name}: swa_attention launches "
+                           f"{[r['launches'] for r in rs]}, expected {want}")
+        if not all(r["audit"] is not None and lo <= r["audit"] <= hi
+                   for r in rs):
+            bad.append(f"{name}: audit ratios {[r['audit'] for r in rs]} "
+                       f"out of {LM_AUDIT_BAND}")
+        if not rel[name] <= LM_LOSS_TOL:
+            bad.append(f"{name}: step-0 loss differs by {rel[name]}")
+    out["mesh_lm"] = {"ranks": ranks, "rel": rel,
+                      "single": {k: {"peak": v["peak"],
+                                     "step_s": v["step_s"],
+                                     "losses": v["losses"]}
+                                 for k, v in single.items()}}
+    print(f"mesh_lm: two gloo ranks on one card agree with one process: "
+          f"{rel}; NCCL is unverified: it needs a card a rank, and this "
+          f"run has {torch.cuda.device_count()}", flush=True)
+    if bad:
+        raise AssertionError("; ".join(bad))
 
 
 def phase_train_lm_vlm_encdec(torch, out, tmp):
@@ -2791,6 +2963,7 @@ def main() -> int:
                       torch, out, tmp)),
                   ("train_lm_vlm_encdec", lambda: phase_train_lm_vlm_encdec(
                       torch, out, tmp)),
+                  ("mesh_lm", lambda: phase_mesh_lm(torch, out, tmp)),
                   ("serve", lambda: phase_serve(torch, out, tmp)),
                   ("memory", lambda: phase_memory(torch, out, tmp)),
                   ("profile", lambda: phase_profile(torch, out, tmp)),

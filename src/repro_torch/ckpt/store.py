@@ -24,7 +24,10 @@ the template's leaf lives: on its device and in its dtype, and for a
 placements (a checkpoint written under one mesh restores under another,
 or on one device).  A Python ``int`` leaf (AdamW's ``step``) restores as
 an ``int``.  bfloat16 leaves are written as float32 (numpy has no
-bfloat16) and cast back on restore, which loses nothing.
+bfloat16) and cast back on restore, which loses nothing.  The reference
+writes a bfloat16 leaf as it is, which numpy stores as the opaque 2-byte
+``|V2``; such an array is read as its ``uint16`` bits and viewed as
+``torch.bfloat16`` (:func:`_from_numpy`), so it restores bit for bit.
 """
 
 from __future__ import annotations
@@ -180,7 +183,9 @@ def _resolve_step(directory: str, step: Optional[int]) -> int:
 
 
 def _assemble(data, key: str, layout: dict) -> np.ndarray:
-    """Reassemble one split leaf from its ``key::shard<j>`` pieces."""
+    """Reassemble one split leaf from its ``key::shard<j>`` pieces, in the
+    shards' dtype (``|V2`` for the reference's bfloat16 shards: the bytes
+    are copied as they are)."""
     spec = layout[key]
     out = np.empty(spec["shape"], dtype=data[f"{key}::shard0"].dtype)
     for j, idx in enumerate(spec["indices"]):
@@ -188,14 +193,25 @@ def _assemble(data, key: str, layout: dict) -> np.ndarray:
     return out
 
 
+def _from_numpy(arr: np.ndarray) -> torch.Tensor:
+    """``arr`` as a CPU tensor; a ``|V2`` array (a bfloat16 leaf the
+    reference wrote, which numpy cannot name) as ``torch.bfloat16``, bit
+    for bit: its ``uint16`` bits, reinterpreted."""
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        bits = arr.view(np.uint16).view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
 def _place(arr: np.ndarray, leaf, key: str):
     """``arr`` where the template ``leaf`` lives."""
     if isinstance(leaf, (int, float)):
-        return type(leaf)(arr.item())
+        return type(leaf)(_from_numpy(arr).item())
     if tuple(arr.shape) != tuple(leaf.shape):
         raise ValueError(f"{key}: checkpoint shape {arr.shape}, template "
                          f"{tuple(leaf.shape)}")
-    t = torch.from_numpy(np.ascontiguousarray(arr))
+    t = _from_numpy(arr)
     if _is_dtensor(leaf):
         from torch.distributed.tensor import DTensor
         bounds = _shard_index(leaf)

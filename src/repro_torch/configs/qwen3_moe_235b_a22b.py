@@ -28,8 +28,7 @@ def reduced():
 
 
 # the reference's fitting variant, carried as data: block remat, tight
-# capacity, finer dispatch groups and bf16 parameters (its ``--fsdp`` run
-# waits for slice 11 of the port, the sharding slice)
+# capacity, finer dispatch groups and bf16 parameters
 OPTIMIZED = dataclasses.replace(CONFIG, remat="block_rows",
                                 capacity_factor=1.0, moe_seq_groups=8,
                                 param_dtype="bfloat16")

@@ -19,8 +19,25 @@ and these are the only places values cross ranks:
   :class:`GatherChannels` (all-gather along channels; backward, the
   rank's slice).
 
+The LM's sharded step (:mod:`repro_torch.launch.steps`) adds Megatron's
+other half and the pieces of a sharded parameter:
+
+* :class:`ReduceFromGroup` — forward, the sum over the group (a
+  row-parallel product's partial sums, a vocab-split embedding's rows);
+  backward, the identity.
+* :class:`GatherLeaf` — a parameter whose stored shard is not a partition
+  its layer can compute on: forward, the whole leaf, all-gathered over the
+  mesh axes it is split over; backward, the gradient summed over the
+  batch group, then this rank's slice of it.
+* :func:`vocab_lse` / :func:`vocab_pick` — the log-sum-exp of logits split
+  along the vocabulary (its max and its sum of exponentials all-reduced),
+  and the label's logit, from whichever rank holds its column.
+
 Collectives on CUDA tensors under ``gloo`` (ranks that share one card)
-go through host copies: gloo's all-gather takes CPU tensors only.
+go through host copies: gloo's all-gather takes CPU tensors only.  A
+half-precision sum is taken in fp32 and rounded once.  Under an obs
+session every collective counts its calls and the bytes of the tensor it
+sends (``collectives.calls``, ``collectives.bytes``).
 """
 
 from __future__ import annotations
@@ -30,6 +47,8 @@ from typing import Sequence
 
 import torch
 import torch.distributed as dist
+
+from repro_torch import obs
 
 
 def axis_group(mesh, axes: Sequence[str]):
@@ -53,18 +72,28 @@ def axis_group(mesh, axes: Sequence[str]):
     return mine
 
 
+def _count(t: torch.Tensor) -> None:
+    obs.counter("collectives.calls").inc()
+    obs.counter("collectives.bytes").inc(int(t.nbytes))
+
+
 def _via_host(t: torch.Tensor, group) -> bool:
     return t.is_cuda and dist.get_backend(group) == "gloo"
 
 
-def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
-    """Sum ``t`` over ``group`` in place."""
-    if _via_host(t, group):
-        h = t.cpu()
-        dist.all_reduce(h, group=group)
+def all_reduce_(t: torch.Tensor, group,
+                op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Reduce ``t`` over ``group`` in place (a sum unless ``op`` says
+    otherwise)."""
+    _count(t)
+    half = t.dtype in (torch.bfloat16, torch.float16)
+    if _via_host(t, group) or half:
+        h = t.detach().to("cpu" if _via_host(t, group) else t.device,
+                          torch.float32 if half else t.dtype, copy=True)
+        dist.all_reduce(h, op=op, group=group)
         t.copy_(h)
     else:
-        dist.all_reduce(t, group=group)
+        dist.all_reduce(t, op=op, group=group)
     return t
 
 
@@ -72,6 +101,7 @@ def all_gather_cat(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     """The group's slices of ``t`` (equal shapes), concatenated along
     ``dim`` in group-rank order."""
     src = t.contiguous()
+    _count(src)
     if _via_host(src, group):
         src = src.cpu()
     parts = [torch.empty_like(src)
@@ -115,6 +145,69 @@ class CopyToGroup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return all_reduce_(g.clone(), ctx.group), None
+
+
+class ReduceFromGroup(torch.autograd.Function):
+    """Forward, the sum of ``x`` over ``group``; backward, the identity
+    (every rank's cotangent is already the whole one)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class GatherLeaf(torch.autograd.Function):
+    """``apply(shard, gathers, reduce)``: ``gathers`` is ``((group, dim),
+    ...)``, minor mesh axis first, each all-gathering the shard along
+    ``dim`` over ``group``; the gradient is summed over the groups of
+    ``reduce`` (the batch group) whole, then sliced back to the shard."""
+
+    @staticmethod
+    def forward(ctx, t, gathers, reduce):
+        ctx.steps, ctx.reduce = [], reduce
+        for group, dim in gathers:
+            ctx.steps.append((group, dim, t.shape[dim]))
+            t = all_gather_cat(t, dim, group)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        for group in ctx.reduce:
+            all_reduce_(g, group)
+        for group, dim, width in reversed(ctx.steps):
+            g = _own_slice(g, dim, width, group)
+        return g, None, None
+
+
+def vocab_lse(logits: torch.Tensor, group) -> torch.Tensor:
+    """The log-sum-exp over the last axis of fp32 ``logits`` whose columns
+    are split over ``group``: the row max all-reduced (no gradient flows
+    through it, as none does through a stable log-sum-exp's shift), then
+    the sum of the shifted exponentials."""
+    with torch.no_grad():
+        m = all_reduce_(logits.max(dim=-1).values, group,
+                        dist.ReduceOp.MAX)
+    se = ReduceFromGroup.apply(torch.exp(logits - m[..., None]).sum(-1),
+                               group)
+    return m + torch.log(se)
+
+
+def vocab_pick(logits: torch.Tensor, labels: torch.Tensor, lo: int,
+               group) -> torch.Tensor:
+    """Each row's logit at ``labels`` (global column ids, >= 0) where this
+    rank's ``logits`` hold columns ``[lo, lo + width)``: each rank picks
+    the labels it holds and zero elsewhere, and the group sums them."""
+    n = logits.shape[-1]
+    local = labels - lo
+    inside = (local >= 0) & (local < n)
+    picked = logits.gather(-1, local.clamp(0, n - 1)[..., None])[..., 0]
+    return ReduceFromGroup.apply(
+        torch.where(inside, picked, torch.zeros_like(picked)), group)
 
 
 class ReduceGrads(torch.autograd.Function):

@@ -22,7 +22,9 @@ Sharding: the engines are single-device code.  The two shard wrappers at
 the bottom (one per kind) are the only mesh-aware layer: under a plan
 whose mesh spans more than one device, each rank runs the engine on its
 own slice of the batch and the wrappers put the collectives
-(:mod:`repro_torch.exec.collectives`) at its edges.
+(:mod:`repro_torch.exec.collectives`) at its edges.  The LM stack apply is
+the exception, as in the reference: it handles the mesh itself, through
+the seams of the model code under the step's shard context.
 """
 
 from __future__ import annotations
@@ -97,15 +99,15 @@ def _build_twophase_h(modules, plan: ExecutionPlan):
 
 def _seq_modules(modules, plan: ExecutionPlan):
     """The LM stack apply when ``modules`` is ``(params, ModelConfig)``,
-    else None (``modules`` is then a chunk-body callable)."""
+    else None (``modules`` is then a chunk-body callable).  Under a mesh
+    the LM apply is marked ``handles_mesh``: the sharded train step
+    (:mod:`repro_torch.launch.steps`) places the state and the batch and
+    activates the shard context its seams read, so the registry leaves it
+    unwrapped."""
     from repro_torch.models.lm.rowexec import build_lm_apply, lm_config
     cfg = lm_config(modules)
     if cfg is None:
         return None
-    if plan.mesh is not None and plan.mesh.n_devices > 1:
-        raise NotImplementedError(
-            f"the LM's sharded step (mesh={plan.mesh.describe()}) is not "
-            f"ported yet; it comes with slice 11 of the port")
     return build_lm_apply(cfg, plan)
 
 

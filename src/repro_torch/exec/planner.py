@@ -39,7 +39,7 @@ the costed ``for_budget`` ranks the staged alternates beside the rest, and
 integers and plan JSON equal the reference's.
 
 Not ported yet, and raising :class:`NotImplementedError`: serving plans
-over a mesh (slice 11).
+over a mesh (the sharded serve pools, ROADMAP.md queue 1, item 2).
 """
 
 from __future__ import annotations
@@ -459,7 +459,8 @@ class _ServePlannerMixin:
         if mesh is not None:
             raise _not_ported(
                 f"Planner.for_serve(mesh={mesh.describe()}): sharded "
-                f"decode-slot pools (they wait for slice 11 of the port, the sharding slice)")
+                f"decode-slot pools (they wait for the sharding slice's serve "
+                f"pools, ROADMAP.md queue 1, item 2)")
         known = serve_cache_kinds()
         if cache_kind not in known:
             raise KeyError(

@@ -13,9 +13,9 @@ requests carry ``n_frontend_tokens`` patch embeddings each, and an
 encoder-decoder's carry frames as long as ``--prompt-len`` (the pool's
 ``enc_len``; enc-dec pools are ``--cache-kind full`` only).  Every flag of
 the reference is
-here except ``--mesh``, which raises (sharded pools wait for slice 11 of
-the port); ``--torch-profile DIR`` stands for ``--jax-profile``, and
-``--device`` (default ``cuda``; it raises when no card is present and
+here except ``--mesh``, which raises (the sharded serve pools,
+ROADMAP.md queue 1, item 2); ``--torch-profile DIR`` stands for
+``--jax-profile``, and ``--device`` (default ``cuda``; it raises when no card is present and
 never falls back to the CPU) picks where parameters, pool and decode
 live.  Parameters are initialised from ``--seed`` on that device.  The
 old one-shot flags still work (``--batch 4 --prompt-len 64 --gen 32``
@@ -164,8 +164,9 @@ def serve_from_args(args, cfg=None, params=None, **overrides):
 
     if args.mesh:
         raise NotImplementedError("--mesh is not ported yet (sharded "
-                                  "decode pools wait for slice 11 of the "
-                                  "port, the sharding slice)")
+                                  "decode pools wait for the sharding "
+                                  "slice's serve pools, ROADMAP.md queue "
+                                  "1, item 2)")
     device = _device(args.device)
     if cfg is None:
         cfg = get_reduced(args.arch) if args.preset == "reduced" \

@@ -23,7 +23,39 @@ the placements need only its axis names and sizes, so a
 Here each rank holds its own shard, so ``lc`` slices the global value
 ``x`` down to this rank's part under the active :class:`ShardCtx` (a view:
 gradients flow back into ``x``'s slice); without a context it is the
-identity, so the same code runs on one device.
+identity, so the same code runs on one device.  The CNN shard wrapper
+uses it so (:mod:`repro_torch.exec.engines`).
+
+**What ``lc`` becomes for the LM.**  Under GSPMD the reference's 28
+``lc(...)`` calls in ``repro.models.lm`` only *constrain* a value.  In the
+port each rank computes on local tensors, and each of those calls is a
+:func:`seam` at the same line, with the same logical names, that stands
+for the collective its transition needs:
+
+* a ``"batch"`` entry is already true: each rank holds its own slice of
+  the batch (:func:`repro_torch.launch.steps.batch_sharding`);
+* a ``"tp"``-named seam after a column-parallel product (q/k/v heads, the
+  MLP's ff, the vocab of the logits, the experts) is a no-op: the rank
+  holds its columns;
+* a ``(..., None)`` seam after a row-parallel product (the attention and
+  MLP outputs, the experts' combine, a vocab-split embedding) sums the
+  partial values over the model group (``partial=True``:
+  :class:`~repro_torch.exec.collectives.ReduceFromGroup`);
+* the input of a column-parallel product enters through :func:`enter`
+  (:class:`~repro_torch.exec.collectives.CopyToGroup`: the identity, whose
+  backward sums the input's partial gradients over the group).
+
+Which leaves a rank computes on split is read from their placements, never
+from the config's name: :func:`leaf_uses` keeps a leaf split where its one
+split is over the tensor-parallel axis along the dim its layer partitions
+(:data:`TP_DIMS`), and marks every other split leaf to be gathered at use
+(:class:`Sharded`, :func:`at_use`): the SSM's fused in-projection, the
+divisibility fallbacks (``wk`` row-split over ``d``), every leaf the
+``dp_only`` layout 2-D shards.  That part then runs whole on every rank of
+the model group: the same arithmetic.  So storage always equals
+:func:`~repro_torch.launch.steps.state_sharding`'s placements.  Without a
+context bound to process groups (:func:`bind_groups`) every seam is the
+identity and the model runs on one device unchanged.
 """
 
 from __future__ import annotations
@@ -31,14 +63,17 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import re
-import threading
+import types
 from typing import Any, List, Optional, Sequence, Tuple
 
-_STATE = threading.local()
+#: the active context: process-wide, not thread-local, because the
+#: autograd engine runs a CUDA backward on a thread of its own, where a
+#: checkpointed region recomputes and its seams must see the step's context
+_STATE = types.SimpleNamespace(ctx=None)
 
 
 def _current() -> Optional["ShardCtx"]:
-    return getattr(_STATE, "ctx", None)
+    return _STATE.ctx
 
 
 def axis_names(mesh) -> Tuple[str, ...]:
@@ -54,6 +89,10 @@ def axis_sizes(mesh) -> dict:
 class ShardCtx:
     mesh: Any       # DeviceMesh, or a MeshSpec for placement arithmetic
     logical: dict   # logical name -> physical axis name(s) or None
+    #: this rank's process group over each mesh axis (None where the axis
+    #: spans one rank); set by :func:`bind_groups`, None for placement
+    #: arithmetic
+    groups: Optional[dict] = None
 
     def resolve(self, names: Sequence) -> tuple:
         """The physical spec of the logical ``names``, one entry per dim,
@@ -212,6 +251,237 @@ def lc(x, *names):
         return x
     spec = filter_spec(ctx.resolve(names), x.shape, ctx.mesh)
     return shard_of(x, placements(spec, ctx.mesh), ctx.mesh)
+
+
+def local_shards(tree, places, mesh):
+    """This rank's shard of every leaf of the global ``tree`` under its
+    placements in ``places`` (a tree of the same layout), each a copy: no
+    rank keeps a view of the whole leaf."""
+    return zip_map(lambda t, pl: shard_of(t, pl, mesh).clone(), tree,
+                   places)
+
+
+def zip_map(fn, tree, other):
+    """``fn(leaf, other's leaf)`` over ``tree``'s structure, in the leaf
+    order of :func:`~repro_torch.optim.adamw.tree_leaves` (dict keys
+    sorted; ``other``'s leaves may be tuples themselves, as placements
+    are)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: zip_map(fn, tree[k], other[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(zip_map(fn, t, o) for t, o in zip(tree, other))
+    return fn(tree, other)
+
+
+# ---------------------------------------------------------------------------
+# The LM's seams on local tensors
+# ---------------------------------------------------------------------------
+
+
+def bind_groups(ctx: ShardCtx) -> ShardCtx:
+    """``ctx`` with this rank's process group over each mesh axis (a
+    collective call: every rank binds, in the same order)."""
+    from repro_torch.exec.collectives import axis_group
+    return dataclasses.replace(ctx, groups={
+        a: axis_group(ctx.mesh, (a,)) for a in axis_names(ctx.mesh)})
+
+
+def _bound() -> Optional[ShardCtx]:
+    ctx = _current()
+    return ctx if ctx is not None and ctx.groups is not None else None
+
+
+def batch_axes(ctx: ShardCtx) -> Tuple[str, ...]:
+    """The mesh axes the batch is split over (after ``make_shape_ctx``'s
+    fallback), those of one rank left out."""
+    sizes = axis_sizes(ctx.mesh)
+    return tuple(a for a in _entry_axes(ctx.logical.get("batch"))
+                 if sizes[a] > 1)
+
+
+def tp_axis(ctx: ShardCtx) -> Optional[str]:
+    """The mesh axis the layers compute on split (tensor, vocab and
+    expert parallelism), or None: none is named, it spans one rank, or
+    the batch is split over it too (the ``dp_only`` layout), so its ranks
+    hold different rows and gather their leaves instead."""
+    axes = _entry_axes(ctx.logical.get("tp"))
+    if len(axes) != 1 or axis_sizes(ctx.mesh)[axes[0]] == 1 \
+            or axes[0] in _entry_axes(ctx.logical.get("batch")):
+        return None
+    return axes[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class TP:
+    """This rank's place on the tensor-parallel axis."""
+    group: Any
+    rank: int
+    size: int
+
+
+def tp() -> Optional[TP]:
+    """The active tensor-parallel group, or None (no bound context, or no
+    axis the layers compute on split)."""
+    import torch.distributed as dist
+    ctx = _bound()
+    axis = tp_axis(ctx) if ctx is not None else None
+    if axis is None:
+        return None
+    group = ctx.groups[axis]
+    return TP(group, dist.get_rank(group), dist.get_world_size(group))
+
+
+def seam(x, *names, partial: bool = False):
+    """The LM's ``lc``: ``x`` itself, unless ``partial`` marks the partial
+    sums of a row-parallel product, which are summed over the model group
+    (forward; the backward is the identity).  ``names`` are the
+    reference's logical names at that line."""
+    t = tp() if partial else None
+    if t is None:
+        return x
+    from repro_torch.exec.collectives import ReduceFromGroup
+    return ReduceFromGroup.apply(x, t.group)
+
+
+def enter(x):
+    """The input of a column-parallel product: the identity, whose
+    backward sums ``x``'s partial gradients over the model group."""
+    t = tp()
+    if t is None:
+        return x
+    from repro_torch.exec.collectives import CopyToGroup
+    return CopyToGroup.apply(x, t.group)
+
+
+def split_offset(n_local: int, n_global: int) -> Optional[int]:
+    """Where this rank's slice of a dim of ``n_global`` starts, when the
+    rank holds ``n_local < n_global`` of it along the model axis; None for
+    a whole dim."""
+    t = tp()
+    if t is None or n_local == n_global:
+        return None
+    if n_local * t.size != n_global:
+        raise ValueError(f"a split dim of {n_local} is not 1/{t.size} of "
+                         f"{n_global}")
+    return t.rank * n_local
+
+
+def batch_groups() -> tuple:
+    """The process groups of the batch axes (one per axis), or ()."""
+    ctx = _bound()
+    if ctx is None:
+        return ()
+    return tuple(ctx.groups[a] for a in batch_axes(ctx))
+
+
+def batch_sum(t):
+    """``t`` summed over the ranks that hold other rows of the batch
+    (backward: the identity); ``t`` itself on one device."""
+    from repro_torch.exec.collectives import ReduceFromGroup
+    for group in batch_groups():
+        t = ReduceFromGroup.apply(t, group)
+    return t
+
+
+def batch_mean(t):
+    """The mean of ``t`` over the ranks of the batch group (equal slices,
+    so a per-slice mean becomes the global one)."""
+    import math
+    import torch.distributed as dist
+    groups = batch_groups()
+    if not groups:
+        return t
+    return batch_sum(t) / math.prod(dist.get_world_size(g) for g in groups)
+
+
+#: the dim, counted from the end, along which an LM leaf's split over the
+#: tensor-parallel axis is a partition its layer computes on: heads (q, k,
+#: v column-parallel, the output projection row-parallel), the MLP's ff
+#: (gate/up column-, down row-parallel), the vocabulary and the experts
+TP_DIMS: Tuple[Tuple[str, int], ...] = (
+    (r"(^|/)embed/table$", -2),
+    (r"(^|/)unembed/w$", -1),
+    (r"attn/w[qkv]$", -2),
+    (r"attn/b[qkv]$", -2),
+    (r"attn/wo$", -3),
+    (r"(^|/)mlp/w_(gate|up)$", -1),
+    (r"(^|/)mlp/w_down$", -2),
+    (r"(^|/)moe/we_(gate|up|down)$", -3),
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafUse:
+    """How a rank uses its stored shard: ``split`` lists ``(mesh axis,
+    dim)`` for each axis of more than one rank the leaf is split over
+    (minor axis first); ``gather`` says the layer needs it whole."""
+    split: Tuple[Tuple[str, int], ...]
+    gather: bool
+
+
+def leaf_uses(tree, places, ctx: ShardCtx):
+    """Per leaf of the global ``tree`` (tensors, or ``meta`` ones), its
+    :class:`LeafUse` under the placements ``places``."""
+    sizes = axis_sizes(ctx.mesh)
+    names = axis_names(ctx.mesh)
+    axis = tp_axis(ctx)
+
+    def one(path, leaf, pl):
+        split = tuple((a, p.dim) for a, p in reversed(list(zip(names, pl)))
+                      if getattr(p, "dim", None) is not None
+                      and sizes[a] > 1)
+        dim = next((d for pat, d in TP_DIMS if re.search(pat, path)), None)
+        computable = axis is not None and dim is not None \
+            and split == ((axis, leaf.ndim + dim),)
+        return LeafUse(split, bool(split) and not computable)
+
+    def walk(tree, pl, path):
+        if tree is None:
+            return None
+        if isinstance(tree, dict):
+            return {k: walk(tree[k], pl[k], path + (str(k),)) for k in tree}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(t, p, path + (str(i),))
+                              for i, (t, p) in enumerate(zip(tree, pl)))
+        return one("/".join(path), tree, pl)
+
+    return walk(tree, places, ())
+
+
+class Sharded:
+    """A stored shard its layer computes on whole: :func:`at_use` gathers
+    it (:class:`~repro_torch.exec.collectives.GatherLeaf`) where the layer
+    reads it, so a stacked leaf is gathered one layer at a time
+    (indexing a ``Sharded`` takes the layer's slice of the shard)."""
+
+    __slots__ = ("local", "gathers", "reduce")
+
+    def __init__(self, local, gathers, reduce):
+        self.local, self.gathers, self.reduce = local, gathers, reduce
+
+    def __getitem__(self, i):
+        if any(d == 0 for _, d in self.gathers):
+            raise ValueError("a leaf split along its layer axis")
+        return Sharded(self.local[i],
+                       tuple((g, d - 1) for g, d in self.gathers),
+                       self.reduce)
+
+    def gather(self):
+        from repro_torch.exec.collectives import GatherLeaf
+        return GatherLeaf.apply(self.local, self.gathers, self.reduce)
+
+
+def at_use(tree):
+    """``tree`` with every :class:`Sharded` leaf gathered whole."""
+    if isinstance(tree, Sharded):
+        return tree.gather()
+    if isinstance(tree, dict):
+        return {k: at_use(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(at_use(t) for t in tree)
+    return tree
 
 
 # ---------------------------------------------------------------------------

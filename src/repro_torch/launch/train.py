@@ -65,8 +65,8 @@ Observability and planning flags, on both trainers:
 
 Sharding and checkpoints:
 
-* ``--mesh data=2`` (or ``data=1,model=2``, ``pod=...``) on the CNN
-  trainer runs one rank per mesh coordinate.  Under ``torchrun`` the
+* ``--mesh data=2`` (or ``data=1,model=2``, ``pod=...``) runs one rank
+  per mesh coordinate, on both trainers.  Under ``torchrun`` the
   trainer joins the group the environment describes (``nccl`` when each
   rank has a card, ``gloo`` on the CPU or when ranks share a card;
   :mod:`repro_torch.launch.mesh`); a caller that spawned its ranks joins
@@ -80,12 +80,25 @@ Sharding and checkpoints:
         --arch vgg16 --preset reduced --strategy overlap --rows 2 \
         --mesh data=2 --batch 4 --steps 3 --device cpu --out /tmp/t
 
-  ``--mesh`` on the LM trainer raises: the LM's sharded step comes with
-  slice 11 of the port.
+  On the LM trainer the Planner solves per device too (the plan's JSON
+  is the reference's), and each rank holds only its shard of the
+  parameters and the AdamW moments, the one ``state_sharding`` places on
+  its mesh coordinate (:mod:`repro_torch.launch.steps`): heads, the MLP's
+  ff, the vocabulary and the experts split over ``model`` (Megatron's
+  column/row pairs, a vocab-parallel embedding and cross-entropy), the
+  batch over ``data``, the leaves a layer cannot compute on split
+  gathered at use.  Each rank takes its rows of the step's batch; the
+  loss, the gradients and the updated shards are one process's::
+
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch gemma3_4b --preset reduced --seq 64 --batch 2 \
+        --mesh data=1,model=2 --steps 3 --device cpu --out /tmp/t
 * ``--save`` on the LM trainer writes the params, the AdamW state,
   ``{"arch": ...}`` and the plan into ``--out`` after the last step
-  (:mod:`repro_torch.ckpt.store`), as the reference does; the CNN trainer
-  saves nothing, as in the reference.
+  (:mod:`repro_torch.ckpt.store`), as the reference does; under a mesh
+  each split leaf is written shard by shard (``DTensor`` s over the
+  state's placements).  The CNN trainer saves nothing, as in the
+  reference.
 
 Differences from the reference: ``--batch`` defaults to the config's batch
 for CNNs (32 for the full preset), ``--lr`` to 0.05 for CNNs and 3e-4 for
@@ -160,7 +173,7 @@ def _resolve_plan(args, key_fields, solve, device):
 
 
 def _audit_step(call, plan, source_extra, device, source="train_step",
-                est_bytes=None):
+                est_bytes=None, echo=True):
     """Run step 0, ``call()``, under
     :func:`~repro_torch.obs.audit.measure_step` and record its peak bytes
     against the plan's estimate; returns ``(call's result, audit record)``.
@@ -176,10 +189,11 @@ def _audit_step(call, plan, source_extra, device, source="train_step",
     rec = plan_audit(plan, measured, source, extra=source_extra,
                      est_bytes=est_bytes)
     ratio = rec["ratio"]
-    print(f"plan audit: est/dev {rec['est_bytes_per_device']} "
-          f"measured peak {measured['peak_bytes']}"
-          + (f" ratio {ratio:.3f}" if ratio is not None else ""),
-          flush=True)
+    if echo:
+        print(f"plan audit: est/dev {rec['est_bytes_per_device']} "
+              f"measured peak {measured['peak_bytes']}"
+              + (f" ratio {ratio:.3f}" if ratio is not None else ""),
+              flush=True)
     return held[0], rec
 
 
@@ -339,42 +353,96 @@ def _train_cnn(args, params, device, mesh_spec):
     return steplog.records
 
 
-def lm_batch(cfg, hb, step: int, seed: int, device):
-    """The step's LM batch on ``device``, as the reference builds it: the
-    token dataset's tokens and labels, plus zero patch embeddings (B,
-    n_frontend_tokens, frontend_dim) for a VLM, or for the encoder-decoder
-    the frames (B, seq, d_model) drawn from ``default_rng((seed,
-    step))``."""
-    batch = {k: torch.from_numpy(hb[k]).long().to(device)
+def lm_host_batch(cfg, hb, step: int, seed: int):
+    """The step's LM batch as host arrays, as the reference builds it: the
+    token dataset's tokens and labels (int64), plus zero patch embeddings
+    (B, n_frontend_tokens, frontend_dim) for a VLM, or for the
+    encoder-decoder the frames (B, seq, d_model) drawn from
+    ``default_rng((seed, step))``."""
+    batch = {k: np.asarray(hb[k], dtype=np.int64)
              for k in ("tokens", "labels")}
     B, S = hb["tokens"].shape
     if cfg.family == "vlm":
-        batch["patch_embeds"] = torch.zeros(
-            (B, cfg.n_frontend_tokens, cfg.frontend_dim), device=device)
+        batch["patch_embeds"] = np.zeros(
+            (B, cfg.n_frontend_tokens, cfg.frontend_dim), np.float32)
     if cfg.family == "encdec":
-        frames = np.random.default_rng((seed, step)).normal(
+        batch["frames"] = np.random.default_rng((seed, step)).normal(
             0, 1, (B, S, cfg.d_model)).astype(np.float32)
-        batch["frames"] = torch.from_numpy(frames).to(device)
     return batch
+
+
+def lm_batch(cfg, hb, step: int, seed: int, device):
+    """:func:`lm_host_batch` on ``device``."""
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in lm_host_batch(cfg, hb, step, seed).items()}
 
 
 def train_lm(args, cfg=None, params=None):
     """Train ``args.steps`` AdamW steps of an LM; returns the step
     records.  ``cfg`` (a ModelConfig) replaces the preset's and
-    ``params`` (a tree on the target device) the seeded init: the chip
-    smoke cuts the depth through the first, the parity tests pass the
-    reference's init through the second."""
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh on the LM trainer is not ported yet: the LM's sharded "
-            "step comes with slice 11 of the port")
+    ``params`` (a global tree on the target device) the seeded init: the
+    chip smoke cuts the depth through the first, the parity tests pass the
+    reference's init through the second.  Under ``--mesh`` a process group
+    the run joins from the environment ends with the run."""
+    import torch.distributed as dist
+
+    from repro_torch.exec import MeshSpec
+    from repro_torch.launch.mesh import init_from_env, rank_device
+    device = _device(args.device)
+    mesh_spec = MeshSpec.parse(args.mesh) if args.mesh else None
+    if mesh_spec is not None and init_from_env(device):
+        try:
+            return _train_lm(args, cfg, params, rank_device(device),
+                             mesh_spec)
+        finally:
+            dist.destroy_process_group()
+    return _train_lm(args, cfg, params, rank_device(device), mesh_spec)
+
+
+def _shard_state(params, cfg, args, batch, mesh_spec):
+    """``(state, ctx, placements)`` of a sharded run: the context of
+    ``cfg`` at the run's shape, bound to this rank's groups, and this
+    rank's shards of ``params`` (copies; the global tree is dropped by the
+    caller) with AdamW moments of their shapes."""
+    from repro_torch.launch.mesh import build_mesh
+    from repro_torch.launch.sharding import bind_groups, local_shards
+    from repro_torch.launch.steps import (
+        ShapeSpec, make_shape_ctx, state_sharding,
+    )
+    mesh = build_mesh(mesh_spec)
+    ctx = bind_groups(make_shape_ctx(
+        mesh, cfg, ShapeSpec("cli", "train", args.seq, batch)))
+    places = state_sharding(ctx, {"params": params})["params"]
+    local = local_shards(params, places, mesh)
+    return {"params": local, "opt": adamw_init(local)}, ctx, places
+
+
+def _as_dtensors(state, places, mesh):
+    """The state's shards as ``DTensor`` s over their placements, which
+    :func:`repro_torch.ckpt.store.save` writes shard by shard."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.sharding import zip_map
+
+    def one(t, pl):
+        return DTensor.from_local(t, mesh, pl, run_check=False)
+
+    opt = state["opt"]
+    return (zip_map(one, state["params"], places),
+            {"mu": zip_map(one, opt["mu"], places),
+             "nu": zip_map(one, opt["nu"], places), "step": opt["step"]})
+
+
+def _train_lm(args, cfg, params, device, mesh_spec):
     from repro_torch.ckpt import store
     from repro_torch.configs import get_config, get_reduced
     from repro_torch.exec import Planner, ResidencySpec
+    from repro_torch.data.pipeline import device_put_global
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models.lm.model import family_fns
 
-    device = _device(args.device)
+    root = _rank() == 0
+    say = print if root else (lambda *a, **k: None)
     # fp32 matmuls stay fp32 (bf16 activations are the config's choice)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -398,22 +466,33 @@ def train_lm(args, cfg=None, params=None):
             lambda table: Planner.for_model(
                 cfg, batch, args.seq,
                 budget=int((args.budget_gb or 0.0) * 2**30),
-                residency=ResidencySpec.parse(args.residency),
+                mesh=mesh_spec, residency=ResidencySpec.parse(args.residency),
                 kernel=args.kernel or None), device)
-        print("plan:", plan.describe(), flush=True)
+        say("plan:", plan.describe(), flush=True)
     if params is None:
         params = family_fns(cfg).init(torch.Generator(
             device=device).manual_seed(args.seed), cfg)
     n_params = sum(l.numel() for l in tree_leaves(params))
+    # the paper's ξ: 4 × the global parameter bytes (params, grads, two
+    # AdamW moments), the reference's integer under a mesh too
+    xi = 4 * sum(int(t.nbytes) for t in tree_leaves(params))
     row_chunks = plan.n_rows if plan is not None else cfg.row_chunks
-    print(f"arch={cfg.name} params={n_params / 1e6:.1f}M "
-          f"row_chunks={row_chunks} remat={cfg.remat} batch={batch} "
-          f"seq={args.seq} device={device}", flush=True)
+    say(f"arch={cfg.name} params={n_params / 1e6:.1f}M "
+        f"row_chunks={row_chunks} remat={cfg.remat} batch={batch} "
+        f"seq={args.seq} device={device}"
+        + (f" mesh={mesh_spec.describe()}" if mesh_spec else ""),
+        flush=True)
 
     opt_cfg = AdamWConfig(lr=LM_LR if args.lr is None else args.lr)
-    state = {"params": params, "opt": adamw_init(params)}
+    ctx = places = None
+    if mesh_spec is not None:
+        # each rank keeps only its shard of the parameters and moments
+        state, ctx, places = _shard_state(params, cfg, args, batch,
+                                          mesh_spec)
+    else:
+        state = {"params": params, "opt": adamw_init(params)}
     del params
-    step_fn = make_train_step(cfg, opt_cfg, plan=plan)
+    step_fn = make_train_step(cfg, opt_cfg, ctx=ctx, plan=plan)
     ds = TokenDataset(TokenDatasetConfig(vocab=cfg.vocab, seq_len=args.seq,
                                          batch=batch, seed=args.seed))
     os.makedirs(args.out, exist_ok=True)
@@ -423,34 +502,45 @@ def train_lm(args, cfg=None, params=None):
     for step in range(args.steps):
         with obs.profile_range(f"train_step {step}"):
             with obs.profile_range("data"):
-                data = lm_batch(cfg, ds.batch_at(step), step, args.seed,
-                                device)
+                if ctx is None:
+                    data = lm_batch(cfg, ds.batch_at(step), step, args.seed,
+                                    device)
+                else:  # this rank's rows, over the context's batch axes
+                    data = device_put_global(
+                        lm_host_batch(cfg, ds.batch_at(step), step,
+                                      args.seed), ctx.mesh,
+                        batch_axes=ctx.logical["batch"] or (),
+                        device=device)
             if step == 0 and obs.enabled():
                 # the plan prices the sequence-chunk term; the paper's ξ
                 # (params + grads + two AdamW moments, fp32 beside the
                 # activations) makes it comparable to the step's peak
-                est = None if plan is None else plan.est_bytes_per_device \
-                    + 4 * sum(int(t.nbytes)
-                              for t in tree_leaves(state["params"]))
+                est = None if plan is None \
+                    else plan.est_bytes_per_device + xi
                 (state, metrics), audit = _audit_step(
                     lambda: step_fn(state, data), plan,
                     {"arch": cfg.name, "batch": batch, "seq": args.seq},
-                    device, source="train_step_lm", est_bytes=est)
+                    device, source="train_step_lm", est_bytes=est,
+                    echo=root)
             else:
                 state, metrics = step_fn(state, data)
             if step % args.log_every == 0 or step == args.steps - 1:
                 rec = {k: float(v) for k, v in metrics.items()}
                 rec.update(step=step, elapsed_s=round(time.time() - t0, 3))
-                steplog.log(rec)
+                steplog.log(rec, echo=root)
     if args.save:
         # the executed plan rides along as a JSON sidecar, so the
-        # checkpoint replays its own policy
-        store.save(args.out, args.steps, state["params"], state["opt"],
-                   {"arch": cfg.name}, plan=plan)
-    steplog.dump(os.path.join(args.out, "train_log.json"),
-                 arch=cfg.name, mode="lm",
-                 plan=plan.to_dict() if plan is not None else None,
-                 plan_audit=audit)
+        # checkpoint replays its own policy; a sharded state saves per
+        # shard
+        p, o = (state["params"], state["opt"]) if ctx is None \
+            else _as_dtensors(state, places, ctx.mesh)
+        store.save(args.out, args.steps, p, o, {"arch": cfg.name},
+                   plan=plan)
+    if root:
+        steplog.dump(os.path.join(args.out, "train_log.json"),
+                     arch=cfg.name, mode="lm",
+                     plan=plan.to_dict() if plan is not None else None,
+                     plan_audit=audit)
     return steplog.records
 
 
@@ -496,9 +586,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--out", default="experiments/train")
     ap.add_argument("--mesh", default="",
-                    help="CNN: device mesh, e.g. data=2 or data=1,model=2; "
-                         "one rank per coordinate (torchrun), the budget "
-                         "per device (LM: not ported yet, raises)")
+                    help="device mesh, e.g. data=2 or data=1,model=2: one "
+                         "rank per coordinate (torchrun), the budget per "
+                         "device; an LM rank holds only its shard of the "
+                         "parameters and AdamW moments")
     ap.add_argument("--save", action="store_true",
                     help="LM: checkpoint params, AdamW state and plan into "
                          "--out after the last step")

@@ -20,6 +20,15 @@ scalar marking a sliding-window ring buffer (position p lives at slot
 the cache tensors in place (``index_put_``), where the reference's
 ``.at[].set`` returns an updated copy; ``pos`` is returned as a new
 tensor, so a caller that reads the pre-step positions still can.
+
+In a sharded step (train, prefill and cross attention) a rank holding its
+slice of the heads computes them column-parallel in :func:`_qkv` and the
+output projection row-parallel in :func:`_proj_out` (fp32 partial sums,
+summed over the model group, then one rounding).  GQA keeps q head *h*
+with kv head *h*·KV/H on the same rank: the rank's kv heads when ``wk``
+is split with ``wq``, else (``wk`` gathered whole, its heads not divisible
+by the model extent) the kv heads its q heads read, taken from the whole
+K/V, whose gradient the group then sums (:func:`_kv_for_heads`).
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch.sharding import enter, seam, split_offset
 from repro_torch.models.lm import rowexec
 from repro_torch.models.lm.common import dense_init, rope, torch_dtype
 
@@ -64,17 +74,44 @@ def init_attn(gen, dims: AttnDims, param_dtype, stack: int = 0):
     return p
 
 
+def _q_offset(params, dims: AttnDims):
+    """Where this rank's q heads start when they are split, else None."""
+    return split_offset(params["wq"].shape[-2], dims.n_heads)
+
+
+def _kv_for_heads(params, k, v, dims: AttnDims):
+    """K/V for this rank's q heads.  Split with them, or one device: as
+    they are.  Computed whole (``wk`` gathered): the kv head of each local
+    q head, repeated, so the grouping is one kv head a q head; the whole
+    K/V enters the split region through ``enter``, so its gradient sums
+    the ranks' parts."""
+    lo = _q_offset(params, dims)
+    if lo is None or k.shape[2] != dims.n_kv:
+        return k, v
+    hl = params["wq"].shape[-2]
+    idx = torch.div(torch.arange(lo, lo + hl, device=k.device),
+                    dims.n_heads // dims.n_kv, rounding_mode="floor")
+    return (enter(k).index_select(2, idx), enter(v).index_select(2, idx))
+
+
 def _qkv(params, x, dims: AttnDims, positions):
     dt = x.dtype
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(dt))
+    xq = enter(x) if _q_offset(params, dims) is not None else x
+    xk = xq if params["wk"].shape[-2] != dims.n_kv else x
+    q = torch.einsum("bsd,dhk->bshk", xq, params["wq"].to(dt))
+    k = torch.einsum("bsd,dhk->bshk", xk, params["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", xk, params["wv"].to(dt))
     if dims.qkv_bias:
         q = q + params["bq"].to(dt)
         k = k + params["bk"].to(dt)
         v = v + params["bv"].to(dt)
-    return (rope(q, positions, dims.rope_theta),
-            rope(k, positions, dims.rope_theta), v)
+    q = rope(q, positions, dims.rope_theta)
+    k = rope(k, positions, dims.rope_theta)
+    q = seam(q, "batch", None, "tp", None)
+    k = seam(k, "batch", None, "tp", None)
+    v = seam(v, "batch", None, "tp", None)
+    k, v = _kv_for_heads(params, k, v, dims)
+    return q, k, v
 
 
 def _scores_mask(q_pos, k_pos, window: int, causal: bool = True):
@@ -103,9 +140,16 @@ def _attend(q, k, v, q_pos, k_pos, window: int, n_q_per_kv: int,
     return out.reshape(B, Sq, Hq, D).to(q.dtype)
 
 
-def _proj_out(params, attn_out):
+def _proj_out(params, attn_out, dims: AttnDims):
     dt = attn_out.dtype
-    return torch.einsum("bshk,hkd->bsd", attn_out, params["wo"].to(dt))
+    wo = params["wo"]
+    if _q_offset(params, dims) is None:
+        y = torch.einsum("bshk,hkd->bsd", attn_out, wo.to(dt))
+        return seam(y, "batch", None, None)
+    # row-parallel (``wo`` splits its heads with ``wq``): this rank's
+    # heads' share of the output, in fp32
+    y = torch.einsum("bshk,hkd->bsd", attn_out.float(), wo.to(dt).float())
+    return seam(y, "batch", None, None, partial=True).to(dt)
 
 
 def attn_train(params, x, dims: AttnDims, n_chunks: int = 1):
@@ -122,7 +166,7 @@ def attn_train(params, x, dims: AttnDims, n_chunks: int = 1):
     k_pos = torch.arange(S, device=x.device)
     positions = k_pos.expand(B, S)
     q, k, v = _qkv(params, x, dims, positions)
-    g = dims.n_heads // dims.n_kv
+    g = q.shape[2] // k.shape[2]
     kernel = rowexec.swa_kernel(dims.window) if dims.window > 0 else None
     if kernel is not None:
         kk = k.repeat_interleave(g, dim=2) if g > 1 else k
@@ -143,7 +187,7 @@ def attn_train(params, x, dims: AttnDims, n_chunks: int = 1):
                 k_pos[a:a + c], k_pos[lo:a + c], dims.window, g,
                 use_reentrant=False))
         out = torch.cat(outs, dim=1)
-    return _proj_out(params, out)
+    return _proj_out(params, out, dims)
 
 
 def attn_bidir(params, x, dims: AttnDims, n_chunks: int = 1):
@@ -152,7 +196,7 @@ def attn_bidir(params, x, dims: AttnDims, n_chunks: int = 1):
     B, S, _ = x.shape
     k_pos = torch.arange(S, device=x.device)
     q, k, v = _qkv(params, x, dims, k_pos.expand(B, S))
-    g = dims.n_heads // dims.n_kv
+    g = q.shape[2] // k.shape[2]
     if n_chunks <= 1 or S % n_chunks:
         out = _attend(q, k, v, k_pos, k_pos, 0, g, causal=False)
     else:
@@ -160,17 +204,23 @@ def attn_bidir(params, x, dims: AttnDims, n_chunks: int = 1):
         out = torch.cat([checkpoint(
             _attend, q[:, a:a + c], k, v, k_pos[a:a + c], k_pos, 0, g,
             False, use_reentrant=False) for a in range(0, S, c)], dim=1)
-    return _proj_out(params, out)
+    return _proj_out(params, out, dims)
 
 
 def cross_kv(params, y, dims: AttnDims):
-    """Encoder-side K/V for cross-attention (no RoPE)."""
+    """Encoder-side K/V for cross-attention (no RoPE); in a sharded step,
+    those of this rank's q heads."""
     dt = y.dtype
+    if params["wk"].shape[-2] != dims.n_kv:
+        y = enter(y)
     k = torch.einsum("bsd,dhk->bshk", y, params["wk"].to(dt))
     v = torch.einsum("bsd,dhk->bshk", y, params["wv"].to(dt))
     if dims.qkv_bias:
         k = k + params["bk"].to(dt)
         v = v + params["bv"].to(dt)
+    k = seam(k, "batch", None, "tp", None)
+    v = seam(v, "batch", None, "tp", None)
+    k, v = _kv_for_heads(params, k, v, dims)
     return {"k": k, "v": v}
 
 
@@ -178,14 +228,17 @@ def attn_cross(params, x, kv, dims: AttnDims):
     """Cross-attention of decoder states over precomputed encoder K/V
     (no RoPE, no mask)."""
     dt = x.dtype
+    if _q_offset(params, dims) is not None:
+        x = enter(x)
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
     if dims.qkv_bias:
         q = q + params["bq"].to(dt)
+    q = seam(q, "batch", None, "tp", None)
     out = _attend(q, kv["k"], kv["v"],
                   torch.arange(x.shape[1], device=x.device),
                   torch.arange(kv["k"].shape[1], device=x.device),
-                  0, dims.n_heads // dims.n_kv, causal=False)
-    return _proj_out(params, out)
+                  0, q.shape[2] // kv["k"].shape[2], causal=False)
+    return _proj_out(params, out, dims)
 
 
 # ---------------------------------------------------------------------------
@@ -224,6 +277,8 @@ def attn_decode(params, x, cache, dims: AttnDims):
     k, v = cache["k"], cache["v"]
     k.index_put_((bidx, slot.long()), k_new[:, 0].to(k.dtype))
     v.index_put_((bidx, slot.long()), v_new[:, 0].to(v.dtype))
+    k = seam(k, "batch", None, "tp", None)
+    v = seam(v, "batch", None, "tp", None)
 
     # absolute positions held in each cache slot; ring: slot i holds
     # position p - ((slot - i) mod max_len), a floor modulo
@@ -245,7 +300,7 @@ def attn_decode(params, x, cache, dims: AttnDims):
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
     out = out.reshape(B, 1, dims.n_heads, dims.head_dim).to(x.dtype)
-    y = _proj_out(params, out)
+    y = _proj_out(params, out, dims)
     return y, {"k": k, "v": v, "pos": pos + 1, "ring": ring}
 
 

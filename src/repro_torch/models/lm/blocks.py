@@ -35,6 +35,7 @@ from typing import Dict
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch.sharding import at_use
 from repro_torch.models.lm import rowexec
 from repro_torch.models.lm.attention import (
     AttnDims, attn_decode, attn_prefill, attn_train, init_attn, init_cache,
@@ -126,12 +127,15 @@ def _ffn(params, h, kind: str, cfg: ModelConfig, nc: int):
     """The block's feed-forward half: (y, aux or None)."""
     if kind == "moe":
         return moe_apply(params["moe"], h, moe_dims(cfg), nc)
-    return mlp_apply(params["mlp"], h, nc), None
+    return mlp_apply(params["mlp"], h, nc, cfg.d_ff), None
 
 
 def block_train(params, x, kind: str, cfg: ModelConfig):
-    """Returns (x, aux)."""
+    """Returns (x, aux).  In a sharded step the leaves stored split but
+    used whole are gathered here, one layer at a time (and again when a
+    checkpointed block recomputes)."""
     _check_kind(kind)
+    params = at_use(params)
     eps = cfg.norm_eps
     h = rms_norm(x, params["norm1"]["scale"], eps)
     if kind in RECURRENT_KINDS:

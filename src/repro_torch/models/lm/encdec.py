@@ -15,6 +15,12 @@ reference ``lax.scan``s over the layers, the port loops over them in
 Python and indexes the stacked tensors.  Decode writes each layer's self
 K/V into the stacked cache in place and reads the cross K/V that the
 prefill wrote; the encoder has no decode step.
+
+In a sharded step (:func:`encode`, :func:`encdec_loss`) each rank runs its
+slice of the batch with its shard of the parameters: attention heads and
+the MLP's ff column/row-parallel, the vocabulary split in the embedding,
+the logits and the cross-entropy, the leaves stored split but used whole
+gathered one layer at a time.
 """
 
 from __future__ import annotations
@@ -23,6 +29,9 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch.launch.sharding import (
+    at_use, batch_sum, seam, split_offset, tp,
+)
 from repro_torch.models.lm.attention import (
     attn_bidir, attn_cross, attn_decode, attn_prefill, attn_train, cross_kv,
     init_attn, init_cache,
@@ -75,14 +84,14 @@ def encode(params, frames, cfg: ModelConfig):
     dims = attn_dims(cfg, "attn")
     eps = cfg.norm_eps
     nc = _nc(cfg)
-    x = frames
+    x = seam(frames, "batch", None, None)
     for i in range(cfg.n_enc_layers):
-        lp = _layer(params["enc"], i)
+        lp = at_use(_layer(params["enc"], i))
         h = rms_norm(x, lp["norm1"]["scale"], eps)
         x = x + attn_bidir(lp["attn"], h, dims, nc)
         h = rms_norm(x, lp["norm2"]["scale"], eps)
-        x = x + mlp_apply(lp["mlp"], h, nc)
-    return rms_norm(x, params["enc_norm"]["scale"], eps)
+        x = x + mlp_apply(lp["mlp"], h, nc, cfg.d_ff)
+    return rms_norm(x, at_use(params["enc_norm"])["scale"], eps)
 
 
 def _dec_layer(lp, x, enc_out, cfg: ModelConfig, nc: int):
@@ -94,29 +103,45 @@ def _dec_layer(lp, x, enc_out, cfg: ModelConfig, nc: int):
     kv = cross_kv(lp["cross_attn"], enc_out, dims)
     x = x + attn_cross(lp["cross_attn"], h, kv, dims)
     h = rms_norm(x, lp["norm2"]["scale"], eps)
-    return x + mlp_apply(lp["mlp"], h, nc)
+    return x + mlp_apply(lp["mlp"], h, nc, cfg.d_ff)
 
 
 def encdec_forward(params, batch, cfg: ModelConfig):
+    """The logits (in a sharded step, this rank's rows of the batch and
+    its columns of the vocabulary)."""
     dtype = torch_dtype(cfg.dtype)
+    top = {k: at_use(v) for k, v in params.items()
+           if k not in ("enc", "dec")}
     enc_out = encode(params, batch["frames"].to(dtype), cfg)
-    x = embed_apply(params["embed"], batch["tokens"].long(), dtype)
+    x = embed_apply(top["embed"], batch["tokens"].long(), dtype, cfg.vocab)
     nc = _nc(cfg)
     for i in range(cfg.n_layers):
-        x = _dec_layer(_layer(params["dec"], i), x, enc_out, cfg, nc)
-    x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    return unembed_apply(params["unembed"], x, dtype)
+        x = _dec_layer(at_use(_layer(params["dec"], i)), x, enc_out, cfg,
+                       nc)
+    x = rms_norm(x, top["final_norm"]["scale"], cfg.norm_eps)
+    return unembed_apply(top["unembed"], x, dtype, cfg.vocab)
 
 
 def encdec_loss(params, batch, cfg: ModelConfig):
     """Mean next-token CE over labels >= 0.  The whole (B, S, vocab) logits
-    are built, in fp32, as in the reference (no chunked head here)."""
+    are built, in fp32, as in the reference (no chunked head here); a rank
+    holding a slice of the vocabulary reduces the log-sum-exp and the
+    label's logit over the model group, and the batch group sums the NLL
+    and the label count."""
+    from repro_torch.exec.collectives import vocab_lse, vocab_pick
     logits = encdec_forward(params, batch, cfg).float()
     labels = batch["labels"].long()
     mask = labels >= 0
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -logp.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
-    ce = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
+    lo = split_offset(logits.shape[-1], cfg.vocab)
+    if lo is None:
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -logp.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    else:
+        group = tp().group
+        nll = vocab_lse(logits, group) \
+            - vocab_pick(logits, labels.clamp(min=0), lo, group)
+    ce = batch_sum(torch.sum(nll * mask)) \
+        / torch.clamp(batch_sum(torch.sum(mask)), min=1)
     return ce, {"ce": ce}
 
 

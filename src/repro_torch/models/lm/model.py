@@ -8,6 +8,13 @@ carries precomputed patch embeddings (B, n_patches, frontend_dim), which a
 learned 2-layer projector maps into d_model and puts before the token
 embeddings (LLaVA's order); the loss drops the image positions, which
 carry no labels.
+
+In a sharded step (:mod:`repro_torch.launch.steps`) each rank runs
+:func:`lm_loss` on its slice of the batch with its shard of the
+parameters: the embedding and the logits are vocab-parallel where the
+table is split, the cross-entropy's log-sum-exp and label logit are
+reduced over the vocabulary's ranks, and the loss is the global sum of
+the masked NLL over the global count of labels.
 """
 
 from __future__ import annotations
@@ -20,6 +27,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch.sharding import (
+    at_use, batch_sum, enter, seam, split_offset, tp,
+)
 from repro_torch.models.lm.blocks import (
     init_stack, init_stack_caches, stack_decode, stack_prefill, stack_train,
 )
@@ -105,7 +115,8 @@ def caches_from_reference(tree, device="cuda"):
 
 
 def _embed_inputs(params, batch, cfg: ModelConfig, dtype):
-    x = embed_apply(params["embed"], batch["tokens"].long(), dtype)
+    x = embed_apply(params["embed"], batch["tokens"].long(), dtype,
+                    cfg.vocab)
     if cfg.frontend == "vision":
         pe = batch["patch_embeds"].to(dtype)
         # jax.nn.gelu's default is the tanh approximation
@@ -113,14 +124,25 @@ def _embed_inputs(params, batch, cfg: ModelConfig, dtype):
                     approximate="tanh")
         pe = pe @ params["projector"]["w2"].to(dtype)
         x = torch.cat([pe, x], dim=1)  # image tokens first (LLaVA)
-    return x
+    return seam(x, "batch", None, None)
+
+
+def _head_offset(params, cfg: ModelConfig):
+    """Where this rank's columns of the logits start when the head is
+    vocab-split, else None."""
+    w = params["embed"]["table"].T if cfg.tie_embeddings \
+        else params["unembed"]["w"]
+    return split_offset(w.shape[-1], cfg.vocab)
 
 
 def _logits(params, x, cfg: ModelConfig, dtype):
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     if cfg.tie_embeddings:
-        return x.to(dtype) @ params["embed"]["table"].to(dtype).T
-    return unembed_apply(params["unembed"], x, dtype)
+        table = params["embed"]["table"]
+        if split_offset(table.shape[0], cfg.vocab) is not None:
+            x = enter(x)
+        return seam(x.to(dtype) @ table.to(dtype).T, "batch", None, "tp")
+    return unembed_apply(params["unembed"], x, dtype, cfg.vocab)
 
 
 def lm_forward(params, batch, cfg: ModelConfig):
@@ -131,36 +153,55 @@ def lm_forward(params, batch, cfg: ModelConfig):
     return _logits(params, x, cfg, dtype), aux
 
 
-def softmax_xent(logits, labels):
+def softmax_xent(logits, labels, vocab_lo=None):
     """CE in fp32 on (possibly bf16) logits: logsumexp minus the label's
     logit, labels < 0 ignored.  Returns (sum_nll, n_valid).  The reference
     picks the label's logit with a one-hot contraction (sharding-friendly);
-    a gather gives the same value without a (B, S, V) one-hot."""
+    a gather gives the same value without a (B, S, V) one-hot.
+    ``vocab_lo`` marks logits that are this rank's columns of the
+    vocabulary from ``vocab_lo`` on: the log-sum-exp and the label's logit
+    are then reduced over the model group."""
+    from repro_torch.exec.collectives import vocab_lse, vocab_pick
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    picked = lf.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+    labels = labels.long()
+    if vocab_lo is None:
+        lse = torch.logsumexp(lf, dim=-1)
+        picked = lf.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    else:
+        group = tp().group
+        lse = vocab_lse(lf, group)
+        picked = vocab_pick(lf, labels.clamp(min=0), vocab_lo, group)
     mask = (labels >= 0).float()
     return torch.sum((lse - picked) * mask), torch.sum(mask)
 
 
-def chunked_xent(x, labels, logits_fn, n_chunks: int):
+def chunked_xent(x, labels, logits_fn, n_chunks: int, vocab_lo=None):
     """Row-centric loss: the (B, S, V) logits are never whole — per
     sequence chunk, under ``torch.utils.checkpoint``: project, CE, release
     (Eq. 7 applied to the classifier head, the single largest activation in
-    LM training)."""
+    LM training).  ``vocab_lo``: see :func:`softmax_xent`."""
     S = labels.shape[1]
     if n_chunks <= 1 or S % n_chunks:
-        return softmax_xent(logits_fn(x), labels)
+        return softmax_xent(logits_fn(x), labels, vocab_lo)
     c = S // n_chunks
     tot = torch.zeros((), device=x.device)
     cnt = torch.zeros((), device=x.device)
     for i in range(n_chunks):
-        t, n = checkpoint(lambda xc, lc: softmax_xent(logits_fn(xc), lc),
-                          x[:, i * c:(i + 1) * c],
-                          labels[:, i * c:(i + 1) * c], use_reentrant=False)
+        t, n = checkpoint(
+            lambda xc, lc: softmax_xent(logits_fn(xc), lc, vocab_lo),
+            x[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c],
+            use_reentrant=False)
         tot = tot + t
         cnt = cnt + n
     return tot, cnt
+
+
+def at_use_top(params):
+    """The leaves outside the layer stacks gathered where a sharded step
+    stores them split but uses them whole (the stacks gather one layer at
+    a time, in their loops)."""
+    return {k: v if k in ("stack", "enc", "dec") else at_use(v)
+            for k, v in params.items()}
 
 
 def lm_loss(params, batch, cfg: ModelConfig,
@@ -169,6 +210,7 @@ def lm_loss(params, batch, cfg: ModelConfig,
     (zero for the families without a ``moe`` layer)."""
     check_ported(cfg)
     dtype = torch_dtype(cfg.dtype)
+    params = at_use_top(params)
     x = _embed_inputs(params, batch, cfg, dtype)
     x, aux = stack_train(params["stack"], x, cfg)
     labels = batch["labels"]
@@ -176,8 +218,11 @@ def lm_loss(params, batch, cfg: ModelConfig,
         x = x[:, x.shape[1] - labels.shape[1]:]
     nc = cfg.row_chunks if cfg.remat in ("rows", "block_rows") else 1
     tot, cnt = chunked_xent(x, labels,
-                            lambda xc: _logits(params, xc, cfg, dtype), nc)
-    ce = tot / torch.clamp(cnt, min=1.0)
+                            lambda xc: _logits(params, xc, cfg, dtype), nc,
+                            _head_offset(params, cfg))
+    # label masks make the counts differ per rank: the global sum over the
+    # global count (identities on one device)
+    ce = batch_sum(tot) / torch.clamp(batch_sum(cnt), min=1.0)
     loss = ce + lb_coeff * aux["load_balance"] + z_coeff * aux["z_loss"]
     return loss, {"ce": ce, **aux}
 

@@ -70,7 +70,15 @@ def plan_cfg(cfg, plan):
 def build_lm_apply(cfg, plan):
     """``apply(params, batch) -> (loss, aux)``: the family loss
     (``encdec_loss`` for the encoder-decoder family, ``lm_loss`` for the
-    others) with the plan active for the layer-stack hooks."""
+    others) with the plan active for the layer-stack hooks.
+
+    Mesh placement belongs to the caller (the sharded train step of
+    :mod:`repro_torch.launch.steps` places the state and the batch, and
+    its shard context drives the model's seams), not to the registry's
+    seq shard wrapper, which would gather every positional argument's
+    leading axis — wrong for a ``(params, batch)`` signature.  So the
+    apply is marked ``handles_mesh`` and the registry leaves it
+    unwrapped, as the reference's is."""
     from repro_torch.models.lm.model import family_fns
     loss_fn = family_fns(cfg).loss
     run_cfg = plan_cfg(cfg, plan)
@@ -79,6 +87,7 @@ def build_lm_apply(cfg, plan):
         with use_plan(plan):
             return loss_fn(params, batch, run_cfg)
 
+    apply.handles_mesh = True
     return apply
 
 

@@ -18,6 +18,10 @@ loop, or the row-program executor when the active plan's residency
 offloads the carry).  As in the reference, this path runs the chunk in
 PyTorch ops (:func:`_ssd_chunk`), not the ``ssd_scan`` kernel, which only
 the op-level ``seq_ssd_cuda`` engine calls.
+
+In a sharded step the in-projection's fused ``[x|z|B|C|dt]`` columns are
+stored split in contiguous halves, not per head, so a rank gathers the
+layer's leaves and runs it whole (the seams below stay identities).
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.sharding import seam
 from repro_torch.models.lm import rowexec
 from repro_torch.models.lm.common import dense_init
 
@@ -138,6 +143,7 @@ def ssm_train(params, x, dims: SSMDims, return_state: bool = False):
     xs = conv_out[..., :dims.inner]
     B = conv_out[..., dims.inner:dims.inner + dims.state_n]
     C = conv_out[..., dims.inner + dims.state_n:]
+    xs = seam(xs, "batch", None, "tp")
 
     H, P, N = dims.n_heads, dims.head_p, dims.state_n
     xh = xs.reshape(Bt, S, H, P).float()
@@ -169,7 +175,7 @@ def ssm_train(params, x, dims: SSMDims, return_state: bool = False):
 
     y = y + xh * params["d_skip"][None, None, :, None]
     y = (y.reshape(Bt, S, dims.inner) * F.silu(z.float())).to(dt_)
-    out = y @ params["w_out"].to(dt_)
+    out = seam(y @ params["w_out"].to(dt_), "batch", None, None)
     if return_state:
         return out, {"h": h_fin, "conv": conv_state}
     return out
@@ -213,4 +219,4 @@ def ssm_decode(params, x, state, dims: SSMDims):
         + xh * params["d_skip"][None, :, None]
     y = (y.reshape(Bt, 1, dims.inner) * F.silu(z.float())).to(dt_)
     out = y @ params["w_out"].to(dt_)
-    return out, {"h": h, "conv": conv_state}
+    return seam(out, "batch", None, None), {"h": h, "conv": conv_state}

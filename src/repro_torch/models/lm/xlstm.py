@@ -15,6 +15,9 @@ recurrence step with O(1) state.
 Stabilised exponential gating follows the paper: ``m_t = max(f̃+m, ĩ)``,
 ``i' = exp(ĩ−m)``, ``f' = exp(f̃+m_prev−m)``; the stabiliser starts at
 ``-1e30``.
+
+In a sharded step a rank gathers the layers' split leaves and runs them
+whole; the seams at the reference's ``lc`` lines stay identities.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.sharding import seam
 from repro_torch.models.lm import rowexec
 from repro_torch.models.lm.common import dense_init
 
@@ -109,6 +113,7 @@ def mlstm_train(params, x, dims: XLSTMDims, return_state: bool = False):
     dt = x.dtype
     proj = x @ params["w_in"].to(dt)
     xi, z = torch.chunk(proj, 2, dim=-1)
+    xi = seam(xi, "batch", None, "tp")
     H, hd = dims.n_heads, dims.head_dim
     q = (xi @ params["wq"].to(dt)).reshape(B, S, H, hd).float()
     k = (xi @ params["wk"].to(dt)).reshape(B, S, H, hd).float() \
@@ -143,7 +148,7 @@ def mlstm_train(params, x, dims: XLSTMDims, return_state: bool = False):
         h = h.reshape(B, S, H, hd)
 
     h = h.reshape(B, S, dims.inner) * F.silu(z.float())
-    out = h.to(dt) @ params["w_out"].to(dt)
+    out = seam(h.to(dt) @ params["w_out"].to(dt), "batch", None, None)
     if return_state:
         return out, {"C": carry[0], "n": carry[1], "m": carry[2]}
     return out
@@ -173,7 +178,7 @@ def mlstm_decode(params, x, state, dims: XLSTMDims):
                                (q, k, v, ig, fg))
     h = h.reshape(B, 1, dims.inner) * F.silu(z.float())
     out = h.to(dt) @ params["w_out"].to(dt)
-    return out, {"C": C, "n": n, "m": m}
+    return seam(out, "batch", None, None), {"C": C, "n": n, "m": m}
 
 
 # ---------------------------------------------------------------------------
@@ -246,7 +251,7 @@ def slstm_train(params, x, dims: XLSTMDims, return_state: bool = False):
         h, carry = _scan_tokens(
             lambda cry, xt: _slstm_step(pf32, dims, cry, xt[0]),
             carry0, (xp,))
-    out = h.to(dt) @ params["w_out"].to(dt)
+    out = seam(h.to(dt) @ params["w_out"].to(dt), "batch", None, None)
     if return_state:
         return out, {"c": carry[0], "n": carry[1], "h": carry[2],
                      "m": carry[3]}
@@ -267,4 +272,4 @@ def slstm_decode(params, x, state, dims: XLSTMDims):
     carry = (state["c"], state["n"], state["h"], state["m"])
     (c, n, h, m), h_t = _slstm_step(pf32, dims, carry, xp)
     out = h_t[:, None].to(dt) @ params["w_out"].to(dt)
-    return out, {"c": c, "n": n, "h": h, "m": m}
+    return seam(out, "batch", None, None), {"c": c, "n": n, "h": h, "m": m}

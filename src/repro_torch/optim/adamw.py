@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 import torch
 
@@ -71,16 +71,19 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 @torch.no_grad()
-def adamw_update_(params, grads, state, cfg: AdamWConfig, lr_scale=1.0):
+def adamw_update_(params, grads, state, cfg: AdamWConfig, lr_scale=1.0,
+                  global_norm_fn: Optional[Callable] = None):
     """The reference's ``adamw_update``, written into the parameter and
     moment tensors of ``params`` and ``state``.  Leaf by leaf: the clipped
     gradient, the moments and the new parameter of one leaf are made and
     copied back before the next leaf's, so neither a clipped copy of the
     whole gradient tree (1.8 B parameters make that 7 GB in fp32) nor a
     second copy of the parameters and both moments is ever live.
-    Returns (params, state, metrics), the same tensors."""
+    ``global_norm_fn`` replaces :func:`global_norm` for the clip: a
+    sharded step passes the norm of the whole gradient, not of this
+    rank's shards.  Returns (params, state, metrics), the same tensors."""
     grads = tree_map(lambda g: g.float(), grads)
-    gnorm = global_norm(grads)
+    gnorm = (global_norm_fn or global_norm)(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0) if cfg.clip_norm > 0 else None
     step = state["step"] + 1

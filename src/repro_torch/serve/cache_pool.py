@@ -355,7 +355,8 @@ class CachePool:
         if plan.mesh is not None and plan.mesh.n_devices > 1:
             raise NotImplementedError(
                 f"sharded decode pools (mesh={plan.mesh.describe()}) are "
-                f"not ported yet (they wait for slice 11 of the port, the sharding slice)")
+                f"not ported yet (they wait for the sharding slice's serve "
+                f"pools, ROADMAP.md queue 1, item 2)")
         self.cfg = cfg
         self.plan = plan
         self.device = torch.device(device)

@@ -92,7 +92,8 @@ class ServeEngine:
         if plan.mesh is not None and plan.mesh.n_devices > 1:
             raise NotImplementedError(
                 f"sharded serving (mesh={plan.mesh.describe()}) is not "
-                f"ported yet (it waits for slice 11 of the port, the sharding slice)")
+                f"ported yet (it waits for the sharding slice's serve pools, "
+                f"ROADMAP.md queue 1, item 2)")
         self._fns = LM.family_fns(cfg)
         self.params = params
         self.cfg = cfg

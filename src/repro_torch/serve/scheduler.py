@@ -537,7 +537,8 @@ def serve(params, cfg, requests: Sequence[Request], *,
     if mesh is not None:
         raise NotImplementedError(
             f"serve(mesh={mesh.describe()}): sharded decode pools are not "
-            f"ported yet (they wait for slice 11 of the port, the sharding slice)")
+            f"ported yet (they wait for the sharding slice's serve pools, "
+            f"ROADMAP.md queue 1, item 2)")
     need = [r.prompt_len + r.max_new_tokens for r in requests]
     if cfg.frontend == "vision":
         need = [n + cfg.n_frontend_tokens for n in need]

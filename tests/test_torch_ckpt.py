@@ -197,6 +197,67 @@ def test_port_checkpoint_restores_in_the_reference(tmp_path):
     assert ref_store.latest_step(str(tmp_path)) == 2
 
 
+def _bits(t: torch.Tensor) -> np.ndarray:
+    """A bfloat16 tensor's bits as ``uint16``."""
+    return t.view(torch.int16).numpy().view(np.uint16)
+
+
+def test_reference_bf16_checkpoint_restores_in_the_port(tmp_path):
+    """A bfloat16 leaf ``repro.ckpt.store.save`` writes as it is (numpy
+    stores it as the opaque ``|V2``) restores in the port as
+    ``torch.bfloat16``, bit for bit, and into a float32 template as the
+    same values."""
+    w = jnp.arange(6, dtype=jnp.float32).reshape(2, 3) / 7 - 0.3
+    tree = {"w": w.astype(jnp.bfloat16), "b": jnp.ones((3,), jnp.float32)}
+    ref_store.save(str(tmp_path), 1, tree)
+    with np.load(tmp_path / "ckpt_00000001.params.npz") as data:
+        assert data["w"].dtype.str == "|V2"
+    template = {"w": torch.empty(2, 3, dtype=torch.bfloat16),
+                "b": torch.empty(3)}
+    got = store.restore(str(tmp_path), template)
+    assert got["w"].dtype == torch.bfloat16
+    want = np.asarray(tree["w"]).view(np.uint16)
+    assert np.array_equal(_bits(got["w"]), want)
+    assert torch.equal(got["b"], torch.ones(3))
+    as32 = store.restore(str(tmp_path), {"w": torch.empty(2, 3),
+                                         "b": torch.empty(3)})
+    assert torch.equal(as32["w"], got["w"].float())
+
+
+BF16_SHARD_CHILD = r'''
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from repro.ckpt import store
+mesh = Mesh(np.array(jax.devices()[:2]), ("model",))
+w = (jnp.arange(24, dtype=jnp.float32).reshape(4, 6) / 9 - 1.1) \
+    .astype(jnp.bfloat16)
+w = jax.device_put(w, NamedSharding(mesh, P(None, "model")))
+store.save(sys.argv[1], 2, {"w": w})
+np.save(sys.argv[1] + "/bits.npy", np.asarray(w).view(np.uint16))
+'''
+
+
+def test_reference_sharded_bf16_checkpoint_restores_in_the_port(tmp_path):
+    """A bfloat16 leaf the reference saves per shard (two CPU devices in a
+    child process) reassembles in the port (``_assemble`` keeps the
+    shards' ``|V2``) and restores bit for bit."""
+    d = tmp_path / "ck"
+    r = subprocess.run([sys.executable, "-c", BF16_SHARD_CHILD, str(d)],
+                       cwd=ROOT, env=dict(os.environ,
+                                          PYTHONPATH=str(ROOT / "src"),
+                                          JAX_PLATFORMS="cpu"),
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-4000:]
+    with np.load(d / "ckpt_00000002.params.npz") as data:
+        assert sorted(data.files) == ["w::shard0", "w::shard1"]
+        assert data["w::shard0"].dtype.str == "|V2"
+    got = store.restore(str(d), {"w": torch.empty(4, 6,
+                                                  dtype=torch.bfloat16)})
+    assert np.array_equal(_bits(got["w"]), np.load(d / "bits.npy"))
+
+
 # ---------------------------------------------------------------------------
 # per shard, in a 4-rank group
 # ---------------------------------------------------------------------------

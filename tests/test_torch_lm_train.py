@@ -113,8 +113,11 @@ def test_unported_lm_archs_and_flags_raise(tmp_path):
     """The MoE, VLM and encoder-decoder archs train since the slice that
     ported them (one step each, finite; their parity with the reference
     trainer is in ``tests/test_torch_{moe,encdec,lm}.py``); ``--mesh``
-    still raises (``--budget-gb`` and ``--residency`` run on the LM path
-    since the SSM slice: ``tests/test_torch_seqrow.py``)."""
+    in one process raises, pointing at the plan's per-device projection,
+    as the CNN trainer does (a group of ranks trains:
+    ``tests/test_torch_lm_sharding.py``; ``--budget-gb`` and
+    ``--residency`` run on the LM path since the SSM slice:
+    ``tests/test_torch_seqrow.py``)."""
     for arch in ("deepseek_moe_16b", "llava_next_34b",
                  "seamless_m4t_medium"):
         args = _args(tmp_path, "--steps", "1")
@@ -123,7 +126,7 @@ def test_unported_lm_archs_and_flags_raise(tmp_path):
         assert len(recs) == 1 and np.isfinite(recs[0]["loss"])
         log = json.load(open(os.path.join(tmp_path, "train_log.json")))
         assert log["arch"] == get_reduced(arch).name
-    with pytest.raises(NotImplementedError, match="--mesh"):
+    with pytest.raises(ValueError, match=r"needs 2 devices .*per_device"):
         T.train_lm(_args(tmp_path, "--steps", "1", "--mesh", "data=2"))
 
 

@@ -164,22 +164,23 @@ def test_build_mesh_needs_the_ranks():
 
 
 def test_lm_and_serve_meshes_name_slice_11(tmp_path):
+    """The LM's sharded step is ported (``tests/test_torch_lm_sharding.py``
+    holds it to the reference): a mesh plan's LM apply handles the mesh
+    itself, unwrapped.  Serving over a mesh still raises, naming the
+    sharded serve pools' item of the roadmap: the server's ``--mesh`` and
+    ``Planner.for_serve(mesh=)``."""
     from repro_torch.launch import serve as S
-    from repro_torch.launch import train as T
-    args = T.build_parser().parse_args(
-        ["--arch", "qwen1_5_4b", "--device", "cpu", "--steps", "1",
-         "--mesh", "data=2", "--out", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        T.train_lm(args)
-    with pytest.raises(NotImplementedError, match="slice 11"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
         S.main(["--arch", "qwen1_5_4b", "--device", "cpu", "--mesh",
                 "data=2"])
+    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
+        Planner.for_serve(get_reduced("qwen1_5_4b"), 64, 2**20,
+                          mesh=MeshSpec.parse("data=2"))
     cfg = get_reduced("qwen1_5_4b")
     params = family_fns(cfg).init(torch.Generator().manual_seed(0), cfg)
     plan = ExecutionPlan.explicit("seq_chunked", 2,
                                   mesh=MeshSpec.parse("data=2"))
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        build_apply((params, cfg), plan)
+    assert getattr(build_apply((params, cfg), plan), "handles_mesh", False)
 
 
 # ---------------------------------------------------------------------------
