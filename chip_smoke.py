@@ -213,6 +213,38 @@ printing one line:
                 requests with frames as long as ``--prompt-len`` (the
                 pool's enc_len), whose ``paged_kv`` pool must raise
                 ``ValueError``; Qwen3-MoE, 4 of 94 layers, 4 requests.
+   mesh_serve   sharded serving on two ``gloo`` ranks sharing the card
+                (TF32 off).  (A) ``serve --mesh data=2`` through
+                ``repro_torch.launch.serve``'s functions: the serve
+                phase's Gemma-3 4B (34 layers) traffic and ``full`` pool,
+                its one-process slot count pinned (14, 7 a rank); every
+                rank's greedy streams bit-identical to the one-process
+                ``full`` run's, each rank's pool bytes half of that run's
+                (1e-3), the summed audit in [0.95, 1.10]; tok/s, the
+                rank's 7-slot decode step ms, the gloo bytes and calls.
+                Streams differ across decode widths in bf16 (the serve
+                phase's cohort runs show it), so the gate is bit-identity
+                with a one-process run at the rank's width (7 slots); the
+                14-slot ``full`` run's agreement is printed.  (B)
+                ``make_prefill_step(ctx=)`` and ``make_serve_step(ctx=)``
+                over ``data=1,model=2``: batch 4, 512-token prompts, cache
+                4096, 16 decode steps fed one process's greedy tokens,
+                Gemma-3 4B (34 layers) then Zamba2-7B (12 layers), in the
+                configs' bf16 and Zamba2 again with fp32 activations
+                (``MESH_SERVE_STEPS``): logits within each run's tolerance
+                of one process's relative to the largest |logit| (Gemma
+                every step at SERVE_CHUNKED_TOL; Zamba2's bf16 prefill at
+                it, every fp32 step at 1e-4).  Zamba2's Mamba2 state
+                carries each step's bf16 rounding on, so its bf16 decode
+                steps are held to exact arithmetic instead: one process
+                with fp32 activations, fed the same tokens, is the truth,
+                and every step's rank logits lie within
+                MESH_SERVE_TRUTH_FACTOR times the one-process bf16
+                logits' distance from it.  Each bf16 run's drift is
+                printed beside a one-process run's that only splits its
+                batch in two, greedy agreement beside the top-2 margin,
+                each rank's parameter and cache bytes beside one
+                process's, ms a step.
 
 Every train run above carries ``--trace`` and ``--metrics-out`` (into a
 temporary ``obs`` directory) and prints its step-0 ``plan audit:`` line.
@@ -454,6 +486,27 @@ MESH_LM_RUNS = [
      ["--residency", "device", "--mesh", "data=1,model=2"], "moe2"),
 ]
 MESH_LM_STEPS, MESH_LM_WAIT_S = 2, 600
+#: sharded serving on the card, two gloo ranks sharing it: (A) the serve
+#: phase's Gemma-3 4B traffic under ``--mesh data=2`` at its one-process
+#: slot count; (B) the model-axis steps (``data=1,model=2``) at batch 4,
+#: 512-token prompts, cache 4096, 16 decode steps, as (name, arch, layers,
+#: activation dtype or None for the config's, tolerance, whether the
+#: decode steps are held to an fp32 twin instead).  A recurrent state
+#: carries each step's bf16 rounding into the next (Zamba2's drift grows
+#: with the steps, 7.8e-3 to 2.8e-2 over 16 on an H100 80GB HBM3 at 700 W,
+#: where fp32 on the CPU stays at 2e-6), so Zamba2's bf16 run gates its
+#: prefill at the tolerance and each decode step against the truth of
+#: one process in fp32 activations fed the same tokens: the ranks' logits
+#: within MESH_SERVE_TRUTH_FACTOR times the one-process bf16 logits'
+#: distance from it (sharding may round otherwise than one process, not
+#: further from exact); an fp32-activation run gates every step
+MESH_SERVE_STEPS = [
+    ("gemma", "gemma3_4b", None, None, 1.5e-2, False),
+    ("zamba", "zamba2_7b", 12, None, 1.5e-2, True),
+    ("zamba_fp32", "zamba2_7b", 12, "float32", 1e-4, False)]
+MESH_SERVE_TRUTH_FACTOR = 2.0
+MESH_SERVE_BATCH, MESH_SERVE_PROMPT, MESH_SERVE_CACHE = 4, 512, 4096
+MESH_SERVE_DECODES, MESH_SERVE_WAIT_S = 16, 600
 #: the LM checkpoint round trip: xLSTM-125M at its full preset, seq 256
 CKPT_LM_ARCH, CKPT_LM_SEQ = "xlstm_125m", 256
 CKPT_LM_TOL = 1e-6
@@ -2055,6 +2108,7 @@ def _serve(torch, tmp, name, arch, params, flags, **over):
     run = {"tokens": {st.rid: list(st.generated) for st in report.states},
            "slots": plan.n_rows, "summary": s, "wall_s": wall,
            "tok_s": s["generated_tokens"] / wall, "audit_ratio": a["ratio"],
+           "pool_bytes": a["measured"]["peak_bytes"],
            "plan": plan.describe(),
            "peak": torch.cuda.max_memory_allocated(),
            "chunks": sorted({st.prefill_chunks for st in report.states})}
@@ -2352,7 +2406,10 @@ def phase_serve(torch, out, tmp):
         k: {kk: v[kk] for kk in ("slots", "wall_s", "tok_s", "audit_ratio",
                                  "summary", "peak", "chunks")}
         for k, v in g.items()}, "agreement": agree, "sequential": seq,
-        "chunked_prefill": chunked, "timings": timings}
+        "chunked_prefill": chunked, "timings": timings,
+        # what mesh_serve holds its data=2 run to
+        "full": {k: g["full"][k] for k in ("tokens", "slots", "pool_bytes",
+                                           "chunks", "tok_s")}}
     del params, g
     torch.cuda.empty_cache()
 
@@ -2411,6 +2468,401 @@ def phase_serve(torch, out, tmp):
         QWEN3_SERVE_FLAGS, cut="all 94 layers are ~940 GB of fp32 "
                                 "parameters")
     out["serve"] = res
+
+
+MESH_SERVE_RANK = r'''
+import dataclasses, datetime, json, os, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+
+rank, init, d, obs_dir, timeout = sys.argv[1:6]
+rank = int(rank)
+job = json.loads(sys.argv[6])
+torch.cuda.set_device(0)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+dist.init_process_group("gloo", init_method="file://" + init, rank=rank,
+                        world_size=2,
+                        timeout=datetime.timedelta(seconds=float(timeout)))
+res = {}
+
+
+def config(arch, layers, dtype):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype)
+
+
+def counters(path):
+    with open(path) as f:
+        c = json.load(f)["counters"]
+    return c.get("collectives.bytes", 0), c.get("collectives.calls", 0)
+
+
+def ms_of(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    return r, (time.perf_counter() - t0) * 1e3
+
+
+try:
+    from repro_torch import obs
+    from repro_torch.exec import MeshSpec
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import build_mesh
+    from repro_torch.launch.serve import build_parser, serve_from_args
+    from repro_torch.models.lm.model import init_lm
+    from repro_torch.obs.audit import live_bytes
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.serve import ServeEngine, make_pool
+
+    # (A) serve --mesh data=2: the rank's half of the decode-slot pool
+    a = job["serve"]
+    cfg = config("gemma3_4b", None, None)
+    params = init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
+    metrics = os.path.join(d, f"serve_rank{rank}.metrics.json")
+    args = build_parser().parse_args(
+        ["--arch", "gemma3_4b", "--preset", "full", "--budget-gb",
+         str(a["budget_gb"]), "--mesh", "data=2", "--trace",
+         os.path.join(obs_dir, f"serve_mesh_rank{rank}.jsonl"),
+         "--metrics-out", metrics, *a["flags"]])
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        report, plan, rec, wall = serve_from_args(args, cfg=cfg,
+                                                  params=params,
+                                                  n_slots=a["n_slots"])
+    finally:
+        obs.shutdown()
+    gloo = counters(metrics)
+    engine = ServeEngine(params, cfg, plan)
+    pool = make_pool(cfg, plan, device="cuda")
+    longest = max((s.request for s in report.states),
+                  key=lambda r: r.prompt_len)
+    _, cache, _ = engine.prefill(longest)
+    for s in range(plan.n_rows):
+        pool.acquire(s, longest.prompt_len)
+    for s in pool.local_slots():
+        pool.write(s, cache)
+    del cache
+    view = pool.decode_view()
+    tokens = [int(t) for t in longest.prompt[:pool.n_local]]
+    engine.decode_step(tokens, view)          # warm
+    ms = sorted(ms_of(lambda: engine.decode_step(tokens, view))[1]
+                for _ in range(5))
+    s = report.summary()
+    res["serve"] = {
+        "tokens": {str(st.rid): list(st.generated) for st in report.states},
+        "summary": s, "wall_s": wall,
+        "tok_s": s["generated_tokens"] / wall, "plan": plan.describe(),
+        "slots_per_device": plan.get("slots_per_device"),
+        "n_local": pool.n_local, "slot_lo": pool.slot_lo,
+        "chunks": sorted({st.prefill_chunks for st in report.states}),
+        "audit_ratio": report.plan_audit["ratio"],
+        "audit_measured": report.plan_audit["measured"]["peak_bytes"],
+        "pool_bytes": live_bytes(pool.caches), "decode_step_ms": ms[2],
+        "gloo_bytes": gloo[0], "gloo_calls": gloo[1],
+        "peak": torch.cuda.max_memory_allocated()}
+    del engine, pool, view, params, report
+    torch.cuda.empty_cache()
+
+    # (B) the model-axis prefill and decode steps
+    mesh = build_mesh(MeshSpec.parse("data=1,model=2"))
+    for name, arch, layers, dtype, _, _ in job["steps"]:
+        ref = np.load(os.path.join(d, f"{name}_ref.npz"))
+        want = torch.from_numpy(ref["logits"]).cuda()
+        cfg = config(arch, layers, dtype)
+        B, L = job["batch"], job["cache"]
+        params = init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
+        ctx = sh.bind_groups(steps.make_shape_ctx(
+            mesh, cfg, steps.ShapeSpec("serve", "decode", L, B)))
+        places = steps.state_sharding(ctx, {"params": params})["params"]
+        local = sh.local_shards(params, places, mesh)
+        del params
+        torch.cuda.empty_cache()
+        metrics = os.path.join(d, f"{name}_rank{rank}.metrics.json")
+        obs.configure(metrics=metrics)
+        prompt = torch.from_numpy(ref["prompt"]).cuda()
+        teacher = torch.from_numpy(ref["teacher"]).cuda()
+        (tok, caches, lg), prefill_ms = ms_of(
+            lambda: steps.make_prefill_step(cfg, L, ctx=ctx)(
+                local, {"tokens": prompt}))
+
+        truth = torch.from_numpy(ref["truth"]).cuda() \
+            if "truth" in ref.files else None
+
+        def rel(got, i, w=None):
+            w = (want if w is None else w)[i].float()
+            return float((got[:, -1].float() - w).abs().max()
+                         / w.abs().max())
+
+        errs, agree = [rel(lg, 0)], [float(
+            (tok == want[0].argmax(-1)).float().mean())]
+        truth_rel = [] if truth is None else [rel(lg, 0, truth)]
+        step = steps.make_serve_step(cfg, ctx=ctx, cache_len=L)
+        step_ms = []
+        for i in range(len(teacher)):
+            (tok, caches, lg), t = ms_of(lambda: step(
+                local, caches, {"tokens": teacher[i][:, None]}))
+            step_ms.append(t)
+            errs.append(rel(lg, i + 1))
+            if truth is not None:
+                truth_rel.append(rel(lg, i + 1, truth))
+            agree.append(float((tok == want[i + 1].argmax(-1)).float()
+                               .mean()))
+        obs.shutdown()
+        gloo = counters(metrics)
+        res[name] = {"rel": errs, "truth_rel": truth_rel,
+                     "agreement": agree,
+                     "prefill_ms": prefill_ms, "step_ms": step_ms,
+                     "param_bytes": live_bytes(local),
+                     "cache_bytes": live_bytes(caches),
+                     "gloo_bytes": gloo[0], "gloo_calls": gloo[1]}
+        del local, caches, lg, want
+        torch.cuda.empty_cache()
+finally:
+    dist.destroy_process_group()
+json.dump(res, open(os.path.join(d, f"rank{rank}.json"), "w"))
+'''
+
+
+def _mesh_serve_reference(torch, d, name, arch, layers, dtype,
+                          params=None, truth=False):
+    """One process's prefill of MESH_SERVE_BATCH seeded 512-token prompts
+    into caches of MESH_SERVE_CACHE positions and MESH_SERVE_DECODES
+    greedy decode steps: the prompts, its greedy tokens (the ranks'
+    teacher), every step's last-position logits and top-2 margin, its ms,
+    parameter and cache bytes (``{name}_ref.npz`` for the ranks); then the
+    same rows in two batches of half the size, teacher-forced alike: its
+    drift from the whole batch per step (what a change of decode width
+    alone does to the logits).  ``truth``: also the same parameters with
+    fp32 activations, fed the same tokens (the npz's ``truth``), and each
+    step's distance of this run's logits from them.  ``params``: seed 0's,
+    when the caller has them."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.launch import steps
+    from repro_torch.models.lm.model import init_lm
+    from repro_torch.obs.audit import live_bytes
+    cfg = _lm_config(arch, layers)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    if params is None:
+        params = init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
+    prompt = np.random.default_rng(7).integers(
+        0, cfg.vocab, (MESH_SERVE_BATCH, MESH_SERVE_PROMPT))
+    t0 = time.perf_counter()
+    tok, caches, lg = steps.make_prefill_step(
+        cfg, MESH_SERVE_CACHE)(
+        params, {"tokens": torch.from_numpy(prompt).cuda()})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    step = steps.make_serve_step(cfg)
+    logits, toks, step_ms = [lg[:, -1].float().cpu()], [], []
+    for _ in range(MESH_SERVE_DECODES):
+        toks.append(tok)
+        t0 = time.perf_counter()
+        tok, caches, lg = step(params, caches, {"tokens": tok[:, None]})
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        logits.append(lg[:, -1].float().cpu())
+    logits = torch.stack(logits)
+    top2 = torch.topk(logits, 2, dim=-1).values
+    res = {"prefill_ms": prefill_ms, "step_ms": step_ms,
+           "margin": (top2[..., 0] - top2[..., 1]).min(dim=-1).values
+           .tolist(),
+           "param_bytes": live_bytes(params),
+           "cache_bytes": live_bytes(caches), "layers": cfg.n_layers}
+    teacher = torch.stack(toks)
+    exact = {}
+    if truth:
+        del caches, lg
+        fp32 = dataclasses.replace(cfg, dtype="float32")
+        _, caches, lg = steps.make_prefill_step(fp32, MESH_SERVE_CACHE)(
+            params, {"tokens": torch.from_numpy(prompt).cuda()})
+        got = [lg[:, -1].float().cpu()]
+        step32 = steps.make_serve_step(fp32)
+        for t in teacher:
+            _, caches, lg = step32(params, caches, {"tokens": t[:, None]})
+            got.append(lg[:, -1].float().cpu())
+        exact["truth"] = torch.stack(got)
+        res["truth_rel"] = ((logits - exact["truth"]).abs().amax(
+            dim=(1, 2)) / exact["truth"].abs().amax(dim=(1, 2))).tolist()
+    np.savez(os.path.join(d, f"{name}_ref.npz"), prompt=prompt,
+             teacher=teacher.cpu().numpy(), logits=logits.numpy(),
+             **{k: v.numpy() for k, v in exact.items()})
+    del caches, lg
+    halves = []
+    h = MESH_SERVE_BATCH // 2
+    for rows in (slice(0, h), slice(h, MESH_SERVE_BATCH)):
+        _, caches, lg = steps.make_prefill_step(
+            cfg, MESH_SERVE_CACHE)(
+            params, {"tokens": torch.from_numpy(prompt[rows]).cuda()})
+        got = [lg[:, -1].float().cpu()]
+        for t in teacher[:, rows]:
+            _, caches, lg = step(params, caches, {"tokens": t[:, None]})
+            got.append(lg[:, -1].float().cpu())
+        halves.append(torch.stack(got))
+        del caches, lg
+    split = torch.cat(halves, dim=1)
+    res["split_rel"] = ((split - logits).abs().amax(dim=(1, 2))
+                        / logits.abs().amax(dim=(1, 2))).tolist()
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_mesh_serve(torch, out, tmp):
+    """Sharded serving on two gloo ranks sharing the card: (A) the
+    serve phase's Gemma-3 4B traffic under ``--mesh data=2`` held to its
+    one-process ``full`` run; (B) the model-axis prefill and decode steps
+    of Gemma-3 4B and Zamba2-7B held to one process
+    (``MESH_SERVE_STEPS``)."""
+    from repro_torch.models.lm.model import init_lm
+    full = out["serve"]["gemma"]["full"]
+    d = os.path.join(tmp, "mesh_serve")
+    os.makedirs(d)
+    # one process at a rank's decode width (the streams' gate), and the
+    # model-axis runs' references; Gemma's parameters serve both
+    params = init_lm(torch.Generator(device="cuda").manual_seed(0),
+                     _lm_config("gemma3_4b"))
+    width = _serve(torch, tmp, "gemma_full_half", "gemma3_4b", params,
+                   SERVE_FLAGS, n_slots=full["slots"] // 2)
+    single = {}
+    for name, arch, layers, dtype, _, truth in MESH_SERVE_STEPS:
+        single[name] = _mesh_serve_reference(
+            torch, d, name, arch, layers, dtype,
+            params=params if (arch, layers, dtype) == ("gemma3_4b", None,
+                                                       None) else None,
+            truth=truth)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    job = {"serve": {"budget_gb": SERVE_BUDGET_GB, "flags": SERVE_FLAGS,
+                     "n_slots": full["slots"]},
+           "steps": MESH_SERVE_STEPS, "batch": MESH_SERVE_BATCH,
+           "cache": MESH_SERVE_CACHE}
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MESH_SERVE_RANK, str(rank),
+         os.path.join(d, "init"), d, os.path.join(tmp, "obs"),
+         str(MESH_GROUP_TIMEOUT_S), json.dumps(job)], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rank in range(2)]
+    try:
+        outs = [p.communicate(timeout=MESH_SERVE_WAIT_S) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for rank, (p, (so, se)) in enumerate(zip(procs, outs)):
+        if p.returncode:
+            raise AssertionError(f"mesh_serve rank {rank} exit "
+                                 f"{p.returncode}: {so[-2000:]} "
+                                 f"{se[-3000:]}")
+    ranks = []
+    for rank in range(2):
+        with open(os.path.join(d, f"rank{rank}.json")) as f:
+            ranks.append(json.load(f))
+    print(f"mesh_serve: rank 0's output: {outs[0][0][-800:]}", flush=True)
+    bad = []
+    # (A)
+    want = {str(k): v for k, v in width["tokens"].items()}
+    wide = {str(k): v for k, v in full["tokens"].items()}
+    lo, hi = SERVE_AUDIT_BAND
+    for rank, r in enumerate(ranks):
+        a = r["serve"]
+        diff = [rid for rid in want if a["tokens"][rid] != want[rid]]
+        half = a["pool_bytes"] / (full["pool_bytes"] / 2)
+        print(f"  mesh_serve (A) rank {rank}: {a['plan']} slots "
+              f"{a['slot_lo']}..{a['slot_lo'] + a['n_local'] - 1} "
+              f"generated {a['summary']['generated_tokens']} in "
+              f"{a['wall_s']:.2f} s ({a['tok_s']:.1f} tok/s wall; one "
+              f"process {full['tok_s']:.1f}), {a['summary']['prefills']} "
+              f"prefills (chunks {a['chunks']}; one process "
+              f"{full['chunks']}), {a['summary']['decode_steps']} decode "
+              f"steps; its {a['n_local']}-slot decode step "
+              f"{a['decode_step_ms']:.2f} ms; pool {a['pool_bytes']} B = "
+              f"{half:.4f} x half of one process's {full['pool_bytes']}; "
+              f"summed audit {a['audit_measured']} ratio "
+              f"{a['audit_ratio']:.4f}; gloo {a['gloo_bytes']} B in "
+              f"{a['gloo_calls']} calls; peak {a['peak']}; streams differ "
+              f"from one process's at {width['slots']} slots for "
+              f"{len(diff)} of {len(want)} requests; agreement with the "
+              f"{full['slots']}-slot run {_agreement(a['tokens'], wide):.4f}"
+              f" (the {width['slots']}-slot one process's "
+              f"{_agreement({str(k): v for k, v in width['tokens'].items()}, wide):.4f})",
+              flush=True)
+        if diff:
+            bad.append(f"(A) rank {rank}: streams differ for {diff}")
+        if a["tokens"] != ranks[0]["serve"]["tokens"] \
+                or a["summary"] != ranks[0]["serve"]["summary"]:
+            bad.append(f"(A) rank {rank}'s report differs from rank 0's")
+        if a["slots_per_device"] * 2 != full["slots"]:
+            bad.append(f"(A) {a['slots_per_device']} slots a rank")
+        if abs(half - 1.0) > 1e-3:
+            bad.append(f"(A) rank {rank}: pool {half} x half")
+        if not lo <= a["audit_ratio"] <= hi:
+            bad.append(f"(A) audit {a['audit_ratio']}")
+    # (B)
+    for name, arch, layers, dtype, tol, truth in MESH_SERVE_STEPS:
+        one = single[name]
+        rs = [r[name] for r in ranks]
+        worst = max(max(r["rel"][:1 if truth else None]) for r in rs)
+        if truth:
+            # every decode step against the fp32 twin: a rank's distance
+            # over MESH_SERVE_TRUTH_FACTOR x one process's
+            over = max(max(g / (MESH_SERVE_TRUTH_FACTOR * w)
+                           for g, w in zip(r["truth_rel"][1:],
+                                           one["truth_rel"][1:]))
+                       for r in rs)
+            print(f"  mesh_serve (B) {name}: distance from one process "
+                  f"with fp32 activations per step, rank 0 "
+                  f"{[f'{x:.2e}' for x in rs[0]['truth_rel']]}, one "
+                  f"bf16 process {[f'{x:.2e}' for x in one['truth_rel']]}"
+                  f"; decode steps held to {MESH_SERVE_TRUTH_FACTOR} x one "
+                  f"process's: worst ratio {over:.3f} of the bound",
+                  flush=True)
+            if not over <= 1.0:
+                bad.append(f"(B) {name}: a decode step {over:.3f} x "
+                           f"{MESH_SERVE_TRUTH_FACTOR} x one process's "
+                           f"distance from fp32")
+        print(f"  mesh_serve (B) {name}: {arch} ({one['layers']} layers, "
+              f"{dtype or 'config'} activations) data=1,model=2, batch "
+              f"{MESH_SERVE_BATCH}, prompt {MESH_SERVE_PROMPT}, cache "
+              f"{MESH_SERVE_CACHE}, {MESH_SERVE_DECODES} decode steps: "
+              f"logits rel per step (rank 0) "
+              f"{[f'{x:.2e}' for x in rs[0]['rel']]} (one process split "
+              f"in two batches {[f'{x:.2e}' for x in one['split_rel']]}), "
+              f"gated {'the prefill' if truth else 'every step'}: worst "
+              f"{worst:.3e} (tolerance {tol}); greedy "
+              f"agreement per step {rs[0]['agreement']} beside the "
+              f"one-process top-2 margin {[round(m, 4) for m in one['margin']]}"
+              f"; param bytes {[r['param_bytes'] for r in rs]} (one "
+              f"process {one['param_bytes']}: "
+              f"{[round(r['param_bytes'] / one['param_bytes'], 4) for r in rs]})"
+              f", cache bytes {[r['cache_bytes'] for r in rs]} (one "
+              f"process {one['cache_bytes']}: "
+              f"{[round(r['cache_bytes'] / one['cache_bytes'], 4) for r in rs]})"
+              f"; prefill ms {[round(r['prefill_ms'], 1) for r in rs]} (one "
+              f"process {one['prefill_ms']:.1f}), decode ms a step "
+              f"{[round(sorted(r['step_ms'])[len(r['step_ms']) // 2], 2) for r in rs]}"
+              f" (one process "
+              f"{sorted(one['step_ms'])[len(one['step_ms']) // 2]:.2f}); "
+              f"gloo {[r['gloo_bytes'] for r in rs]} B in "
+              f"{[r['gloo_calls'] for r in rs]} calls", flush=True)
+        if not worst <= tol:
+            bad.append(f"(B) {name}: logits rel {worst}")
+    out["mesh_serve"] = {"ranks": ranks, "single": single}
+    if bad:
+        raise AssertionError("; ".join(bad))
 
 
 def _vgg_leaf_sizes(torch):
@@ -2965,6 +3417,7 @@ def main() -> int:
                       torch, out, tmp)),
                   ("mesh_lm", lambda: phase_mesh_lm(torch, out, tmp)),
                   ("serve", lambda: phase_serve(torch, out, tmp)),
+                  ("mesh_serve", lambda: phase_mesh_serve(torch, out, tmp)),
                   ("memory", lambda: phase_memory(torch, out, tmp)),
                   ("profile", lambda: phase_profile(torch, out, tmp)),
                   ("autotune", lambda: phase_autotune(torch, out, tmp)),

@@ -33,9 +33,13 @@ other half and the pieces of a sharded parameter:
   along the vocabulary (its max and its sum of exponentials all-reduced),
   and the label's logit, from whichever rank holds its column.
 
-Collectives on CUDA tensors under ``gloo`` (ranks that share one card)
-go through host copies: gloo's all-gather takes CPU tensors only.  A
-half-precision sum is taken in fp32 and rounded once.  Under an obs
+A collective takes its tensor where the group's backend needs it and
+puts the result back where the tensor was (:func:`wire_device`): CUDA
+tensors under ``gloo`` (ranks that share one card) go through host copies,
+since gloo's all-gather takes CPU tensors only, and host tensors under
+``nccl`` (the scheduler's token ids and byte counts) through the rank's
+card, since NCCL takes CUDA tensors only.  A half-precision sum is taken
+in fp32 and rounded once.  Under an obs
 session every collective counts its calls and the bytes of the tensor it
 sends (``collectives.calls``, ``collectives.bytes``).
 """
@@ -77,8 +81,12 @@ def _count(t: torch.Tensor) -> None:
     obs.counter("collectives.bytes").inc(int(t.nbytes))
 
 
-def _via_host(t: torch.Tensor, group) -> bool:
-    return t.is_cuda and dist.get_backend(group) == "gloo"
+def wire_device(t: torch.Tensor, group) -> torch.device:
+    """Where ``group``'s backend (the default group's for None) takes
+    ``t``: the rank's card under ``nccl``, the host under ``gloo``."""
+    if dist.get_backend(group) == "nccl":
+        return t.device if t.is_cuda else torch.device("cuda")
+    return torch.device("cpu")
 
 
 def all_reduce_(t: torch.Tensor, group,
@@ -86,14 +94,29 @@ def all_reduce_(t: torch.Tensor, group,
     """Reduce ``t`` over ``group`` in place (a sum unless ``op`` says
     otherwise)."""
     _count(t)
+    wire = wire_device(t, group)
     half = t.dtype in (torch.bfloat16, torch.float16)
-    if _via_host(t, group) or half:
-        h = t.detach().to("cpu" if _via_host(t, group) else t.device,
-                          torch.float32 if half else t.dtype, copy=True)
+    if wire != t.device or half:
+        h = t.detach().to(wire, torch.float32 if half else t.dtype,
+                          copy=True)
         dist.all_reduce(h, op=op, group=group)
         t.copy_(h)
     else:
         dist.all_reduce(t, op=op, group=group)
+    return t
+
+
+def broadcast_(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
+    """``t`` from the global rank ``src`` on every rank of ``group`` (the
+    default group for None), in place."""
+    _count(t)
+    wire = wire_device(t, group)
+    if wire != t.device:
+        h = t.to(wire)
+        dist.broadcast(h, src=src, group=group)
+        t.copy_(h)
+    else:
+        dist.broadcast(t, src=src, group=group)
     return t
 
 
@@ -102,8 +125,7 @@ def all_gather_cat(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     ``dim`` in group-rank order."""
     src = t.contiguous()
     _count(src)
-    if _via_host(src, group):
-        src = src.cpu()
+    src = src.to(wire_device(src, group))
     parts = [torch.empty_like(src)
              for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, src, group=group)

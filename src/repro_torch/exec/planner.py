@@ -37,9 +37,6 @@ single-stage-infeasible budget by pipelining stages over the model axis,
 the costed ``for_budget`` ranks the staged alternates beside the rest, and
 ``predict_plan_us`` charges the GPipe bubble ``1 + (S-1)/N``.  Their
 integers and plan JSON equal the reference's.
-
-Not ported yet, and raising :class:`NotImplementedError`: serving plans
-over a mesh (the sharded serve pools, ROADMAP.md queue 1, item 2).
 """
 
 from __future__ import annotations
@@ -78,10 +75,6 @@ RESIDENCY_ENGINES = ("twophase", "twophase_h")
 CUDA_ALTERNATE = {"base": "overlap_cuda", "overlap": "overlap_cuda",
                   "seq_swa_overlap": "seq_swa_cuda"}
 CUDA_ENGINES = ("overlap_cuda", "seq_swa_cuda", "seq_ssd_cuda")
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet")
 
 
 def _count_solve() -> None:
@@ -454,13 +447,16 @@ class _ServePlannerMixin:
         device holds the hot cohort's dense transit view (``(1 +
         prefetch_depth) * decode_batch`` slots), which is what the budget
         must cover; the pool's own bytes go under the ``host_bytes``
-        extra.  Sharded pools (``mesh=``) are not ported yet and raise."""
+        extra.
+
+        With ``mesh=`` decode slots shard across the batch axes: the
+        global ``budget`` is divided by the batch extent to get each
+        device's slice, each device pins the ``slots_per_device`` slots
+        that slice buys, and the global slot count is their product
+        (rounded up to a multiple of the extent when ``n_slots`` is
+        pinned, so the pool's slot axis divides evenly).  Paged/quant
+        pools and decode-state residency are single-host."""
         _count_solve()
-        if mesh is not None:
-            raise _not_ported(
-                f"Planner.for_serve(mesh={mesh.describe()}): sharded "
-                f"decode-slot pools (they wait for the sharding slice's serve "
-                f"pools, ROADMAP.md queue 1, item 2)")
         known = serve_cache_kinds()
         if cache_kind not in known:
             raise KeyError(
@@ -475,10 +471,18 @@ class _ServePlannerMixin:
             raise ValueError("decode state cannot be recomputed (tokens "
                              "depend on it); use 'host' or 'device' "
                              "decode residency")
+        shards = mesh.batch_extent if mesh is not None else 1
+        if shards > 1 and (cache_kind != "full"
+                           or decode_residency is not None):
+            raise ValueError(
+                f"cache kind {cache_kind!r} / decode-state residency "
+                f"pools are single-host; drop mesh= or use the default "
+                f"contiguous kind")
         host = decode_residency is not None \
             and decode_residency.default == "host"
         slot = cls.decode_slot_bytes(cfg, max_len, enc_len,
                                      cache_kind=cache_kind)
+        dev_budget = budget // shards
         extras = {"max_len": max_len, "slot_bytes": slot,
                   "cache_kind": cache_kind}
         if decode_batch:
@@ -495,42 +499,52 @@ class _ServePlannerMixin:
             avg = int(avg_len) or max_len
             app = max(1, -(-avg // page_size))  # expected pages per request
             if n_slots:
+                per_dev = n_slots
                 n_pages = n_pages or n_slots * mp    # worst case: no sharing
             elif budget:
                 per_req = slot + app * pb
-                n_slots = max(1, min(n_max, budget // per_req))
-                n_pages = n_pages or max(n_slots * app,
-                                         (budget - n_slots * slot) // pb)
+                per_dev = max(1, min(n_max, dev_budget // per_req))
+                n_pages = n_pages or max(per_dev * app,
+                                         (dev_budget - per_dev * slot) // pb)
             else:
-                n_slots = 1
+                per_dev = 1
                 n_pages = n_pages or mp
             n_pages = max(1, int(n_pages))
-            est = n_slots * slot + n_pages * pb
+            per_dev_est = per_dev * slot + n_pages * pb
+            n_slots = per_dev * shards               # shards == 1 here
             extras.update(page_size=int(page_size), n_pages=n_pages,
                           page_bytes=pb, avg_len=avg)
         else:
             if not n_slots:
-                n_slots = max(1, min(max(1, n_max), budget // slot)) \
-                    if budget else 1
-            est = n_slots * slot
+                if budget:
+                    per_dev = max(1, min(max(1, n_max // shards),
+                                         dev_budget // slot))
+                else:
+                    per_dev = 1
+                n_slots = per_dev * shards
+            else:
+                per_dev = -(-n_slots // shards)   # ceil: even slot sharding
+                n_slots = per_dev * shards
+            per_dev_est = per_dev * slot
         if host:
             # the pool lives in host memory; the device holds the hot
             # cohort's dense transit view (current fetch + prefetch_depth
             # in flight), so that is what the budget must cover
             dense_slot = cls.decode_slot_bytes(cfg, max_len, enc_len)
-            hot = int(decode_batch) or n_slots
-            extras["host_bytes"] = est
-            est = min(n_slots, hot * (
+            hot = int(decode_batch) or per_dev
+            extras["host_bytes"] = per_dev_est
+            per_dev_est = min(per_dev, hot * (
                 1 + decode_residency.prefetch_depth)) * dense_slot
-        extras["slots_per_device"] = n_slots
+        extras["slots_per_device"] = per_dev
         if cfg.family == "encdec":
             extras["enc_len"] = enc_len
         return ExecutionPlan(
             engine="serve_pool", n_rows=n_slots, in_shape=None,
             batch=n_slots, dtype_bytes=2 if cfg.dtype == "bfloat16" else 4,
-            est_bytes=est, est_bytes_per_device=est, budget=budget,
-            feasible=(budget == 0 or est < budget),
-            mesh=None, residency=decode_residency,
+            est_bytes=per_dev_est * shards, est_bytes_per_device=per_dev_est,
+            budget=budget,
+            feasible=(budget == 0 or per_dev_est < dev_budget),
+            mesh=mesh, residency=decode_residency,
             extras=tuple(extras.items()))
 
 

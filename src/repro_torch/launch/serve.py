@@ -12,16 +12,28 @@ they free up, under the byte budget the Planner turns into a slot count.
 requests carry ``n_frontend_tokens`` patch embeddings each, and an
 encoder-decoder's carry frames as long as ``--prompt-len`` (the pool's
 ``enc_len``; enc-dec pools are ``--cache-kind full`` only).  Every flag of
-the reference is
-here except ``--mesh``, which raises (the sharded serve pools,
-ROADMAP.md queue 1, item 2); ``--torch-profile DIR`` stands for
-``--jax-profile``, and ``--device`` (default ``cuda``; it raises when no card is present and
-never falls back to the CPU) picks where parameters, pool and decode
-live.  Parameters are initialised from ``--seed`` on that device.  The
-old one-shot flags still work (``--batch 4 --prompt-len 64 --gen 32``
-serves a static batch of identical-length prompts arriving together).
-Prints the pool plan, a summary and ``serve OK``; ``--out DIR`` writes
-the reference's artefact JSON.
+the reference is here; ``--torch-profile DIR`` stands for
+``--jax-profile``, and ``--device`` (default ``cuda``; it raises when no
+card is present and never falls back to the CPU) picks where parameters,
+pool and decode live.  Parameters are initialised from ``--seed`` on
+that device.  The old one-shot flags still work (``--batch 4
+--prompt-len 64 --gen 32`` serves a static batch of identical-length
+prompts arriving together).  Prints the pool plan, a summary and ``serve
+OK``; ``--out DIR`` writes the reference's artefact JSON.
+
+``--mesh data=D[,model=M]`` runs one rank per mesh coordinate, as
+``train --mesh`` does: start the ranks with ``torchrun --nproc-per-node
+D*M`` (the group is joined from its environment and ended with the run)
+or join a group before calling :func:`main`.  The decode-slot pool's slot
+axis is split over the batch axes (each rank holds ``slots_per_device``
+slots, :mod:`repro_torch.serve.cache_pool`), the parameters are whole on
+every rank, and rank 0 alone prints and writes the artefact; the streams
+equal one process's::
+
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \\
+      --arch qwen1_5_4b --preset reduced --mesh data=2 --device cpu \\
+      --requests 6 --traffic poisson --mixed-prompts --prompt-len 32 \\
+      --gen 8 --budget-gb 0.001
 """
 
 from __future__ import annotations
@@ -65,7 +77,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--mesh", default="",
-                    help="device mesh spec: not ported yet (raises)")
+                    help="device mesh spec (e.g. data=2): the global "
+                         "budget is divided by the batch extent and the "
+                         "decode-slot pool is sharded over it")
     ap.add_argument("--residency", default="",
                     choices=["", "device", "host", "recompute"],
                     help="boundary-cache residency policy recorded on "
@@ -162,12 +176,19 @@ def serve_from_args(args, cfg=None, params=None, **overrides):
     from repro_torch.obs.cli import configure_from_args, profiled
     from repro_torch.serve import SLO, serve
 
-    if args.mesh:
-        raise NotImplementedError("--mesh is not ported yet (sharded "
-                                  "decode pools wait for the sharding "
-                                  "slice's serve pools, ROADMAP.md queue "
-                                  "1, item 2)")
-    device = _device(args.device)
+    from repro_torch.exec import MeshSpec
+    from repro_torch.launch.mesh import rank_device
+    mesh_spec = MeshSpec.parse(args.mesh) if args.mesh else None
+    device = rank_device(_device(args.device))
+    if mesh_spec is not None:
+        import torch.distributed as dist
+        have = dist.get_world_size() if dist.is_initialized() else 1
+        if have != mesh_spec.n_devices:
+            raise ValueError(
+                f"--mesh {args.mesh} needs {mesh_spec.n_devices} ranks, "
+                f"one a mesh coordinate, but the process group has {have}; "
+                f"start them with torchrun --nproc-per-node "
+                f"{mesh_spec.n_devices}")
     if cfg is None:
         cfg = get_reduced(args.arch) if args.preset == "reduced" \
             else get_config(args.arch)
@@ -184,7 +205,8 @@ def serve_from_args(args, cfg=None, params=None, **overrides):
         slo = SLO(p50_latency=args.slo_p50, p95_latency=args.slo_p95)
     kw = dict(budget=budget, n_slots=0 if budget else args.batch,
               enc_len=_enc_len(args, cfg),
-              prefill_budget=budget, residency=args.residency,
+              prefill_budget=budget, mesh=mesh_spec,
+              residency=args.residency,
               cache_kind=args.cache_kind, page_size=args.page_size,
               decode_residency=args.decode_residency,
               decode_batch=args.decode_batch,
@@ -212,8 +234,7 @@ def serve_from_args(args, cfg=None, params=None, **overrides):
         "decode_residency": (plan.residency.describe()
                              if plan.residency is not None else ""),
         "exec_plan": plan.to_dict(),
-        # the per-device projection of an unsharded plan is the plan
-        "exec_plan_per_device": plan.to_dict(),
+        "exec_plan_per_device": plan.per_device().to_dict(),
         "slo": s.get("slo"),
         "summary": s,
         "plan_audit": report.plan_audit,
@@ -232,9 +253,33 @@ def write_artefact(args, rec) -> str:
 
 
 def main(argv=None):
-    from repro_torch import obs
+    """Serve what ``argv`` says and print the summary (rank 0 alone under
+    ``--mesh``); returns the report.  Under ``--mesh`` a process group the
+    run joins from the environment (``torchrun``) ends with the run."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_from_env
     args = build_parser().parse_args(argv)
+    joined = bool(args.mesh) and init_from_env(_device(args.device))
+    try:
+        return _main(args)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _main(args):
+    import torch.distributed as dist
+
+    from repro_torch import obs
     report, plan, rec, wall = serve_from_args(args)
+    # numeric health is enforced inside the engine: ServeEngine.sample
+    # raises FloatingPointError on non-finite logits, so reaching this
+    # point means every generated token came from finite logits
+    assert all(st.done for st in report.states)
+    if dist.is_initialized() and dist.get_rank() != 0:
+        obs.shutdown()
+        return report
     s = rec["summary"]
     print("pool plan:", plan.describe())
     if report.plan_audit is not None:
@@ -262,16 +307,13 @@ def main(argv=None):
         print(f"  request {st.rid}: prompt={st.request.prompt_len} "
               f"slot={st.slot} chunks={st.prefill_chunks} "
               f"tokens={st.generated[:8]}...")
-    # numeric health is enforced inside the engine: ServeEngine.sample
-    # raises FloatingPointError on non-finite logits, so reaching this
-    # point means every generated token came from finite logits
-    assert all(st.done for st in report.states)
     if args.out:
         # the artefact pins how the run executed: the pool plan (cache
         # kind, page geometry, decode residency) and the summary
         print(f"artefact: {write_artefact(args, rec)}")
     obs.shutdown()
     print("serve OK")
+    return report
 
 
 if __name__ == "__main__":

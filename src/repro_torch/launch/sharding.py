@@ -93,6 +93,11 @@ class ShardCtx:
     #: spans one rank); set by :func:`bind_groups`, None for placement
     #: arithmetic
     groups: Optional[dict] = None
+    #: the global self- and cross-attention KV cache lengths of a serving
+    #: step (set by the steps of :mod:`repro_torch.launch.steps`), from
+    #: which a decoding attention layer tells a cache split along its
+    #: positions from a whole one (:func:`kv_seq_split`)
+    kv_lens: Tuple[int, int] = (0, 0)
 
     def resolve(self, names: Sequence) -> tuple:
         """The physical spec of the logical ``names``, one entry per dim,
@@ -368,6 +373,56 @@ def split_offset(n_local: int, n_global: int) -> Optional[int]:
     return t.rank * n_local
 
 
+def kv_lens() -> Tuple[int, int]:
+    """The active serving step's global (self, cross) KV cache lengths."""
+    ctx = _bound()
+    return ctx.kv_lens if ctx is not None else (0, 0)
+
+
+def kv_seq_split(heads_whole: bool, seq: int) -> Optional[TP]:
+    """The model group a KV cache of ``seq`` positions (global) is split
+    over along its positions, or None.  The reference's ``_kv_fallback``
+    puts a cache's positions over the model axis when its kv heads do not
+    divide that axis and its positions do; a layer computes on such a
+    cache when the model axis is the tensor-parallel one and nothing else
+    splits the positions.  Any other split (positions over the data axis
+    too, the long-context shape) the step gathers, and the layer sees the
+    cache whole."""
+    t = tp() if heads_whole else None
+    if t is None:
+        return None
+    ctx = _bound()
+    if tp_axis(ctx) != "model" or any(filter_spec(
+            ctx.resolve(("seq",)), (seq,), ctx.mesh)):
+        return None
+    if seq <= 0:
+        raise ValueError("a sharded serving step must set its context's "
+                         "kv_lens (the global KV cache lengths)")
+    return t if seq % t.size == 0 else None
+
+
+def tp_part(x, dim: int):
+    """``x``'s slice along ``dim`` at this rank's place on the
+    tensor-parallel axis when the dim divides over it (the cache
+    placements' rule for a dim named "tp"), else ``x`` itself."""
+    t = tp()
+    n = x.shape[dim]
+    if t is None or n % t.size:
+        return x
+    w = n // t.size
+    return x.narrow(dim, t.rank * w, w)
+
+
+def tp_gather(x, dim: int):
+    """The tensor-parallel group's slices of ``x`` along ``dim``, whole
+    (``x`` itself without a group)."""
+    t = tp()
+    if t is None:
+        return x
+    from repro_torch.exec.collectives import all_gather_cat
+    return all_gather_cat(x, dim, t.group)
+
+
 def batch_groups() -> tuple:
     """The process groups of the batch axes (one per axis), or ()."""
     ctx = _bound()
@@ -474,13 +529,20 @@ class Sharded:
 
 
 def at_use(tree):
-    """``tree`` with every :class:`Sharded` leaf gathered whole."""
+    """``tree`` with every :class:`Sharded` leaf gathered whole (``tree``
+    itself outside a sharded step, which alone makes such leaves)."""
+    if _bound() is None:
+        return tree
+    return _gathered(tree)
+
+
+def _gathered(tree):
     if isinstance(tree, Sharded):
         return tree.gather()
     if isinstance(tree, dict):
-        return {k: at_use(v) for k, v in tree.items()}
+        return {k: _gathered(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(at_use(t) for t in tree)
+        return type(tree)(_gathered(t) for t in tree)
     return tree
 
 

@@ -1,8 +1,8 @@
 """GQA attention with RoPE, optional QKV bias, sliding-window masking,
 row-centric query chunking, and KV caches (full and ring-buffer) for
 prefill and decode, and the encoder-decoder's bidirectional and cross
-attention (counterpart of ``repro.models.lm.attention``;
-``cache_spec_axes`` waits for sharded pools).
+attention (counterpart of ``repro.models.lm.attention``; the cache
+placements are :func:`repro_torch.launch.steps.cache_sharding`).
 
 Row-centric notes: full causal attention has a *strong* dependency along
 the sequence, but its score matrix is still the dominant live activation
@@ -40,7 +40,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.launch.sharding import enter, seam, split_offset
+from repro_torch.launch.sharding import (
+    enter, kv_lens, kv_seq_split, seam, split_offset,
+)
 from repro_torch.models.lm import rowexec
 from repro_torch.models.lm.common import dense_init, rope, torch_dtype
 
@@ -94,7 +96,9 @@ def _kv_for_heads(params, k, v, dims: AttnDims):
     return (enter(k).index_select(2, idx), enter(v).index_select(2, idx))
 
 
-def _qkv(params, x, dims: AttnDims, positions):
+def _qkv(params, x, dims: AttnDims, positions, for_heads: bool = True):
+    """q, k, v of ``x``; ``for_heads=False`` keeps K/V as the projection
+    gives them (a cache stores them so), without :func:`_kv_for_heads`."""
     dt = x.dtype
     xq = enter(x) if _q_offset(params, dims) is not None else x
     xk = xq if params["wk"].shape[-2] != dims.n_kv else x
@@ -110,7 +114,8 @@ def _qkv(params, x, dims: AttnDims, positions):
     q = seam(q, "batch", None, "tp", None)
     k = seam(k, "batch", None, "tp", None)
     v = seam(v, "batch", None, "tp", None)
-    k, v = _kv_for_heads(params, k, v, dims)
+    if for_heads:
+        k, v = _kv_for_heads(params, k, v, dims)
     return q, k, v
 
 
@@ -207,9 +212,10 @@ def attn_bidir(params, x, dims: AttnDims, n_chunks: int = 1):
     return _proj_out(params, out, dims)
 
 
-def cross_kv(params, y, dims: AttnDims):
+def cross_kv(params, y, dims: AttnDims, for_heads: bool = True):
     """Encoder-side K/V for cross-attention (no RoPE); in a sharded step,
-    those of this rank's q heads."""
+    those of this rank's q heads (``for_heads=False``: as the projection
+    gives them, which a cache stores)."""
     dt = y.dtype
     if params["wk"].shape[-2] != dims.n_kv:
         y = enter(y)
@@ -220,7 +226,8 @@ def cross_kv(params, y, dims: AttnDims):
         v = v + params["bv"].to(dt)
     k = seam(k, "batch", None, "tp", None)
     v = seam(v, "batch", None, "tp", None)
-    k, v = _kv_for_heads(params, k, v, dims)
+    if for_heads:
+        k, v = _kv_for_heads(params, k, v, dims)
     return {"k": k, "v": v}
 
 
@@ -246,6 +253,13 @@ def attn_cross(params, x, kv, dims: AttnDims):
 # ---------------------------------------------------------------------------
 
 
+#: the dims of a cache leaf :func:`attn_decode` and
+#: :func:`attn_cross_cached` compute on while a sharded step splits them
+#: (logical names of :func:`repro_torch.launch.steps.cache_sharding`):
+#: K/V by kv heads, or by positions (:func:`kv_seq_split`)
+CACHE_SPLIT = {"k": ("seq", "tp"), "v": ("seq", "tp")}
+
+
 def init_cache(batch, max_len, n_kv, head_dim, dtype, ring: bool = False,
                device=None):
     """Cache tree; ``ring=True`` -> sliding-window ring buffer.  ``dtype``
@@ -261,28 +275,99 @@ def init_cache(batch, max_len, n_kv, head_dim, dtype, ring: bool = False,
     }
 
 
+def _decode_len(dims: AttnDims) -> int:
+    """The global length of a decode step's self-attention cache: the
+    ring window of a sliding-window layer, else the step's cache length."""
+    max_len = kv_lens()[0]
+    return min(dims.window, max_len) if dims.window > 0 else max_len
+
+
+def _attend_split(q, k, v, valid, group, dims: AttnDims):
+    """One query position over a KV cache whose positions are split over
+    ``group``: q (B, 1, H, D) for every head, k/v (B, L_local, KV, D),
+    ``valid`` (B, L_local) or None.  Each rank scores its positions; the
+    softmax is combined as :func:`~repro_torch.exec.collectives.vocab_lse`
+    combines a split log-sum-exp (the global max, then the sum of the
+    shifted exponentials), and the weighted values are summed over the
+    group in fp32.  Returns (B, 1, H, D) in fp32."""
+    import torch.distributed as dist
+
+    from repro_torch.exec.collectives import all_reduce_
+    B, _, H, D = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, 1, KV, H // KV, D)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
+                          k.float()) / math.sqrt(dims.head_dim)
+    if valid is not None:
+        scores = torch.where(valid[:, None, None, None, :], scores, NEG_INF)
+    m = all_reduce_(scores.max(dim=-1).values, group, dist.ReduceOp.MAX)
+    e = torch.exp(scores - m[..., None])
+    den = all_reduce_(e.sum(dim=-1), group)
+    num = all_reduce_(torch.einsum("bhgqk,bkhd->bqhgd", e, v.float()),
+                      group)
+    out = num / den.permute(0, 3, 1, 2)[..., None]
+    return out.reshape(B, 1, H, D)
+
+
+def _all_heads(params, q, dims: AttnDims):
+    """q of every head: the model group's heads gathered when this rank
+    holds a slice of them."""
+    if _q_offset(params, dims) is None:
+        return q
+    from repro_torch.launch.sharding import tp_gather
+    return tp_gather(q, 2)
+
+
+def _own_heads(params, out, dims: AttnDims):
+    """This rank's q heads of an every-head output (all of them on one
+    device or when the heads are not split)."""
+    lo = _q_offset(params, dims)
+    if lo is None:
+        return out
+    return out.narrow(2, lo, params["wq"].shape[-2])
+
+
 def attn_decode(params, x, cache, dims: AttnDims):
     """One-token decode step.  x: (B, 1, d).  Returns (y, new_cache); the
     new K/V row is written into ``cache["k"]``/``cache["v"]`` in place.
-    Scores and softmax are fp32 whatever the cache dtype."""
+    Scores and softmax are fp32 whatever the cache dtype.
+
+    In a sharded step the cache holds this rank's kv heads (split with
+    ``wk``), or every kv head: whole on every rank of the model group
+    (each writes the new row, and its q heads read their kv heads), or
+    split along its positions (:func:`kv_seq_split`, the reference's
+    ``_kv_fallback``): then only the rank that holds the written slot
+    writes it, the mask is built from global positions, and every head's
+    query attends its rank's positions, combined over the group
+    (:func:`_attend_split`)."""
     B = x.shape[0]
-    max_len = cache["k"].shape[1]
+    L = cache["k"].shape[1]
     pos = cache["pos"]  # (B,)
-    q, k_new, v_new = _qkv(params, x, dims, pos[:, None])
+    q, k_new, v_new = _qkv(params, x, dims, pos[:, None], for_heads=False)
+    split = kv_seq_split(cache["k"].shape[2] == dims.n_kv,
+                         _decode_len(dims))
+    lo, max_len = (split.rank * L, L * split.size) if split is not None \
+        else (0, L)
 
     ring = cache["ring"]
     slot = torch.where(ring, torch.remainder(pos, max_len),
                        pos.clamp(max=max_len - 1))
     bidx = torch.arange(B, device=x.device)
     k, v = cache["k"], cache["v"]
-    k.index_put_((bidx, slot.long()), k_new[:, 0].to(k.dtype))
-    v.index_put_((bidx, slot.long()), v_new[:, 0].to(v.dtype))
+    if split is None:
+        k.index_put_((bidx, slot.long()), k_new[:, 0].to(k.dtype))
+        v.index_put_((bidx, slot.long()), v_new[:, 0].to(v.dtype))
+    else:  # only the holder of the slot writes it
+        mine = (slot >= lo) & (slot < lo + L)
+        rows, at = bidx[mine], (slot[mine] - lo).long()
+        k.index_put_((rows, at), k_new[mine, 0].to(k.dtype))
+        v.index_put_((rows, at), v_new[mine, 0].to(v.dtype))
     k = seam(k, "batch", None, "tp", None)
     v = seam(v, "batch", None, "tp", None)
 
     # absolute positions held in each cache slot; ring: slot i holds
     # position p - ((slot - i) mod max_len), a floor modulo
-    idx = torch.arange(max_len, dtype=torch.int32, device=x.device)
+    idx = torch.arange(lo, lo + L, dtype=torch.int32, device=x.device)
     abs_pos = torch.where(
         ring, pos[:, None] - torch.remainder(slot[:, None] - idx[None, :],
                                              max_len),
@@ -291,17 +376,54 @@ def attn_decode(params, x, cache, dims: AttnDims):
     if dims.window > 0:
         valid &= abs_pos > (pos[:, None] - dims.window)
 
-    KV = k.shape[2]
-    g = dims.n_heads // dims.n_kv
-    qg = q.reshape(B, 1, KV, g, -1)
-    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
-                          k.float()) / math.sqrt(dims.head_dim)
-    scores = torch.where(valid[:, None, None, None, :], scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
-    out = out.reshape(B, 1, dims.n_heads, dims.head_dim).to(x.dtype)
+    if split is not None:
+        out = _attend_split(_all_heads(params, q, dims), k, v, valid,
+                            split.group, dims)
+        out = _own_heads(params, out, dims).to(x.dtype)
+    else:
+        ka, va = _kv_for_heads(params, k, v, dims)
+        KV = ka.shape[2]
+        qg = q.reshape(B, 1, KV, q.shape[2] // KV, -1)
+        scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
+                              ka.float()) / math.sqrt(dims.head_dim)
+        scores = torch.where(valid[:, None, None, None, :], scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bhgqk,bkhd->bqhgd", probs, va.float())
+        out = out.reshape(B, 1, q.shape[2], dims.head_dim).to(x.dtype)
     y = _proj_out(params, out, dims)
     return y, {"k": k, "v": v, "pos": pos + 1, "ring": ring}
+
+
+def attn_cross_cached(params, x, kv, dims: AttnDims):
+    """Cross-attention of one decoding position over a cache's encoder
+    K/V (``kv`` as :func:`cross_kv` gives it with ``for_heads=False``): on
+    one device :func:`attn_cross`; in a sharded step also over a cache
+    split along its positions (:func:`_attend_split`)."""
+    split = kv_seq_split(kv["k"].shape[2] == dims.n_kv, kv_lens()[1])
+    if split is None:
+        k, v = _kv_for_heads(params, kv["k"], kv["v"], dims)
+        return attn_cross(params, x, {"k": k, "v": v}, dims)
+    dt = x.dtype
+    if _q_offset(params, dims) is not None:
+        x = enter(x)
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
+    if dims.qkv_bias:
+        q = q + params["bq"].to(dt)
+    q = seam(q, "batch", None, "tp", None)
+    out = _attend_split(_all_heads(params, q, dims), kv["k"], kv["v"], None,
+                        split.group, dims)
+    return _proj_out(params, _own_heads(params, out, dims).to(dt), dims)
+
+
+def seq_part(t, seq: int, dims: AttnDims, dim: int = 1):
+    """This rank's slice of a whole cache tensor along its positions
+    ``dim`` when the sharded step splits them (:func:`kv_seq_split`),
+    else ``t``."""
+    split = kv_seq_split(t.shape[2] == dims.n_kv, seq)
+    if split is None:
+        return t
+    w = seq // split.size
+    return t.narrow(dim, split.rank * w, w).contiguous()
 
 
 def attn_prefill(params, x, dims: AttnDims, cache_len: int,
@@ -311,20 +433,23 @@ def attn_prefill(params, x, dims: AttnDims, cache_len: int,
     ``ring`` marks a sliding-window ring buffer (local layers pass True
     explicitly: it must hold even when the prompt is shorter than the
     window).  A cache shorter than the prompt keeps the prompt's tail,
-    rolled to its ring slots; a longer one is zero-padded."""
+    rolled to its ring slots; a longer one is zero-padded.  In a sharded
+    step the cache holds the rank's kv heads, or every kv head, whole or
+    this rank's slice of the positions (:func:`seq_part`)."""
     B, S, _ = x.shape
     if ring is None:
         ring = cache_len < S
     y = attn_train(params, x, dims, n_chunks)
     positions = torch.arange(S, device=x.device).expand(B, S)
-    _, k, v = _qkv(params, x, dims, positions)
+    _, k, v = _qkv(params, x, dims, positions, for_heads=False)
     if cache_len < S:  # keep the tail, placed at its ring slots
         k = torch.roll(k[:, S - cache_len:], S % cache_len, dims=1)
         v = torch.roll(v[:, S - cache_len:], S % cache_len, dims=1)
     elif cache_len > S:  # positions p < S already sit at slot p
         pad = (0, 0, 0, 0, 0, cache_len - S)
         k, v = F.pad(k, pad), F.pad(v, pad)
-    cache = {"k": k.contiguous(), "v": v.contiguous(),
+    cache = {"k": seq_part(k, cache_len, dims).contiguous(),
+             "v": seq_part(v, cache_len, dims).contiguous(),
              "pos": torch.full((B,), S, dtype=torch.int32, device=x.device),
              "ring": torch.tensor(bool(ring), device=x.device)}
     return y, cache

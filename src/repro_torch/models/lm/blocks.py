@@ -38,18 +38,20 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.launch.sharding import at_use
 from repro_torch.models.lm import rowexec
 from repro_torch.models.lm.attention import (
-    AttnDims, attn_decode, attn_prefill, attn_train, init_attn, init_cache,
+    CACHE_SPLIT, AttnDims, attn_decode, attn_prefill, attn_train, init_attn,
+    init_cache,
 )
 from repro_torch.models.lm.common import init_rms, rms_norm, torch_dtype
 from repro_torch.models.lm.config import ModelConfig
 from repro_torch.models.lm.mlp import init_mlp, mlp_apply
 from repro_torch.models.lm.moe import MoEDims, init_moe, moe_apply
 from repro_torch.models.lm.ssm import (
-    SSMDims, init_ssm, init_ssm_state, ssm_decode, ssm_train,
+    STATE_SPLIT, SSMDims, init_ssm, init_ssm_state, ssm_decode, ssm_train,
 )
 from repro_torch.models.lm.xlstm import (
-    XLSTMDims, init_mlstm, init_mlstm_state, init_slstm, init_slstm_state,
-    mlstm_decode, mlstm_train, slstm_decode, slstm_train,
+    MLSTM_STATE_SPLIT, SLSTM_STATE_SPLIT, XLSTMDims, init_mlstm,
+    init_mlstm_state, init_slstm, init_slstm_state, mlstm_decode,
+    mlstm_train, slstm_decode, slstm_train,
 )
 
 ATTN_KINDS = ("attn", "local", "global", "shared_attn", "moe")
@@ -169,9 +171,25 @@ def init_block_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int,
     return init_slstm_state(batch, cfg.d_model, device=device)
 
 
-def block_decode(params, x, cache, kind: str, cfg: ModelConfig):
-    """One-token step.  Returns (x, new_cache)."""
+def block_cache_split(kind: str) -> Dict[str, tuple]:
+    """The leaves of a ``kind`` block's cache that its decode computes on
+    while a sharded step splits them, each with the logical names of the
+    dims it computes on split (the layer module's declaration); a sharded
+    step gathers any other split leaf whole for the layer."""
     _check_kind(kind)
+    if kind in ATTN_KINDS:
+        return CACHE_SPLIT
+    return {"mamba": STATE_SPLIT, "mlstm": MLSTM_STATE_SPLIT,
+            "slstm": SLSTM_STATE_SPLIT}[kind]
+
+
+def block_decode(params, x, cache, kind: str, cfg: ModelConfig):
+    """One-token step.  Returns (x, new_cache).  A Mamba2 layer takes its
+    mixer's leaves as stored (:func:`~repro_torch.models.lm.ssm.ssm_decode`
+    computes its projections on a rank's shard)."""
+    _check_kind(kind)
+    params = {k: v if (k, kind) == ("ssm", "mamba") else at_use(v)
+              for k, v in params.items()}
     eps = cfg.norm_eps
     h = rms_norm(x, params["norm1"]["scale"], eps)
     if kind in RECURRENT_KINDS:
@@ -189,6 +207,7 @@ def block_prefill(params, x, kind: str, cfg: ModelConfig, cache_len: int,
     """Full-sequence forward returning (x, cache) for the decode that
     follows (``dtype`` is the reference's argument, unused there too)."""
     _check_kind(kind)
+    params = at_use(params)
     eps = cfg.norm_eps
     nc = cfg.row_chunks if cfg.remat in ("rows", "block_rows") else 1
     h = rms_norm(x, params["norm1"]["scale"], eps)

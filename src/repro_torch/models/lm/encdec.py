@@ -33,8 +33,8 @@ from repro_torch.launch.sharding import (
     at_use, batch_sum, seam, split_offset, tp,
 )
 from repro_torch.models.lm.attention import (
-    attn_bidir, attn_cross, attn_decode, attn_prefill, attn_train, cross_kv,
-    init_attn, init_cache,
+    _kv_for_heads, attn_bidir, attn_cross, attn_cross_cached, attn_decode,
+    attn_prefill, attn_train, cross_kv, init_attn, init_cache, seq_part,
 )
 from repro_torch.models.lm.blocks import _layer, _stack_layers, attn_dims
 from repro_torch.models.lm.common import (
@@ -159,22 +159,29 @@ def encdec_prefill(params, batch, cfg: ModelConfig, cache_len: int):
     eps = cfg.norm_eps
     nc = _nc(cfg)
     enc_out = encode(params, batch["frames"].to(dtype), cfg)
-    x = embed_apply(params["embed"], batch["tokens"].long(), dtype)
+    top = {k: at_use(v) for k, v in params.items()
+           if k not in ("enc", "dec")}
+    x = embed_apply(top["embed"], batch["tokens"].long(), dtype, cfg.vocab)
+    E = enc_out.shape[1]
     selfs, crosses = [], []
     for i in range(cfg.n_layers):
-        lp = _layer(params["dec"], i)
+        lp = at_use(_layer(params["dec"], i))
         h = rms_norm(x, lp["norm1"]["scale"], eps)
         y, cache = attn_prefill(lp["self_attn"], h, dims, cache_len, nc)
         x = x + y
         h = rms_norm(x, lp["norm_x"]["scale"], eps)
-        kv = cross_kv(lp["cross_attn"], enc_out, dims)
-        x = x + attn_cross(lp["cross_attn"], h, kv, dims)
+        # the cache keeps K/V as projected (in a sharded step the rank's
+        # kv heads, or its slice of the positions of every kv head)
+        kv = cross_kv(lp["cross_attn"], enc_out, dims, for_heads=False)
+        k, v = _kv_for_heads(lp["cross_attn"], kv["k"], kv["v"], dims)
+        x = x + attn_cross(lp["cross_attn"], h, {"k": k, "v": v}, dims)
         h = rms_norm(x, lp["norm2"]["scale"], eps)
-        x = x + mlp_apply(lp["mlp"], h, nc)
+        x = x + mlp_apply(lp["mlp"], h, nc, cfg.d_ff)
         selfs.append(cache)
-        crosses.append(kv)
-    x = rms_norm(x[:, -1:], params["final_norm"]["scale"], eps)
-    return unembed_apply(params["unembed"], x, dtype), \
+        crosses.append({n: seq_part(t, E, dims).contiguous()
+                        for n, t in kv.items()})
+    x = rms_norm(x[:, -1:], top["final_norm"]["scale"], eps)
+    return unembed_apply(top["unembed"], x, dtype, cfg.vocab), \
         {"self": _stack_layers(selfs), "cross": _stack_layers(crosses)}
 
 
@@ -200,9 +207,11 @@ def encdec_decode(params, tokens, caches, cfg: ModelConfig):
     dtype = torch_dtype(cfg.dtype)
     dims = attn_dims(cfg, "attn")
     eps = cfg.norm_eps
-    x = embed_apply(params["embed"], tokens.long(), dtype)
+    top = {k: at_use(v) for k, v in params.items()
+           if k not in ("enc", "dec")}
+    x = embed_apply(top["embed"], tokens.long(), dtype, cfg.vocab)
     for i in range(cfg.n_layers):
-        lp = _layer(params["dec"], i)
+        lp = at_use(_layer(params["dec"], i))
         view = _layer(caches["self"], i)
         h = rms_norm(x, lp["norm1"]["scale"], eps)
         y, new = attn_decode(lp["self_attn"], h, view, dims)
@@ -211,9 +220,9 @@ def encdec_decode(params, tokens, caches, cfg: ModelConfig):
                 view[k].copy_(t)
         x = x + y
         h = rms_norm(x, lp["norm_x"]["scale"], eps)
-        x = x + attn_cross(lp["cross_attn"], h, _layer(caches["cross"], i),
-                           dims)
+        x = x + attn_cross_cached(lp["cross_attn"], h,
+                                  _layer(caches["cross"], i), dims)
         h = rms_norm(x, lp["norm2"]["scale"], eps)
-        x = x + mlp_apply(lp["mlp"], h, 1)
-    x = rms_norm(x, params["final_norm"]["scale"], eps)
-    return unembed_apply(params["unembed"], x, dtype), caches
+        x = x + mlp_apply(lp["mlp"], h, 1, cfg.d_ff)
+    x = rms_norm(x, top["final_norm"]["scale"], eps)
+    return unembed_apply(top["unembed"], x, dtype, cfg.vocab), caches

@@ -233,6 +233,7 @@ def lm_prefill(params, batch, cfg: ModelConfig, cache_len: int):
     and occupy cache positions too."""
     check_ported(cfg)
     dtype = torch_dtype(cfg.dtype)
+    params = at_use_top(params)
     x = _embed_inputs(params, batch, cfg, dtype)
     x, caches = stack_prefill(params["stack"], x, cfg, cache_len, dtype)
     return _logits(params, x[:, -1:], cfg, dtype), caches
@@ -242,7 +243,8 @@ def lm_decode(params, tokens, caches, cfg: ModelConfig):
     """One-token decode.  tokens: (B, 1) integer.  Returns (logits (B, 1,
     V), caches); the caches are updated in place and returned."""
     dtype = torch_dtype(cfg.dtype)
-    x = embed_apply(params["embed"], tokens.long(), dtype)
+    params = at_use_top(params)
+    x = embed_apply(params["embed"], tokens.long(), dtype, cfg.vocab)
     x, caches = stack_decode(params["stack"], x, caches, cfg)
     return _logits(params, x, cfg, dtype), caches
 

@@ -21,7 +21,15 @@ the op-level ``seq_ssd_cuda`` engine calls.
 
 In a sharded step the in-projection's fused ``[x|z|B|C|dt]`` columns are
 stored split in contiguous halves, not per head, so a rank gathers the
-layer's leaves and runs it whole (the seams below stay identities).
+layer's leaves and runs it whole (the seams below stay identities).  A
+sharded serving step keeps the recurrent state ``h`` split by heads: the
+prefill returns the rank's heads, and a decode updates them and gathers
+their output over the model group; it also computes the in-projection on
+the rank's columns of ``w_in`` (then gathers the projection, not the
+weight) and the out-projection on its rows of ``w_out`` (fp32 partial
+sums over the model group).  The conv state's channels (``[x|B|C]``,
+which a split does not cut at a head) reach the layer whole: the step
+gathers them (:func:`repro_torch.launch.steps.make_serve_step`).
 """
 
 from __future__ import annotations
@@ -31,7 +39,9 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch.launch.sharding import seam
+from repro_torch.launch.sharding import (
+    Sharded, at_use, seam, split_offset, tp, tp_gather, tp_part,
+)
 from repro_torch.models.lm import rowexec
 from repro_torch.models.lm.common import dense_init
 
@@ -177,8 +187,25 @@ def ssm_train(params, x, dims: SSMDims, return_state: bool = False):
     y = (y.reshape(Bt, S, dims.inner) * F.silu(z.float())).to(dt_)
     out = seam(y @ params["w_out"].to(dt_), "batch", None, None)
     if return_state:
-        return out, {"h": h_fin, "conv": conv_state}
+        return out, {"h": tp_part(h_fin, 1), "conv": conv_state}
     return out
+
+
+def _tp_shard(w, dim: int):
+    """The stored shard of a leaf the sharded step would gather at use
+    (:class:`~repro_torch.launch.sharding.Sharded`) when its one split is
+    over the tensor-parallel group along ``dim``, else None."""
+    t = tp()
+    if t is None or not isinstance(w, Sharded) or len(w.gathers) != 1:
+        return None
+    group, d = w.gathers[0]
+    return w.local if group is t.group and d == dim % w.local.ndim else None
+
+
+#: the state leaves :func:`ssm_decode` computes on while a sharded step
+#: splits them: ``h`` by heads (the conv state's channels, which a split
+#: cuts across ``[x|B|C]``, it takes whole)
+STATE_SPLIT = {"h": ("tp",)}
 
 
 def init_ssm_state(batch, dims: SSMDims, dtype=torch.float32, device=None):
@@ -198,11 +225,13 @@ def ssm_decode(params, x, state, dims: SSMDims):
     continues from ``ssm_train(..., return_state=True)``'s state."""
     Bt = x.shape[0]
     dt_ = x.dtype
-    proj = x @ params["w_in"].to(dt_)
+    w_in = _tp_shard(params["w_in"], -1)
+    proj = x @ at_use(params["w_in"]).to(dt_) if w_in is None \
+        else tp_gather(x @ w_in.to(dt_), 2)
     xs, z, B, C, dtproj = _split_proj(proj, dims)
     conv_in = torch.cat([xs, B, C], dim=-1)
-    conv_out, conv_state = _causal_conv(conv_in, params["conv_w"].to(dt_),
-                                        state["conv"])
+    conv_out, conv_state = _causal_conv(
+        conv_in, at_use(params["conv_w"]).to(dt_), state["conv"])
     xs = conv_out[..., :dims.inner]
     B = conv_out[..., dims.inner:dims.inner + dims.state_n]
     C = conv_out[..., dims.inner + dims.state_n:]
@@ -211,12 +240,27 @@ def ssm_decode(params, x, state, dims: SSMDims):
     xh = xs.reshape(Bt, 1, H, P).float()[:, 0]                  # (B, H, P)
     dt_act = softplus(dtproj.float()[:, 0] + params["dt_bias"])  # (B, H)
     a = torch.exp(-dt_act * torch.exp(params["a_log"]))
+    d_skip = params["d_skip"]
+    lo = split_offset(state["h"].shape[1], H)
+    if lo is not None:  # this rank's heads of a split state
+        hl = state["h"].shape[1]
+        xh, dt_act, a = (t.narrow(1, lo, hl) for t in (xh, dt_act, a))
+        d_skip = d_skip.narrow(0, lo, hl)
     Bf = B.float()[:, 0]                                         # (B, N)
     Cf = C.float()[:, 0]
     h = state["h"] * a[:, :, None, None] \
         + torch.einsum("bhp,bn,bh->bhpn", xh, Bf, dt_act)
     y = torch.einsum("bn,bhpn->bhp", Cf, h) \
-        + xh * params["d_skip"][None, :, None]
+        + xh * d_skip[None, :, None]
+    if lo is not None:
+        y = tp_gather(y, 1)
     y = (y.reshape(Bt, 1, dims.inner) * F.silu(z.float())).to(dt_)
-    out = y @ params["w_out"].to(dt_)
-    return seam(out, "batch", None, None), {"h": h, "conv": conv_state}
+    w_out = _tp_shard(params["w_out"], 0)
+    if w_out is None:
+        out = y @ at_use(params["w_out"]).to(dt_)
+        return seam(out, "batch", None, None), {"h": h, "conv": conv_state}
+    rows = w_out.shape[0]
+    out = y[..., tp().rank * rows:(tp().rank + 1) * rows].float() \
+        @ w_out.to(dt_).float()
+    return seam(out, "batch", None, None, partial=True).to(dt_), \
+        {"h": h, "conv": conv_state}

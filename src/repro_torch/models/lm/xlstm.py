@@ -17,7 +17,11 @@ Stabilised exponential gating follows the paper: ``m_t = max(f̃+m, ĩ)``,
 ``-1e30``.
 
 In a sharded step a rank gathers the layers' split leaves and runs them
-whole; the seams at the reference's ``lc`` lines stay identities.
+whole; the seams at the reference's ``lc`` lines stay identities.  A
+sharded serving step keeps the mLSTM's ``C``/``n``/``m`` split by heads
+(the prefill returns the rank's heads; a decode steps them and gathers
+their output over the model group); the sLSTM's states, split by width,
+reach the layer whole (the step gathers them).
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.launch.sharding import seam
+from repro_torch.launch.sharding import seam, split_offset, tp_gather, tp_part
 from repro_torch.models.lm import rowexec
 from repro_torch.models.lm.common import dense_init
 
@@ -150,8 +154,14 @@ def mlstm_train(params, x, dims: XLSTMDims, return_state: bool = False):
     h = h.reshape(B, S, dims.inner) * F.silu(z.float())
     out = seam(h.to(dt) @ params["w_out"].to(dt), "batch", None, None)
     if return_state:
-        return out, {"C": carry[0], "n": carry[1], "m": carry[2]}
+        return out, {"C": tp_part(carry[0], 1), "n": tp_part(carry[1], 1),
+                     "m": tp_part(carry[2], 1)}
     return out
+
+
+#: the state leaves :func:`mlstm_decode` computes on while a sharded step
+#: splits them: all three by heads
+MLSTM_STATE_SPLIT = {"C": ("tp",), "n": ("tp",), "m": ("tp",)}
 
 
 def init_mlstm_state(batch, dims: XLSTMDims, device=None):
@@ -174,8 +184,14 @@ def mlstm_decode(params, x, state, dims: XLSTMDims):
     gates = (xi @ params["w_if"].to(dt)).float()[:, 0]
     ig = gates[:, :H]
     fg = F.logsigmoid(gates[:, H:] + params["f_bias"])
+    lo = split_offset(state["C"].shape[1], H)
+    if lo is not None:  # this rank's heads of a split state
+        q, k, v, ig, fg = (t.narrow(1, lo, state["C"].shape[1])
+                           for t in (q, k, v, ig, fg))
     (C, n, m), h = _mlstm_step((state["C"], state["n"], state["m"]),
                                (q, k, v, ig, fg))
+    if lo is not None:
+        h = tp_gather(h, 1)
     h = h.reshape(B, 1, dims.inner) * F.silu(z.float())
     out = h.to(dt) @ params["w_out"].to(dt)
     return seam(out, "batch", None, None), {"C": C, "n": n, "m": m}
@@ -256,6 +272,10 @@ def slstm_train(params, x, dims: XLSTMDims, return_state: bool = False):
         return out, {"c": carry[0], "n": carry[1], "h": carry[2],
                      "m": carry[3]}
     return out
+
+
+#: :func:`slstm_decode` takes its states (split by width) whole
+SLSTM_STATE_SPLIT: dict = {}
 
 
 def init_slstm_state(batch, d, device=None):

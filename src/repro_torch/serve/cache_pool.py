@@ -46,8 +46,20 @@ does for row caches (:mod:`repro_torch.exec.rowprog`): the scheduler's
 and :meth:`CachePool.absorb` waits for a step's write-back to land in host
 memory before the storage is updated, so a slot's next fetch always reads
 its newest state.  On CPU tensors host residency is the reference's
-structural no-op: the schedule runs and no bytes move.  Sharded pools (the
-reference's ``mesh`` branch) are not ported yet and raise.
+structural no-op: the schedule runs and no bytes move.
+
+Sharded pools (a plan whose ``mesh`` has more than one device): the slot
+axis is split over the mesh's batch axes, as the reference places it, and
+each rank is one process holding only its ``slots_per_device`` slots,
+``[b * per_dev, (b + 1) * per_dev)`` for its index ``b`` on the batch
+axes; ranks that differ only on the model axis hold the same slots (the
+reference replicates over it).  Shared leaves (ring flags) stay whole.
+Every rank keeps the global slot table (``acquire``, ``release``,
+``owner``, ``history``), so the same scheduler decisions run everywhere;
+``write``, ``decode_view``, ``absorb`` and the zeroing in ``release`` take
+global slot numbers and touch only the slots this rank holds
+(:meth:`CachePool.owns`).  Paged and quantised pools, and decode-state
+residency, are single-host, as in the reference.
 """
 
 from __future__ import annotations
@@ -352,11 +364,6 @@ class CachePool:
             raise ValueError(f"plan wants cache kind {want!r} but "
                              f"{type(self).__name__} implements "
                              f"{self.kind!r}; build pools with make_pool()")
-        if plan.mesh is not None and plan.mesh.n_devices > 1:
-            raise NotImplementedError(
-                f"sharded decode pools (mesh={plan.mesh.describe()}) are "
-                f"not ported yet (they wait for the sharding slice's serve "
-                f"pools, ROADMAP.md queue 1, item 2)")
         self.cfg = cfg
         self.plan = plan
         self.device = torch.device(device)
@@ -367,11 +374,18 @@ class CachePool:
         # ---- decode-state residency (plan.residency on serve_pool plans)
         self._host = plan.residency is not None \
             and plan.residency.default == "host"
+        #: the slots this rank holds, ``[slot_lo, slot_lo + n_local)``, and
+        #: its process group over the mesh's batch axes (None unsharded or
+        #: when they span one rank)
+        self.mesh, self.batch_group = None, None
+        self.slot_lo, self.n_local = 0, self.n_slots
+        if plan.mesh is not None and plan.mesh.n_devices > 1:
+            self._shard_pool()
         self._link = _HostLink(self.device) \
             if self._host and self.device.type == "cuda" else None
         self.storage_device = torch.device("cpu") if self._link is not None \
             else self.device
-        self.caches = init_pool_caches(cfg, self.n_slots, self.max_len,
+        self.caches = init_pool_caches(cfg, self.n_local, self.max_len,
                                        self.enc_len, self.kind, self._geom,
                                        device=self.storage_device)
         if self._link is not None:
@@ -391,6 +405,42 @@ class CachePool:
 
     def _geometry(self) -> Optional[PageGeometry]:
         return None
+
+    def _shard_pool(self) -> None:
+        """This rank's slots of a pool whose slot axis is split over the
+        plan mesh's batch axes (``slots_per_device`` each: the slot count
+        is a multiple of the batch extent), and its batch-axes group."""
+        from repro_torch.exec.collectives import axis_group
+        from repro_torch.launch.mesh import build_mesh
+        spec = self.plan.mesh
+        if self._host:
+            raise ValueError("decode-state residency pools are single-host; "
+                             "drop mesh=")
+        self.mesh = build_mesh(spec)
+        coord = dict(zip(spec.axis_names, self.mesh.get_coordinate()))
+        b = 0
+        for a in spec.batch_axes:
+            b = b * spec.extent(a) + coord[a]
+        self.n_local = self.n_slots // spec.batch_extent
+        self.slot_lo = b * self.n_local
+        self.batch_group = axis_group(self.mesh, spec.batch_axes)
+
+    def owns(self, slot: int) -> bool:
+        """Whether this rank holds ``slot``'s storage."""
+        return self.slot_lo <= slot < self.slot_lo + self.n_local
+
+    def local_slots(self, slots: Optional[Sequence[int]] = None) -> List[int]:
+        """The slots of ``slots`` (every slot for None) this rank holds,
+        in order (global numbers)."""
+        if slots is None:
+            return list(range(self.slot_lo, self.slot_lo + self.n_local))
+        return [int(s) for s in slots if self.owns(s)]
+
+    def _local(self, slots: Optional[Sequence[int]]):
+        """Storage indices of ``slots``' local ones (None: every slot)."""
+        if slots is None:
+            return None
+        return [s - self.slot_lo for s in self.local_slots(slots)]
 
     def _groups(self, *trees):
         """(layer kind, the trees' cache dicts) at every pattern
@@ -439,7 +489,8 @@ class CachePool:
         self.owner[slot] = -1
         self._free.append(slot)
         self._free.sort()
-        _zero_slot(self.caches, slot, axes=self._axes)
+        if self.owns(slot):
+            _zero_slot(self.caches, slot - self.slot_lo, axes=self._axes)
         self._stash = None
 
     def grow(self, slot: int) -> bool:
@@ -472,7 +523,9 @@ class CachePool:
         device: the whole pool (``slots=None``) or the given cohort's
         subset (slot axis = ``len(slots)``).  Serves a matching
         :meth:`prefetch` stash first — the one-tick-ahead fetch under
-        host decode residency."""
+        host decode residency.  A sharded pool's view holds the slots of
+        ``slots`` this rank holds (:meth:`local_slots`)."""
+        slots = self._local(slots)
         if slots is not None:
             key = tuple(int(s) for s in slots)
             if self._stash is not None and self._stash[0] == key:
@@ -500,6 +553,7 @@ class CachePool:
         view first (for the full kind, the pool itself), and this returns
         once those copies have landed."""
         self._stash = None
+        slots = self._local(slots)
         full = self._last_full
         if full is None:
             raise RuntimeError("absorb() needs the matching decode_view() "
@@ -529,10 +583,15 @@ class CachePool:
         self._stash = (tuple(int(s) for s in slots), sub, full, done)
 
     def write(self, slot: int, single_cache) -> None:
-        """Install a freshly prefilled batch=1 cache into ``slot``."""
+        """Install a freshly prefilled batch=1 cache into ``slot`` (a slot
+        this rank holds)."""
+        if not self.owns(slot):
+            raise ValueError(f"slot {slot} is not held by this rank "
+                             f"(slots {self.slot_lo}..."
+                             f"{self.slot_lo + self.n_local - 1})")
         self._stash = None
-        _write_slot(self.caches, self._on_storage(single_cache), slot,
-                    axes=self._axes)
+        _write_slot(self.caches, self._on_storage(single_cache),
+                    slot - self.slot_lo, axes=self._axes)
 
 
 class PagedCachePool(CachePool):
@@ -547,6 +606,8 @@ class PagedCachePool(CachePool):
     kind = "paged_kv"
 
     def __init__(self, cfg, plan: ExecutionPlan, device="cuda"):
+        if plan.mesh is not None and plan.mesh.n_devices > 1:
+            raise ValueError("paged_kv pools are single-host; drop mesh=")
         self.plan = plan  # _geometry needs it before super().__init__
         super().__init__(cfg, plan, device)
         self.pages = PageManager(self._geom.n_pages, self._geom.page_size,
@@ -634,6 +695,11 @@ class QuantCachePool(CachePool):
     bit-identical to sequential decode under the same quantised cache."""
 
     kind = "quant_kv"
+
+    def __init__(self, cfg, plan: ExecutionPlan, device="cuda"):
+        if plan.mesh is not None and plan.mesh.n_devices > 1:
+            raise ValueError("quant_kv pools are single-host; drop mesh=")
+        super().__init__(cfg, plan, device)
 
     def _is_quant(self, kind: str) -> bool:
         return f"{self.kind}/{kind}" in CACHE_INITS

@@ -25,6 +25,11 @@ encoder-decoder — with one surface:
   guarantees holds: tokens depend only on (seed, step), never on slot
   placement or batch composition.  Greedy tokens equal the reference's.
 
+Under a plan mesh (one process per rank) the parameters are whole on
+every rank, as the reference replicates them; ``decode_step`` runs on the
+slots this rank's pool holds and ``prefill`` on the rank that holds the
+request's slot (:mod:`repro_torch.serve.scheduler` decides which).
+
 Everything runs under ``torch.no_grad``.  Registered as the ``serve_pool``
 engine (kind="serve"): ``build_apply((params, cfg), plan)`` returns a
 ServeEngine on the parameters' device.
@@ -89,11 +94,6 @@ class ServeEngine:
         if plan.engine != "serve_pool":
             raise ValueError(f"ServeEngine needs a serve_pool plan, got "
                              f"{plan.engine!r}")
-        if plan.mesh is not None and plan.mesh.n_devices > 1:
-            raise NotImplementedError(
-                f"sharded serving (mesh={plan.mesh.describe()}) is not "
-                f"ported yet (it waits for the sharding slice's serve pools, "
-                f"ROADMAP.md queue 1, item 2)")
         self._fns = LM.family_fns(cfg)
         self.params = params
         self.cfg = cfg
@@ -153,20 +153,25 @@ class ServeEngine:
         return torch.from_numpy(np.asarray(req.features[None], np.float32)) \
             .to(self.device)
 
-    @torch.no_grad()
-    def prefill(self, req: Request):
-        """Run one request's prompt.  Returns (last-token logits (V,),
-        batch=1 cache tree, n_chunks the plan picked)."""
+    def prefill_chunks(self, req: Request) -> int:
+        """The row chunks of ``req``'s prefill (raises when the request
+        does not fit the pool's ``max_len``)."""
         total = req.prompt_len + req.max_new_tokens
         if self.cfg.frontend == "vision":
             total += self.cfg.n_frontend_tokens
         if total > self.max_len:
             raise ValueError(f"request {req.rid}: prompt+gen {total} "
                              f"exceeds pool max_len {self.max_len}")
-        plan = self.prefill_plan(req.prompt_len)
-        fn = self._prefill_fn(req.prompt_len, plan.n_rows)
+        return self.prefill_plan(req.prompt_len).n_rows
+
+    @torch.no_grad()
+    def prefill(self, req: Request):
+        """Run one request's prompt.  Returns (last-token logits (V,),
+        batch=1 cache tree, n_chunks the plan picked)."""
+        n_chunks = self.prefill_chunks(req)
+        fn = self._prefill_fn(req.prompt_len, n_chunks)
         logits, cache = fn(self.params, self._prefill_batch(req))
-        return logits[0, -1], cache, plan.n_rows
+        return logits[0, -1], cache, n_chunks
 
     # ------------------------------------------------------------------
     # batched decode over the pool

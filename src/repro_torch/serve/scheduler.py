@@ -36,6 +36,18 @@ arrivals are tick-denominated (see :mod:`repro.serve.request`).  No
 wall-clock enters the logic — a (requests, plan, seed) triple replays
 bit-for-bit.  ``walltime_fn`` (benchmarks only) stamps completions for
 latency percentiles without influencing any decision.
+
+Under a plan mesh the reference drives one sharded pool from one
+controller.  The port runs one process per rank, each with the same
+:class:`Scheduler` over the global slot table, so every rank makes the
+same admissions, preemptions and ticks: they depend only on the requests
+and on tokens every rank has.  A prefill runs on the rank that holds the
+request's slot, which broadcasts token 0 over the batch-axes group; after
+a decode tick each rank draws its own slots' tokens (the draw is seeded
+per (seed, step), so the holder's draw is one process's) and the ranks
+all-gather the int32 token ids, never the logits.  Completion stamps are
+rank 0's.  Ranks that differ only on the model axis hold and decode the
+same slots.
 """
 
 from __future__ import annotations
@@ -46,6 +58,9 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 
 from repro_torch import obs
+from repro_torch.exec.collectives import (
+    all_gather_cat, all_reduce_, broadcast_,
+)
 from repro_torch.optim.adamw import tree_leaves
 from repro_torch.serve.cache_pool import CachePool, make_pool
 from repro_torch.serve.engine import ServeEngine
@@ -216,6 +231,47 @@ class Scheduler:
         self.last_token = np.zeros(pool.n_slots, np.int32)
 
     # ------------------------------------------------------------------
+    # a sharded pool: the holder draws a slot's token, the group shares it
+    # ------------------------------------------------------------------
+    def _draw(self, logits_row, st: RequestState, step: int) -> int:
+        """``st``'s token ``step``, or -1 for non-finite logits: under a
+        mesh every rank then raises together, in :meth:`_checked`."""
+        try:
+            return self.engine.sample(logits_row, st.request, step)
+        except FloatingPointError:
+            return -1
+
+    @staticmethod
+    def _checked(tok: int, st: RequestState, step: int) -> int:
+        if tok < 0:
+            raise FloatingPointError(
+                f"non-finite logits for request {st.rid} at step {step}")
+        return tok
+
+    def _from_holder(self, slot: int, tok: int) -> int:
+        """The token the rank holding ``slot`` drew, on every rank."""
+        group = self.pool.batch_group
+        if group is None:
+            return tok
+        import torch
+        import torch.distributed as dist
+        t = torch.tensor([tok], dtype=torch.int32)
+        src = dist.get_global_rank(group, slot // self.pool.n_local)
+        return int(broadcast_(t, src, group)[0])
+
+    def _gathered(self, drawn: Dict[int, int]) -> Dict[int, int]:
+        """Every rank's drawn tokens (slot -> token), all-gathered as int32
+        over the batch-axes group."""
+        group = self.pool.batch_group
+        if group is None:
+            return drawn
+        import torch
+        buf = torch.full((self.pool.n_local,), -2, dtype=torch.int32)
+        for slot, tok in drawn.items():
+            buf[slot - self.pool.slot_lo] = tok
+        every = all_gather_cat(buf, 0, group).tolist()
+        return {s: every[s] for s in range(len(every)) if every[s] != -2}
+
     def _emit(self, name: str, **attrs) -> None:
         tick = float(self.tick)
         rec = {"kind": "event", "name": name,
@@ -330,9 +386,15 @@ class Scheduler:
 
     def _run_prefill(self, st: RequestState) -> None:
         """The engine half of admission: run the (chunked) prefill, write
-        the slot, sample token 0."""
-        logits, cache, st.prefill_chunks = self.engine.prefill(st.request)
-        self.pool.write(st.slot, cache)
+        the slot, sample token 0 (under a mesh: on the rank that holds the
+        slot)."""
+        logits = None
+        if self.pool.owns(st.slot):
+            logits, cache, st.prefill_chunks = self.engine.prefill(
+                st.request)
+            self.pool.write(st.slot, cache)
+        else:
+            st.prefill_chunks = self.engine.prefill_chunks(st.request)
         self.n_prefills += 1
         self._emit("prefill", rid=st.rid, slot=st.slot,
                    chunks=st.prefill_chunks)
@@ -343,7 +405,8 @@ class Scheduler:
             st.phase = Phase.DECODE
             self._finish(st)
             return
-        tok = self.engine.sample(logits, st.request, step=0)
+        tok = self._draw(logits, st, 0) if logits is not None else 0
+        tok = self._checked(self._from_holder(st.slot, tok), st, 0)
         st.generated.append(tok)
         if st.first_token_tick < 0:
             st.first_token_tick = self.tick
@@ -439,28 +502,28 @@ class Scheduler:
         self._emit("decode", width=len(cohort),
                    cohort=sorted(st.slot for st in cohort),
                    full_pool=slots is None)
-        if slots is None:
-            view = self.pool.decode_view()
-            logits, view = self.engine.decode_step(self.last_token, view)
-            self.pool.absorb(view)
-            row = {st.slot: st.slot for st in cohort}
-        else:
+        # the slots this rank holds: all of them on one process
+        local = self.pool.local_slots(slots)
+        if local:
             view = self.pool.decode_view(slots)
-            logits, view = self.engine.decode_step(
-                self.last_token[slots], view)
+            logits, view = self.engine.decode_step(self.last_token[local],
+                                                   view)
             self.pool.absorb(view, slots)
+        row = {s: i for i, s in enumerate(local)}
+        if slots is not None:
             # rotate: this cohort goes to the back, then warm the next one
             self._rotation = ([s for s in self._rotation if s not in slots]
                               + [s for s in slots if s in self._rotation])
             nxt = self._rotation[: self.decode_batch]
             self.pool.prefetch(nxt)
             self._emit("cohort_prefetch", slots=list(nxt))
-            row = {s: i for i, s in enumerate(slots)}
         self.n_decode_steps += 1
         self.tick += 1.0
+        toks = self._gathered({
+            st.slot: self._draw(logits[row[st.slot]], st, st.n_generated)
+            for st in cohort if st.slot in row})
         for st in cohort:
-            tok = self.engine.sample(logits[row[st.slot]], st.request,
-                                     step=st.n_generated)
+            tok = self._checked(toks[st.slot], st, st.n_generated)
             st.generated.append(tok)
             self.last_token[st.slot] = tok
             if st.finished_decoding():
@@ -494,6 +557,13 @@ class Scheduler:
     def run(self) -> ServeReport:
         while not self.all_done:
             self.step()
+        if self.walltime_fn is not None and self.pool.mesh is not None:
+            # every rank reports rank 0's completion stamps
+            import torch
+            walls = torch.tensor([s.finish_wall for s in self.states],
+                                 dtype=torch.float64)
+            for s, w in zip(self.states, broadcast_(walls, 0).tolist()):
+                s.finish_wall = w
         return ServeReport(
             states=sorted(self.states, key=lambda s: s.rid),
             total_ticks=self.tick, n_prefills=self.n_prefills,
@@ -531,14 +601,17 @@ def serve(params, cfg, requests: Sequence[Request], *,
 
     ``plan_cache`` (a directory) persists the resolved pool plan keyed by
     the pool-geometry inputs + hardware fingerprint: a hit replays the
-    stored plan without re-running ``Planner.for_serve``.  ``mesh=`` (a
-    sharded pool) is not ported yet and raises."""
+    stored plan without re-running ``Planner.for_serve``.
+
+    ``mesh=`` (a :class:`~repro_torch.exec.plan.MeshSpec`) shards the
+    decode-slot pool over its batch axes: call it on every rank of a
+    process group of ``mesh.n_devices`` ranks (row-major over the mesh),
+    each with the same (whole) parameters and requests.  Each rank holds
+    its ``slots_per_device`` slots, a request's chunked prefill runs on
+    the rank holding its slot against ``prefill_budget // batch_extent``,
+    and every rank returns the same report, whose streams equal one
+    process's."""
     from repro_torch.exec.planner import Planner
-    if mesh is not None:
-        raise NotImplementedError(
-            f"serve(mesh={mesh.describe()}): sharded decode pools are not "
-            f"ported yet (they wait for the sharding slice's serve pools, "
-            f"ROADMAP.md queue 1, item 2)")
     need = [r.prompt_len + r.max_new_tokens for r in requests]
     if cfg.frontend == "vision":
         need = [n + cfg.n_frontend_tokens for n in need]
@@ -552,7 +625,8 @@ def serve(params, cfg, requests: Sequence[Request], *,
         # more slots than requests would only widen every decode step
         return Planner.for_serve(cfg, max_len, budget=budget,
                                  enc_len=enc_len, n_slots=n_slots,
-                                 n_max=n_max, cache_kind=cache_kind,
+                                 mesh=mesh, n_max=n_max,
+                                 cache_kind=cache_kind,
                                  page_size=page_size, avg_len=avg_len,
                                  n_pages=n_pages,
                                  decode_residency=decode_residency or None,
@@ -563,7 +637,8 @@ def serve(params, cfg, requests: Sequence[Request], *,
         from repro_torch.exec.plancache import cached_plan
         plan, hit, key = cached_plan(plan_cache, dict(
             mode="serve", arch=cfg.name, max_len=max_len, budget=budget,
-            n_slots=n_slots, enc_len=enc_len, mesh="",
+            n_slots=n_slots, enc_len=enc_len,
+            mesh=mesh.describe() if mesh is not None else "",
             cache_kind=cache_kind, page_size=page_size, avg_len=avg_len,
             n_pages=n_pages, decode_residency=decode_residency or "",
             decode_batch=decode_batch, n_max=n_max,
@@ -572,6 +647,10 @@ def serve(params, cfg, requests: Sequence[Request], *,
         print(f"plan cache: {'hit' if hit else 'miss'} key={key}")
     else:
         plan = _solve()
+    if mesh is not None and prefill_budget:
+        # a request's chunked prefill runs unsharded on one device, so it
+        # must fit the PER-DEVICE slice of the budget, like everything else
+        prefill_budget //= max(1, mesh.batch_extent)
     engine = ServeEngine(params, cfg, plan, prefill_budget=prefill_budget,
                          residency=residency)
     pool = make_pool(cfg, plan, device=engine.device)
@@ -586,12 +665,18 @@ def serve(params, cfg, requests: Sequence[Request], *,
         # means a pricing regression in decode_slot_bytes / page_bytes /
         # a registered cache-bytes fn.  A host-resident pool holds the
         # FULL bytes the ``host_bytes`` extra prices, in pinned host
-        # memory (the device estimate is only the transit set).
+        # memory (the device estimate is only the transit set).  A
+        # sharded pool's bytes are summed over the batch-axes group (the
+        # model axis replicates them) and held to the global estimate.
+        import torch
         from repro_torch.obs.audit import live_bytes, plan_audit
         host = int(plan.get("host_bytes", 0) or 0)
         est = host if host else int(plan.est_bytes or 0)
-        measured = {"peak_bytes": live_bytes(pool.caches),
-                    "live_buffer_bytes": live_bytes(pool.caches)}
+        live = live_bytes(pool.caches)
+        if pool.batch_group is not None:
+            live = int(all_reduce_(torch.tensor([live], dtype=torch.int64),
+                                   pool.batch_group)[0])
+        measured = {"peak_bytes": live, "live_buffer_bytes": live}
         report.plan_audit = plan_audit(
             plan, measured, "serve_pool",
             extra={"n_slots": pool.n_slots,

@@ -623,3 +623,174 @@ def test_recurrent_lm_step_under_each_residency(arch, deterministic,
     assert host["rowprog.fp_rows"] == host["rowprog.bp_rows"] > 0
     assert "rowprog.offload_bytes" not in counters["device"]
     assert counters["recompute"]["rowprog.recompute_rows"] > 0
+
+
+# ---------------------------------------------------------------------------
+# sharded serving under nccl: one rank a card, as torchrun starts them
+# ---------------------------------------------------------------------------
+
+NCCL_RANK = r'''
+import json, os, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from repro_torch.configs import get_reduced
+from repro_torch.exec import MeshSpec
+from repro_torch.launch import serve as S
+from repro_torch.launch import sharding as sh
+from repro_torch.launch import steps
+from repro_torch.launch.mesh import build_mesh, init_from_env
+from repro_torch.models.lm.model import family_fns
+from repro_torch.optim.adamw import tree_map
+from repro_torch.serve import make_requests, serve
+
+out, job = sys.argv[1], json.loads(sys.argv[2])
+backend = init_from_env(torch.device("cuda"))
+rank = dist.get_rank()
+res = {"backend": backend, "device": torch.cuda.current_device()}
+try:
+    spec = MeshSpec.parse(job["serve_mesh"])
+    build_mesh(spec)
+    cfg = get_reduced("qwen1_5_4b")
+    params = tree_map(lambda t: t.cuda(), family_fns(cfg).init(
+        torch.Generator().manual_seed(0), cfg))
+    reqs = make_requests(**job["reqs"], vocab=cfg.vocab)
+    rep, plan = serve(params, cfg, reqs, mesh=spec, n_slots=job["n_slots"])
+    res["tokens"] = {str(s.rid): list(map(int, s.generated))
+                     for s in rep.states}
+    res["summary"] = rep.summary()
+    res["cli"] = bool(S.main(job["cli"]))
+    mesh = build_mesh(MeshSpec.parse(job["step_mesh"]))
+    for name, arch, seed, B, S_, L, n_dec in job["steps"]:
+        cfg = get_reduced(arch)
+        glob = tree_map(lambda t: t.cuda(), family_fns(cfg).init(
+            torch.Generator().manual_seed(seed), cfg))
+        rng = np.random.default_rng(seed)
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S_))).cuda()
+        teacher = torch.from_numpy(
+            rng.integers(0, cfg.vocab, (n_dec, B))).cuda()
+        ctx = sh.bind_groups(steps.make_shape_ctx(
+            mesh, cfg, steps.ShapeSpec("t", "decode", L, B)))
+        places = steps.state_sharding(ctx, {"params": glob})["params"]
+        local = sh.local_shards(glob, places, mesh)
+        _, caches, lg = steps.make_prefill_step(cfg, L, ctx=ctx)(
+            local, {"tokens": prompt})
+        rows = [lg[:, -1]]
+        step = steps.make_serve_step(cfg, ctx=ctx, cache_len=L)
+        for i in range(n_dec):
+            _, caches, lg = step(local, caches,
+                                 {"tokens": teacher[i][:, None]})
+            rows.append(lg[:, -1])
+        np.save(f"{out}/{name}_rank{rank}.npy",
+                torch.stack(rows).float().cpu().numpy())
+finally:
+    dist.destroy_process_group()
+json.dump(res, open(f"{out}/rank{rank}.json", "w"))
+'''
+
+#: reduced configs' ctx steps under nccl: (name, arch, seed, batch, prompt,
+#: cache length, decode steps).  On model=4 Gemma's 2 kv heads split the
+#: cache's positions (the reference's ``_kv_fallback``); Zamba2's Mamba2
+#: states split by heads
+NCCL_STEPS = [("gemma", "gemma3_4b", 1, 2, 20, 32, 4),
+              ("hybrid", "zamba2_7b", 2, 2, 12, 24, 3)]
+NCCL_REQS = dict(n=6, seed=1, traffic="poisson", prompt_len=[8, 16],
+                 max_new_tokens=[3, 4, 5, 6], mean_interarrival=1.5)
+
+
+@pytest.mark.requires_cuda
+def test_sharded_serving_under_nccl(tmp_path):
+    """``serve(mesh=)``, ``launch.serve --mesh`` and the ``ctx=`` prefill
+    and decode steps with one rank a card, each joining the group from
+    torchrun's environment (so under nccl, which takes CUDA tensors only:
+    the scheduler's host-built token ids and byte counts go through the
+    card).  On four cards: serving on ``data=2,model=2`` (2 of 4 slots a
+    rank), steps on ``data=1,model=4``, Gemma's cache split along its
+    positions; on two: ``data=2`` and ``data=1,model=2``.  Every rank's
+    greedy streams equal one process's at the rank's decode width (a
+    width changes a product's rounding on the card); the step logits are
+    within 1e-5 of one process's largest |logit| (fp32, TF32 off)."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two cards (nccl takes one a rank)")
+    world = 4 if n >= 4 else 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    serve_mesh = "data=2,model=2" if world == 4 else "data=2"
+    job = {"serve_mesh": serve_mesh, "n_slots": 4, "reqs": NCCL_REQS,
+           "step_mesh": f"data=1,model={world}", "steps": NCCL_STEPS,
+           "cli": ["--arch", "qwen1_5_4b", "--preset", "reduced", "--mesh",
+                   serve_mesh, "--device", "cuda", "--requests", "4",
+                   "--prompt-len", "16", "--gen", "4", "--budget-gb",
+                   "0.001"]}
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", NCCL_RANK, str(tmp_path), json.dumps(job)],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=os.path.join(root, "src"),
+                 RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE=str(world),
+                 LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                 MASTER_PORT=str(port)))
+        for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for r, (p, (so, se)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r}: {so[-2000:]} {se[-4000:]}"
+    assert "serve OK" in outs[0][0]
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.exec import MeshSpec
+    from repro_torch.launch import steps
+    from repro_torch.models.lm.model import family_fns
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.serve import make_requests, serve
+    ranks = [json.load(open(tmp_path / f"rank{r}.json"))
+             for r in range(world)]
+    cfg = get_reduced("qwen1_5_4b")
+    params = tree_map(lambda t: t.cuda(), family_fns(cfg).init(
+        torch.Generator().manual_seed(0), cfg))
+    width = 4 // MeshSpec.parse(serve_mesh).batch_extent
+    rep, _ = serve(params, cfg, make_requests(**NCCL_REQS, vocab=cfg.vocab),
+                   n_slots=width)
+    want = {str(s.rid): list(map(int, s.generated)) for s in rep.states}
+    for r, got in enumerate(ranks):
+        assert got["backend"] == "nccl" and got["device"] == r
+        assert got["tokens"] == want, r
+        assert got["summary"] == ranks[0]["summary"], r
+    for name, arch, seed, B, S_, L, n_dec in NCCL_STEPS:
+        cfg = get_reduced(arch)
+        params = tree_map(lambda t: t.cuda(), family_fns(cfg).init(
+            torch.Generator().manual_seed(seed), cfg))
+        rng = np.random.default_rng(seed)
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S_))).cuda()
+        teacher = torch.from_numpy(
+            rng.integers(0, cfg.vocab, (n_dec, B))).cuda()
+        _, caches, lg = steps.make_prefill_step(cfg, L)(
+            params, {"tokens": prompt})
+        rows = [lg[:, -1]]
+        step = steps.make_serve_step(cfg, cache_len=L)
+        for i in range(n_dec):
+            _, caches, lg = step(params, caches,
+                                 {"tokens": teacher[i][:, None]})
+            rows.append(lg[:, -1])
+        one = torch.stack(rows).float().cpu().numpy()
+        scale = float(np.abs(one).max())
+        for r in range(world):
+            got = np.load(tmp_path / f"{name}_rank{r}.npy")
+            assert float(np.abs(got - one).max()) <= 1e-5 * scale, (name, r)

@@ -306,14 +306,14 @@ def test_decode_from_converted_reference_caches_and_steps():
     rl, rc = ref_ed.encdec_prefill(params, {"frames": jnp.asarray(frames),
                                             "tokens": jnp.asarray(tokens)},
                                    rcfg, 30)
-    tok, _ = make_prefill_step(cfg, 30)(_params(), {
+    tok, _, _ = make_prefill_step(cfg, 30)(_params(), {
         "frames": _t(frames), "tokens": _t(tokens)})
     want = np.argmax(np.asarray(rl)[:, -1], -1)
     assert tok.dtype == torch.int32 and tok.tolist() == want.tolist()
     c = model.caches_from_reference(rc, "cpu")
     rl, _ = ref_ed.encdec_decode(params, jnp.asarray(
         want[:, None].astype(np.int32)), rc, rcfg)
-    tok, _ = make_serve_step(cfg)(_params(), c, {"tokens": tok[:, None]})
+    tok, _, _ = make_serve_step(cfg)(_params(), c, {"tokens": tok[:, None]})
     assert tok.tolist() == np.argmax(np.asarray(rl)[:, -1], -1).tolist()
 
 

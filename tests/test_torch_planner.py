@@ -210,8 +210,10 @@ def test_kernelize_fallbacks_and_retile():
 
 
 def test_unported_planning_raises():
-    """What is still unported raises: the serving planner over a mesh
-    (sharded decode pools, slice 11).  Staging over a model axis (in
+    """What a plan cannot do in one process raises: a serving plan over a
+    mesh answers (its slots split over the batch axes,
+    ``tests/test_torch_serve_sharding.py`` holds it to the reference), and
+    its pool needs a rank a coordinate.  Staging over a model axis (in
     ``stagedize`` and as the costed chooser's staged alternates) is ported
     and answers here; ``tests/test_torch_pipeline.py`` holds its answers
     to the reference's.  The costed chooser and ``autotune_kernel``
@@ -224,9 +226,12 @@ def test_unported_planning_raises():
                                 cost_table=CostTable(fingerprint="t"))
     assert costed.feasible and costed.get("cost_model")
     from repro_torch.configs import get_reduced
-    with pytest.raises(NotImplementedError, match="for_serve"):
-        Planner.for_serve(get_reduced("qwen1_5_4b"), 32,
-                          mesh=MeshSpec.parse("data=2"))
+    sharded = Planner.for_serve(get_reduced("qwen1_5_4b"), 32, n_slots=3,
+                                mesh=MeshSpec.parse("data=2"))
+    assert (sharded.n_rows, sharded.get("slots_per_device")) == (4, 2)
+    from repro_torch.serve import make_pool
+    with pytest.raises(ValueError, match="per_device"):
+        make_pool(get_reduced("qwen1_5_4b"), sharded, device="cpu")
     tuned = planner.autotune_kernel(planner.plan("twophase", 2),
                                     time_fn=lambda c: 1.0)
     assert "no cuda alternate" in tuned.get("kernel_fallback")

@@ -304,13 +304,13 @@ def test_prefill_and_serve_steps_are_greedy():
         0, rcfg.vocab, (2, 16)).astype(np.int32)
     rl, rc = ref_model.lm_prefill(params, {"tokens": jnp.asarray(toks)},
                                   rcfg, 24)
-    tok, c = make_prefill_step(cfg, 24)(tp, {"tokens": _t(toks)})
+    tok, c, _ = make_prefill_step(cfg, 24)(tp, {"tokens": _t(toks)})
     want = np.argmax(np.asarray(rl)[:, -1], -1)
     assert tok.dtype == torch.int32 and tok.tolist() == want.tolist()
     rl, _ = ref_model.lm_decode(params, jnp.asarray(want[:, None]
                                                     .astype(np.int32)),
                                 rc, rcfg)
-    tok, _ = make_serve_step(cfg)(tp, c, {"tokens": tok[:, None]})
+    tok, _, _ = make_serve_step(cfg)(tp, c, {"tokens": tok[:, None]})
     assert tok.tolist() == np.argmax(np.asarray(rl)[:, -1], -1).tolist()
 
 
@@ -484,8 +484,9 @@ def test_pool_bytes_equal_the_plans_estimate(kind):
 def test_serve_planner_unported_parts_raise():
     from repro_torch.exec import MeshSpec
     cfg = get_reduced("qwen1_5_4b")
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        Planner.for_serve(cfg, 32, mesh=MeshSpec.parse("data=2"))
+    with pytest.raises(ValueError, match="single-host"):
+        Planner.for_serve(cfg, 32, mesh=MeshSpec.parse("data=2"),
+                          cache_kind="paged_kv")
     with pytest.raises(ValueError, match="paged"):
         Planner.for_serve(get_reduced("xlstm_125m"), 32,
                           cache_kind="paged_kv")
@@ -556,14 +557,16 @@ def test_serve_cli_without_a_card_raises_for_cuda():
     (["--arch", "llava_next_34b"], None),
 ])
 def test_serve_cli_unported_raise(argv, match, capsys):
-    """``--mesh`` still raises; the encoder-decoder and VLM archs serve
+    """``--mesh`` in one process raises (it needs a rank a mesh
+    coordinate: ``tests/test_torch_serve_sharding.py`` runs them); the
+    encoder-decoder and VLM archs serve
     since the slice that ported them (they raised before): frames of
     ``--prompt-len`` as the pool's ``enc_len``, patch embeddings before
     each prompt."""
     argv = argv + ["--device", "cpu", "--requests", "3", "--prompt-len",
                    "12", "--gen", "3"]
     if match:
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(ValueError, match=match):
             _main(argv)
         return
     _main(argv)

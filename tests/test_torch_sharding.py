@@ -166,16 +166,18 @@ def test_build_mesh_needs_the_ranks():
 def test_lm_and_serve_meshes_name_slice_11(tmp_path):
     """The LM's sharded step is ported (``tests/test_torch_lm_sharding.py``
     holds it to the reference): a mesh plan's LM apply handles the mesh
-    itself, unwrapped.  Serving over a mesh still raises, naming the
-    sharded serve pools' item of the roadmap: the server's ``--mesh`` and
-    ``Planner.for_serve(mesh=)``."""
+    itself, unwrapped.  So is serving over a mesh
+    (``tests/test_torch_serve_sharding.py``): ``Planner.for_serve(mesh=)``
+    splits the slots over the batch axes, and the server's ``--mesh``
+    needs a rank a mesh coordinate, so in one process it raises, naming
+    torchrun."""
     from repro_torch.launch import serve as S
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         S.main(["--arch", "qwen1_5_4b", "--device", "cpu", "--mesh",
                 "data=2"])
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        Planner.for_serve(get_reduced("qwen1_5_4b"), 64, 2**20,
-                          mesh=MeshSpec.parse("data=2"))
+    plan = Planner.for_serve(get_reduced("qwen1_5_4b"), 64, 2**20,
+                             mesh=MeshSpec.parse("data=2"))
+    assert plan.n_rows == 2 * plan.get("slots_per_device")
     cfg = get_reduced("qwen1_5_4b")
     params = family_fns(cfg).init(torch.Generator().manual_seed(0), cfg)
     plan = ExecutionPlan.explicit("seq_chunked", 2,
