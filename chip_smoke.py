@@ -245,6 +245,22 @@ printing one line:
                 batch in two, greedy agreement beside the top-2 margin,
                 each rank's parameter and cache bytes beside one
                 process's, ms a step.
+   dryrun       the dry run (no card): (a) ``python -m
+                repro_torch.launch.dryrun`` for ``gemma3_4b x decode_32k``
+                (the position-split decode) and ``deepseek_moe_16b x
+                train_4k``, each on the 16x16 mesh, in a subprocess that
+                sees no card (``CUDA_VISIBLE_DEVICES`` empty); each record
+                must end ``ok``; its traced peak per rank against the
+                card's 80 GB, traced and analytic FLOPs and the H100
+                terms are printed.  (b) train_lm_kernel's Gemma-3 4B step
+                (12 layers, batch 1, seq 4096) built with no plan on one
+                device, traced on ``meta`` (``obs.audit.trace_step``) and
+                run on the card under ``FlopCounterMode`` and
+                ``measure_step``: the FLOP counts must be equal; the
+                traced peak over ``cuda_max_allocated`` (a ``dryrun``
+                audit, recorded, not gated) and the step's seconds against
+                the H100 roofline's max(t_compute, t_memory) of the traced
+                counts are printed.
 
 Every train run above carries ``--trace`` and ``--metrics-out`` (into a
 temporary ``obs`` directory) and prints its step-0 ``plan audit:`` line.
@@ -507,6 +523,10 @@ MESH_SERVE_STEPS = [
 MESH_SERVE_TRUTH_FACTOR = 2.0
 MESH_SERVE_BATCH, MESH_SERVE_PROMPT, MESH_SERVE_CACHE = 4, 512, 4096
 MESH_SERVE_DECODES, MESH_SERVE_WAIT_S = 16, 600
+#: the dry run's combos on the card's machine (16x16 mesh), and how long
+#: their subprocesses may take
+DRYRUN_COMBOS = (("gemma3_4b", "decode_32k"), ("deepseek_moe_16b", "train_4k"))
+DRYRUN_WAIT_S = 240
 #: the LM checkpoint round trip: xLSTM-125M at its full preset, seq 256
 CKPT_LM_ARCH, CKPT_LM_SEQ = "xlstm_125m", 256
 CKPT_LM_TOL = 1e-6
@@ -2865,6 +2885,137 @@ def phase_mesh_serve(torch, out, tmp):
         raise AssertionError("; ".join(bad))
 
 
+def _terms(t_compute, t_memory, t_collective):
+    return (f"compute {t_compute:.4e} s, memory {t_memory:.4e} s, "
+            f"collective {t_collective:.4e} s")
+
+
+def phase_dryrun(torch, out, tmp):
+    """(a) Two dry-run combos in subprocesses that see no card; (b) the
+    train_lm_kernel Gemma-3 4B step (no plan) traced on meta and run on
+    the card: equal FLOP counts."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.analysis.roofline import analyze
+    from repro_torch.data.pipeline import TokenDataset, TokenDatasetConfig
+    from repro_torch.exec import Planner
+    from repro_torch.launch.mesh import HBM_BYTES
+    from repro_torch.launch.steps import (
+        ShapeSpec, make_train_step, params_specs,
+    )
+    from repro_torch.launch.train import lm_batch
+    from repro_torch.models.lm.model import init_lm
+    from repro_torch.obs.audit import measure_step, plan_audit, trace_step
+    from repro_torch.optim.adamw import adamw_init
+    smi = out["smi"]
+    d = os.path.join(tmp, "dryrun")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", "single", "--out", d], cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for arch, shape in DRYRUN_COMBOS]
+    try:
+        outs = [p.communicate(timeout=DRYRUN_WAIT_S) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    recs = {}
+    for (arch, shape), p, (so, se) in zip(DRYRUN_COMBOS, procs, outs):
+        if p.returncode:
+            raise AssertionError(f"dryrun {arch} x {shape} exit "
+                                 f"{p.returncode}: {so[-2000:]} "
+                                 f"{se[-3000:]}")
+        with open(os.path.join(d, f"{arch}_{shape}_16x16.json")) as f:
+            rec = json.load(f)
+        if rec["status"] != "ok":
+            raise AssertionError(f"dryrun {arch} x {shape}: "
+                                 f"{rec['status']} {rec.get('error')}")
+        a = rec["analytic"]
+        peak = rec["traced_peak_bytes_per_chip"]
+        print(f"dryrun (a) {arch} x {shape} x 16x16, rank 0 of 256 traced "
+              f"on meta with no card in {rec['t_trace_s']} s: peak {peak} B"
+              f" = {peak / HBM_BYTES:.4f} of the card's 80 GB (args "
+              f"{rec['traced_arg_bytes_per_chip']}, temp "
+              f"{rec['traced_temp_bytes_per_chip']}); flops "
+              f"{rec['traced_flops_per_chip']:.4e} traced, "
+              f"{a['flops_per_chip']:.4e} analytic "
+              f"({rec['traced_flops_per_chip'] / a['flops_per_chip']:.3f}x);"
+              f" collective bytes {rec['traced_coll_detail']}; H100 terms, "
+              f"analytic: {_terms(a['t_compute_s'], a['t_memory_s'], a['t_collective_s'])}"
+              f" -> {a['bottleneck']}; traced: "
+              f"{_terms(rec['traced_t_compute_s'], rec['traced_t_memory_s'], rec['traced_t_collective_s'])}"
+              f" -> {rec['traced_bottleneck']} [{smi}]", flush=True)
+        recs[f"{arch}/{shape}"] = {k: v for k, v in rec.items()
+                                   if k != "traced_flops_by_op"}
+    # (b) the same step traced on meta and run on the card
+    cfg = _gemma12(torch)
+    hb = TokenDataset(TokenDatasetConfig(vocab=cfg.vocab, seq_len=LM_SEQ,
+                                         batch=LM_BATCH)).batch_at(0)
+    step = make_train_step(cfg)
+    meta = params_specs(cfg)
+    t0 = time.time()
+    traced = trace_step(step, {"params": meta, "opt": adamw_init(meta)},
+                        lm_batch(cfg, hb, 0, 0, "meta"))
+    t_trace = time.time() - t0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    params = init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
+    state = {"params": params, "opt": adamw_init(params)}
+    batch = lm_batch(cfg, hb, 0, 0, "cuda")
+    with FlopCounterMode(display=False) as fc:
+        step(state, batch)
+    torch.cuda.synchronize()
+    card_flops = fc.get_total_flops()
+    m = measure_step(lambda: step(state, batch), time_iters=3,
+                     device="cuda")
+    del params, state, batch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    card_peak = m["peak_bytes"] - base
+    step_s = m["wall_us"] / 1e6
+    roof = analyze(traced, cfg, ShapeSpec("gemma12_4k", "train", LM_SEQ,
+                                          LM_BATCH), "1", 1)
+    bound = max(roof.t_compute, roof.t_memory)
+    ratio = traced["peak_bytes"] / card_peak
+    audit = plan_audit(
+        Planner.for_model(cfg, LM_BATCH, LM_SEQ),
+        {k: traced[k] for k in ("peak_bytes", "argument_size_in_bytes",
+                                "temp_size_in_bytes", "method")},
+        "dryrun", extra={"arch": "gemma3_4b", "layers": LM_LAYERS,
+                         "cuda_max_allocated": card_peak,
+                         "trace_over_cuda": ratio})
+    print(f"dryrun (b) Gemma-3 4B, {LM_LAYERS} layers, batch {LM_BATCH}, "
+          f"seq {LM_SEQ}, no plan, one device: flops traced on meta "
+          f"{traced['flops']} (in {t_trace:.1f} s), on the card "
+          f"(FlopCounterMode) {card_flops}: "
+          f"{'equal' if traced['flops'] == card_flops else 'DIFFER'}; "
+          f"peak traced {traced['peak_bytes']} B (args "
+          f"{traced['argument_size_in_bytes']}, temp "
+          f"{traced['temp_size_in_bytes']}), card "
+          f"{card_peak} B above the {base} B already allocated "
+          f"(cuda_max_allocated): traced/card {ratio:.4f}, recorded as a "
+          f"dryrun audit; step {step_s:.4f} s (median of 3, CUDA events) "
+          f"against the H100 roofline's max(t_compute, t_memory) "
+          f"{bound:.4f} s of the traced counts (compute "
+          f"{roof.t_compute:.4f} s, {traced['flops']:.4e} FLOP; memory "
+          f"{roof.t_memory:.4f} s, {traced['bytes_accessed']:.4e} B "
+          f"accessed): {bound / step_s:.4f} of the bound [{smi}]",
+          flush=True)
+    out["dryrun"] = {"combos": recs, "flops": [traced["flops"], card_flops],
+                     "peaks": [traced["peak_bytes"], card_peak],
+                     "audit": audit, "step_s": step_s, "bound_s": bound}
+    if traced["flops"] != card_flops:
+        by_card = {str(k): v for k, v in fc.get_flop_counts()
+                   .get("Global", {}).items()}
+        raise AssertionError(f"dryrun (b): traced flops {traced['flops']} "
+                             f"{traced['flops_by_op']} != card "
+                             f"{card_flops} {by_card}")
+
+
 def _vgg_leaf_sizes(torch):
     """Byte sizes of VGG-16's parameter leaves at 224² (a block of one of
     these sizes allocated in a backward is a gradient)."""
@@ -3418,6 +3569,7 @@ def main() -> int:
                   ("mesh_lm", lambda: phase_mesh_lm(torch, out, tmp)),
                   ("serve", lambda: phase_serve(torch, out, tmp)),
                   ("mesh_serve", lambda: phase_mesh_serve(torch, out, tmp)),
+                  ("dryrun", lambda: phase_dryrun(torch, out, tmp)),
                   ("memory", lambda: phase_memory(torch, out, tmp)),
                   ("profile", lambda: phase_profile(torch, out, tmp)),
                   ("autotune", lambda: phase_autotune(torch, out, tmp)),

@@ -19,8 +19,9 @@ accounting: ``train_step`` [0.25, 4.0], ``train_step_lm`` [0.2, 20.0],
 step-0 audits feed the first two; the serve scheduler audits its decode
 pool (``serve_pool``: the bytes the pool's buffers hold, pinned host
 buffers of a host-resident pool included, against ``Planner.for_serve``'s
-estimate); the dry run is not ported yet.  On the card the
-measurement is ``torch.cuda.max_memory_allocated`` over one executed step
+estimate); the dry run records a ``dryrun`` audit per combo, its peak
+traced on ``meta`` tensors (:func:`repro_torch.obs.audit.trace_step`),
+never gated.  On the card the measurement is ``torch.cuda.max_memory_allocated`` over one executed step
 (:func:`repro_torch.obs.audit.measure_step`): the absolute peak of the
 caching allocator, arguments included, against the plan's activation +
 cache + ξ estimate — the same family of quantity, so the bands apply

@@ -38,16 +38,22 @@ puts the result back where the tensor was (:func:`wire_device`): CUDA
 tensors under ``gloo`` (ranks that share one card) go through host copies,
 since gloo's all-gather takes CPU tensors only, and host tensors under
 ``nccl`` (the scheduler's token ids and byte counts) through the rank's
-card, since NCCL takes CUDA tensors only.  A half-precision sum is taken
-in fp32 and rounded once.  Under an obs
-session every collective counts its calls and the bytes of the tensor it
-sends (``collectives.calls``, ``collectives.bytes``).
+card, since NCCL takes CUDA tensors only; under the dry run's ``fake``
+backend a tensor stays where it is, ``meta`` included.  A half-precision
+sum is taken in fp32 and rounded once.  Under an obs session every
+collective counts its calls and the bytes of the tensor it sends
+(``collectives.calls``, ``collectives.bytes``).  Every open :func:`tally`
+counts its result buffer's bytes by kind (``all-reduce``, ``all-gather``,
+``broadcast``), as the reference's ``collective_bytes`` counts them: an
+all-gather's result is the group's size times its input, a half-precision
+sum's its fp32 wire.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Sequence
+from typing import Dict, List, Sequence
 
 import torch
 import torch.distributed as dist
@@ -76,16 +82,38 @@ def axis_group(mesh, axes: Sequence[str]):
     return mine
 
 
-def _count(t: torch.Tensor) -> None:
+#: the open tallies (:func:`tally`), innermost last
+_TALLIES: List[Dict[str, int]] = []
+
+
+@contextlib.contextmanager
+def tally():
+    """A dict of the result bytes of every collective issued while it is
+    open, by kind (all of them whatever the obs session)."""
+    counts: Dict[str, int] = {}
+    _TALLIES.append(counts)
+    try:
+        yield counts
+    finally:
+        _TALLIES.remove(counts)
+
+
+def _count(t: torch.Tensor, kind: str, result_bytes: int) -> None:
     obs.counter("collectives.calls").inc()
     obs.counter("collectives.bytes").inc(int(t.nbytes))
+    for counts in _TALLIES:
+        counts[kind] = counts.get(kind, 0) + result_bytes
 
 
 def wire_device(t: torch.Tensor, group) -> torch.device:
     """Where ``group``'s backend (the default group's for None) takes
-    ``t``: the rank's card under ``nccl``, the host under ``gloo``."""
-    if dist.get_backend(group) == "nccl":
+    ``t``: the rank's card under ``nccl``, the host under ``gloo``, where
+    it lies under ``fake``."""
+    backend = dist.get_backend(group)
+    if backend == "nccl":
         return t.device if t.is_cuda else torch.device("cuda")
+    if backend == "fake":
+        return t.device
     return torch.device("cpu")
 
 
@@ -93,15 +121,16 @@ def all_reduce_(t: torch.Tensor, group,
                 op=dist.ReduceOp.SUM) -> torch.Tensor:
     """Reduce ``t`` over ``group`` in place (a sum unless ``op`` says
     otherwise)."""
-    _count(t)
     wire = wire_device(t, group)
     half = t.dtype in (torch.bfloat16, torch.float16)
     if wire != t.device or half:
         h = t.detach().to(wire, torch.float32 if half else t.dtype,
                           copy=True)
+        _count(t, "all-reduce", h.nbytes)
         dist.all_reduce(h, op=op, group=group)
         t.copy_(h)
     else:
+        _count(t, "all-reduce", t.nbytes)
         dist.all_reduce(t, op=op, group=group)
     return t
 
@@ -109,7 +138,7 @@ def all_reduce_(t: torch.Tensor, group,
 def broadcast_(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
     """``t`` from the global rank ``src`` on every rank of ``group`` (the
     default group for None), in place."""
-    _count(t)
+    _count(t, "broadcast", t.nbytes)
     wire = wire_device(t, group)
     if wire != t.device:
         h = t.to(wire)
@@ -124,10 +153,10 @@ def all_gather_cat(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     """The group's slices of ``t`` (equal shapes), concatenated along
     ``dim`` in group-rank order."""
     src = t.contiguous()
-    _count(src)
+    n = dist.get_world_size(group)
+    _count(src, "all-gather", n * src.nbytes)
     src = src.to(wire_device(src, group))
-    parts = [torch.empty_like(src)
-             for _ in range(dist.get_world_size(group))]
+    parts = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(parts, src, group=group)
     return torch.cat(parts, dim=dim).to(t.device)
 

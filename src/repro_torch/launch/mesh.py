@@ -12,9 +12,13 @@ of its own, ``gloo`` on the CPU and when ranks share a card (NCCL refuses
 two ranks on one device).  Nothing falls back from one to the other: a
 backend that fails to start raises.
 
-Importing this module touches no device and no process group.  The
-reference's TPU v5e constants are not carried over; the H100's come with
-the roofline.
+The dry run (:mod:`repro_torch.launch.dryrun`) acts as rank 0 of a
+production mesh it does not have: :func:`join_fake_group` joins torch's
+``fake`` process-group backend, whose collectives return at once, and
+:func:`leave_fake_group` leaves it.
+
+Importing this module touches no device and no process group.  Where the
+reference keeps its TPU v5e constants, the port keeps the H100's.
 """
 
 from __future__ import annotations
@@ -92,3 +96,36 @@ def build_mesh(spec: MeshSpec):
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     mesh = torch.arange(n).reshape(spec.shape)
     return DeviceMesh(device_type, mesh, mesh_dim_names=spec.axis_names)
+
+
+def join_fake_group(spec: MeshSpec):
+    """Join torch's ``fake`` process-group backend as rank 0 of
+    ``spec.n_devices`` ranks and return ``build_mesh(spec)``.  One process
+    then stands for the whole mesh: every collective returns at once and
+    leaves its output as it was, so a step traces with rank 0's shapes and
+    no other rank.  Importing ``fake_pg`` is what registers the backend."""
+    import torch.testing._internal.distributed.fake_pg as fake_pg
+    if dist.is_initialized():
+        raise ValueError("a process group already exists; the dry run "
+                         "needs a process of its own")
+    dist.init_process_group("fake", rank=0, world_size=spec.n_devices,
+                            store=fake_pg.FakeStore())
+    return build_mesh(spec)
+
+
+def leave_fake_group() -> None:
+    """Destroy the group :func:`join_fake_group` joined (every subgroup
+    with it)."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+# Hardware constants for the roofline analysis: one H100 SXM5 at its 700 W
+# limit (NVIDIA's data sheet).  A 16-wide model axis spans two 8-card
+# hosts, whose link is the network, not NVLink: there the collective term
+# is a lower bound.  The reference's VMEM_BYTES has no counterpart; each
+# kernel's shared-memory limit is its module's SMEM_LIMIT (232,448 B).
+PEAK_FLOPS_BF16 = 989e12      # per card, dense tensor-core FLOP/s
+HBM_BW = 3.35e12              # per card, bytes/s
+LINK_BW = 450e9               # NVLink, per card, bytes/s one way
+HBM_BYTES = 80e9              # per card, the 80 GB a rank's peak must fit

@@ -35,8 +35,10 @@ or, under the fallback, positions over the model axis; the SSM's and the
 mLSTM's states by heads) stays a shard; any other split leaf (the conv
 state's channels, the sLSTM's width, a layout the reference's rules give
 that no layer computes on) reaches the model whole on the rank's rows and
-is re-sharded after the step (:class:`_CacheLeaf`).  ``build_jitted``
-waits for the dry run.
+is re-sharded after the step (:class:`_CacheLeaf`).
+
+:func:`build_step` (the reference's ``build_jitted``) gives the dry run
+rank 0's step of a production shape and its local ``meta`` arguments.
 """
 
 from __future__ import annotations
@@ -479,6 +481,22 @@ def _cache_layout(ctx: ShardCtx, cfg, rows: int, cache_len: int,
             _cache_leaves(_cache_shapes(cfg, B, cache_len, enc_len))]
 
 
+def _layouts(ctx: ShardCtx, cfg, cache_len: int):
+    """``layout(rows, enc_len)``: :func:`_cache_layout`, made once per
+    (rows, enc_len).  Making one builds ``meta`` caches of the global
+    shape, so the dry run makes its step's before it traces the step
+    (:func:`build_step`), and the trace holds only what the step does."""
+    memo: Dict[tuple, list] = {}
+
+    def layout(rows: int, enc_len: int):
+        if (rows, enc_len) not in memo:
+            memo[rows, enc_len] = _cache_layout(ctx, cfg, rows, cache_len,
+                                                enc_len)
+        return memo[rows, enc_len]
+
+    return layout
+
+
 def _whole_vocab(logits, cfg):
     """Logits whose columns are this rank's slice of the vocabulary,
     gathered whole over the model group."""
@@ -523,6 +541,7 @@ def make_prefill_step(cfg, cache_len: int, ctx: Optional[ShardCtx] = None):
     ones of those rows."""
     prefill = family_fns(cfg).prefill
     uses, run = _serving(cfg, ctx)
+    layouts = _layouts(ctx, cfg, cache_len) if uses is not None else None
 
     @torch.no_grad()
     def prefill_step(params, batch):
@@ -532,8 +551,7 @@ def make_prefill_step(cfg, cache_len: int, ctx: Optional[ShardCtx] = None):
             logits, caches = prefill(p, batch, cfg, cache_len)
             if uses is None:
                 return logits, caches
-            layout = _cache_layout(ctx, cfg, batch["tokens"].shape[0],
-                                   cache_len, enc_len)
+            layout = layouts(batch["tokens"].shape[0], enc_len)
             leaves = iter([t if c.split else c.from_rows(t).contiguous()
                            for t, c in zip(tree_leaves(caches), layout)])
             return (_whole_vocab(logits, cfg),
@@ -542,6 +560,7 @@ def make_prefill_step(cfg, cache_len: int, ctx: Optional[ShardCtx] = None):
         logits, caches = run(fn, params, cache_len, enc_len)
         return _greedy(logits), caches, logits
 
+    prefill_step.cache_layout = layouts
     return prefill_step
 
 
@@ -557,7 +576,7 @@ def make_serve_step(cfg, ctx: Optional[ShardCtx] = None, cache_len: int = 0,
     (an encoder-decoder's cross K/V ``enc_len`` long)."""
     decode = family_fns(cfg).decode
     uses, run = _serving(cfg, ctx)
-    layouts: Dict[int, list] = {}
+    layouts = _layouts(ctx, cfg, cache_len) if uses is not None else None
 
     @torch.no_grad()
     def serve_step(params, caches, batch):
@@ -565,11 +584,7 @@ def make_serve_step(cfg, ctx: Optional[ShardCtx] = None, cache_len: int = 0,
         if uses is None:
             logits, caches = decode(params, tokens, caches, cfg)
             return _greedy(logits), caches, logits
-        rows = tokens.shape[0]
-        if rows not in layouts:
-            layouts[rows] = _cache_layout(ctx, cfg, rows, cache_len,
-                                          enc_len)
-        layout = layouts[rows]
+        layout = layouts(tokens.shape[0], enc_len)
         local = tree_leaves(caches)
         view = iter([t if c.split else c.to_rows(t).contiguous()
                      for t, c in zip(local, layout)])
@@ -585,4 +600,43 @@ def make_serve_step(cfg, ctx: Optional[ShardCtx] = None, cache_len: int = 0,
                 t.copy_(c.from_rows(w))
         return _greedy(logits), caches, logits
 
+    serve_step.cache_layout = layouts
     return serve_step
+
+
+def build_step(cfg, shape: ShapeSpec, mesh, fsdp: bool = False):
+    """``(step, args)``: this rank's step of (``cfg``, ``shape``) on
+    ``mesh`` (a ``DeviceMesh`` whose process group the rank has joined)
+    and its local arguments as ``meta`` tensors, ready for
+    ``step(*args)`` (counterpart of the reference's ``build_jitted``,
+    whose abstract arguments are global).
+
+    ``train``: ``(state, batch)``, the state's shards under
+    :func:`state_sharding`; ``prefill``: ``(params, batch)``; ``decode``:
+    ``(params, caches, batch)``, the caches' shards under
+    :func:`cache_sharding`; the batch rows under :func:`batch_sharding`
+    in every case.  As in the reference the step is built without a plan:
+    the dry run only records the plan it would run."""
+    from repro_torch.launch.sharding import bind_groups, local_shards
+    ctx = bind_groups(make_shape_ctx(mesh, cfg, shape, fsdp=fsdp))
+    specs = input_specs(cfg, shape)
+    batch = local_shards(specs["batch"],
+                         batch_sharding(ctx, specs["batch"]), mesh)
+    if shape.kind == "train":
+        state = local_shards(specs["state"],
+                             state_sharding(ctx, specs["state"]), mesh)
+        return make_train_step(cfg, ctx=ctx), (state, batch)
+    params = local_shards(specs["params"],
+                          spec_tree(specs["params"], ctx, LM_RULES), mesh)
+    rows = batch["tokens"].shape[0]
+    enc_len = shape.seq // 2 if cfg.family == "encdec" else 0
+    if shape.kind == "prefill":
+        step = make_prefill_step(cfg, shape.seq, ctx=ctx)
+        step.cache_layout(rows, enc_len)
+        return step, (params, batch)
+    caches = local_shards(specs["caches"], cache_sharding(
+        ctx, cfg, specs["caches"]), mesh)
+    step = make_serve_step(cfg, ctx=ctx, cache_len=shape.seq,
+                           enc_len=enc_len)
+    step.cache_layout(rows, enc_len)
+    return step, (params, caches, batch)

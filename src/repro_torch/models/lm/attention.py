@@ -357,11 +357,16 @@ def attn_decode(params, x, cache, dims: AttnDims):
     if split is None:
         k.index_put_((bidx, slot.long()), k_new[:, 0].to(k.dtype))
         v.index_put_((bidx, slot.long()), v_new[:, 0].to(v.dtype))
-    else:  # only the holder of the slot writes it
-        mine = (slot >= lo) & (slot < lo + L)
-        rows, at = bidx[mine], (slot[mine] - lo).long()
-        k.index_put_((rows, at), k_new[mine, 0].to(k.dtype))
-        v.index_put_((rows, at), v_new[mine, 0].to(v.dtype))
+    else:  # only the holder of the slot writes it; every row is indexed
+        # (its slot clamped into this rank's positions, the others
+        # rewriting what they hold there), so the shapes do not hang on
+        # the values
+        mine = ((slot >= lo) & (slot < lo + L))[:, None, None]
+        at = (slot - lo).clamp(0, L - 1).long()
+        k.index_put_((bidx, at), torch.where(
+            mine, k_new[:, 0].to(k.dtype), k[bidx, at]))
+        v.index_put_((bidx, at), torch.where(
+            mine, v_new[:, 0].to(v.dtype), v[bidx, at]))
     k = seam(k, "batch", None, "tp", None)
     v = seam(v, "batch", None, "tp", None)
 
@@ -451,5 +456,5 @@ def attn_prefill(params, x, dims: AttnDims, cache_len: int,
     cache = {"k": seq_part(k, cache_len, dims).contiguous(),
              "v": seq_part(v, cache_len, dims).contiguous(),
              "pos": torch.full((B,), S, dtype=torch.int32, device=x.device),
-             "ring": torch.tensor(bool(ring), device=x.device)}
+             "ring": torch.full((), bool(ring), device=x.device)}
     return y, cache

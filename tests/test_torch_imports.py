@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no module under ``src/repro_torch/`` (nor
-``chip_smoke.py``) imports ``jax`` or the JAX package ``repro``."""
+``chip_smoke.py``, the tools or the port's examples) imports ``jax`` or the
+JAX package ``repro``."""
 
 import ast
 import os
@@ -11,7 +12,9 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] \
+    + sorted((ROOT / "tools").glob("*.py")) \
+    + sorted((ROOT / "examples").glob("torch_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -68,3 +71,32 @@ def test_pipeline_mesh_and_checkpoint_modules_are_walked():
     assert {"exec/pipeline.py", "exec/collectives.py", "launch/mesh.py",
             "launch/sharding.py", "ckpt/__init__.py",
             "ckpt/store.py"} <= names
+
+
+def test_dry_run_modules_are_walked():
+    """The walk covers the dry run, its analysis, the trace-rate tool and
+    the dry-run example."""
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {"src/repro_torch/launch/dryrun.py",
+            "src/repro_torch/analysis/costmodel.py",
+            "src/repro_torch/analysis/roofline.py",
+            "src/repro_torch/analysis/report.py",
+            "tools/trace_rate.py",
+            "examples/torch_dryrun_roofline.py"} <= names
+
+
+def test_fake_process_group_is_imported_only_where_it_is_joined():
+    """``torch.testing._internal.distributed.fake_pg`` (a private module,
+    whose import registers the ``fake`` backend) is imported by no port
+    module at module level: only inside ``launch.mesh.join_fake_group``."""
+    for path in sorted(PORT.rglob("*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in tree.body:
+            names = [a.name for a in node.names] \
+                if isinstance(node, ast.Import) else \
+                [node.module or ""] if isinstance(node, ast.ImportFrom) \
+                else []
+            assert not any(n.startswith("torch.testing") for n in names), \
+                path
+    mesh = (PORT / "launch" / "mesh.py").read_text()
+    assert "torch.testing._internal.distributed.fake_pg" in mesh
