@@ -261,6 +261,20 @@ printing one line:
                 audit, recorded, not gated) and the step's seconds against
                 the H100 roofline's max(t_compute, t_memory) of the traced
                 counts are printed.
+   examples     the port's four examples (``examples/torch_*.py``), one
+                after another, each a subprocess on the card run as its
+                reference's docstring invokes it (``train_lm_100m`` with
+                ``--steps 100``: its default 300 do not fit the phase's
+                150 s; its checkpoint into the temporary directory): each
+                must exit 0 and end with its ``<name> OK`` line.
+                Printed: the quickstart's traced temporaries and measured
+                peak per engine and its final loss; the
+                large-image plan, its predicted step and each step's peak
+                against the plan's ``est_bytes`` (recorded, not gated);
+                serving's tok/s, decode steps and most concurrent
+                requests; the 100M model's first -> final loss, ms a step
+                and whether it printed ``LEARNED``.  No kernel is on an
+                example's path (in the reference neither).
 
 Every train run above carries ``--trace`` and ``--metrics-out`` (into a
 temporary ``obs`` directory) and prints its step-0 ``plan audit:`` line.
@@ -304,6 +318,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -527,6 +542,11 @@ MESH_SERVE_DECODES, MESH_SERVE_WAIT_S = 16, 600
 #: their subprocesses may take
 DRYRUN_COMBOS = (("gemma3_4b", "decode_32k"), ("deepseek_moe_16b", "train_4k"))
 DRYRUN_WAIT_S = 240
+#: how long one of the port's examples may take on the card, and the 100M
+#: trainer's steps: its default 300 took 102.6 s of the phase's 161.1 s on
+#: an H100 80GB HBM3 at 700 W (307 ms a step), over the phase's 150 s
+EXAMPLE_WAIT_S = 120
+EXAMPLE_LM_STEPS = 100
 #: the LM checkpoint round trip: xLSTM-125M at its full preset, seq 256
 CKPT_LM_ARCH, CKPT_LM_SEQ = "xlstm_125m", 256
 CKPT_LM_TOL = 1e-6
@@ -3016,6 +3036,94 @@ def phase_dryrun(torch, out, tmp):
                              f"{card_flops} {by_card}")
 
 
+def _run_example(name, *flags):
+    """Run ``examples/torch_<name>.py`` on the card; returns its stdout
+    and seconds.  It must exit 0 and end with its ``<name> OK`` line."""
+    t0 = time.time()
+    r = subprocess.run(
+        [sys.executable, os.path.join("examples", f"torch_{name}.py"),
+         *flags], cwd=ROOT, env=dict(os.environ,
+                                     PYTHONPATH=os.path.join(ROOT, "src")),
+        capture_output=True, text=True, timeout=EXAMPLE_WAIT_S)
+    lines = r.stdout.strip().splitlines()
+    if r.returncode or not lines or lines[-1] != f"{name} OK":
+        raise AssertionError(f"example {name} exit {r.returncode}: "
+                             f"{r.stdout[-3000:]} {r.stderr[-3000:]}")
+    return r.stdout, time.time() - t0
+
+
+def _matches(pattern, text, what):
+    found = re.findall(pattern, text, re.M)
+    if not found:
+        raise AssertionError(f"no {what} line in {text[-2000:]}")
+    return found
+
+
+def phase_examples(torch, out, tmp):
+    """The four examples of the port, each a subprocess on the card run as
+    its reference's docstring invokes it (the 100M trainer at
+    ``EXAMPLE_LM_STEPS`` of its default 300, its checkpoint into the
+    smoke's temporary directory), one after another so that each has the
+    card to itself; the numbers each prints that are worth keeping."""
+    smi = out["smi"]
+    res = {}
+    text, s = _run_example("quickstart")
+    mem = _matches(r"^traced temp bytes \[(.+?)\s*\]:.*; traced (\d+) B, "
+                   r"measured peak (\d+) B", text, "memory")
+    loss = _matches(r"^step\s+(\d+) loss (\S+)$", text, "loss")[-1]
+    res["quickstart"] = {"s": s, "final_loss": float(loss[1]),
+                         "memory": {n: [int(t), int(p)] for n, t, p in mem}}
+    print(f"examples quickstart ({s:.1f} s): "
+          + "; ".join(f"{n} traced temp {t} B, measured peak {p} B"
+                      for n, t, p in mem)
+          + f" (the peaks include the arguments and cuDNN's workspace); "
+          f"final loss {float(loss[1]):.4f} at step {loss[0]} [{smi}]",
+          flush=True)
+    text, s = _run_example("large_image_cnn")
+    plan = _matches(r"^residencized:\s+(.*)$", text, "plan")[0]
+    pred = float(_matches(r"^  predicted step: (\S+) us", text,
+                          "predicted step")[0])
+    steps = _matches(r"^  step (\d) loss (\S+)  peak (\d+) B vs est_bytes "
+                     r"(\d+) B", text, "step")
+    res["large_image_cnn"] = {
+        "s": s, "plan": plan, "predicted_step_us": pred,
+        "steps": [[float(l), int(p), int(e)] for _, l, p, e in steps]}
+    print(f"examples large_image_cnn ({s:.1f} s): "
+          f"{plan.split(' cost_model')[0]});"
+          f" predicted step {pred:.0f} us on the card's calibrated table; "
+          + "; ".join(f"step {i} loss {l} peak {p} B = {int(p) / int(e):.2f}x"
+                      f" est_bytes {e} B" for i, l, p, e in steps)
+          + f" (an audit: parameters, batch and cuDNN's workspace are "
+          f"outside the estimate) [{smi}]", flush=True)
+    text, s = _run_example("serve_batched")
+    toks, wall, rate, active, decode = _matches(
+        r"^served \d+ requests / (\d+) tokens in (\S+)s \((\S+) tok/s\); "
+        r"max (\d+) concurrent, (\d+) decode steps", text, "served")[0]
+    res["serve_batched"] = {"s": s, "tokens": int(toks),
+                            "wall_s": float(wall), "tok_s": float(rate),
+                            "max_active": int(active),
+                            "decode_steps": int(decode)}
+    print(f"examples serve_batched ({s:.1f} s): {toks} tokens in {wall} s, "
+          f"{rate} tok/s, {decode} decode steps, at most {active} "
+          f"concurrent [{smi}]", flush=True)
+    text, s = _run_example("train_lm_100m", "--steps",
+                           str(EXAMPLE_LM_STEPS), "--out",
+                           os.path.join(tmp, "train_100m_torch"))
+    first, final, verdict = _matches(r"^loss (\S+) -> (\S+) \((.*)\)$",
+                                     text, "loss")[0]
+    n = int(_matches(r" steps=(\d+)$", text, "arch")[0])
+    ms = int(_matches(r"^step\s+\d+ loss \S+ \(\d+s, (\d+) ms/step\)$",
+                      text, "step")[-1])
+    res["train_lm_100m"] = {"s": s, "first": float(first),
+                            "final": float(final), "steps": n,
+                            "ms_per_step": ms,
+                            "learned": verdict == "LEARNED"}
+    print(f"examples train_lm_100m ({s:.1f} s): loss {first} -> {final} "
+          f"({verdict}), {ms} ms a step over {n} steps (host clock, "
+          f"synchronised at logged steps) [{smi}]", flush=True)
+    out["examples"] = res
+
+
 def _vgg_leaf_sizes(torch):
     """Byte sizes of VGG-16's parameter leaves at 224² (a block of one of
     these sizes allocated in a backward is a gradient)."""
@@ -3570,6 +3678,7 @@ def main() -> int:
                   ("serve", lambda: phase_serve(torch, out, tmp)),
                   ("mesh_serve", lambda: phase_mesh_serve(torch, out, tmp)),
                   ("dryrun", lambda: phase_dryrun(torch, out, tmp)),
+                  ("examples", lambda: phase_examples(torch, out, tmp)),
                   ("memory", lambda: phase_memory(torch, out, tmp)),
                   ("profile", lambda: phase_profile(torch, out, tmp)),
                   ("autotune", lambda: phase_autotune(torch, out, tmp)),

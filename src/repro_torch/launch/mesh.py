@@ -65,6 +65,17 @@ def init_from_env(device: torch.device) -> Optional[str]:
     return backend
 
 
+def require_device(name: str, hint: str) -> torch.device:
+    """``torch.device(name)``; raises when it names the card and the
+    process sees none (``hint`` says what ``--device cpu`` does
+    instead)."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda but no CUDA device is available; "
+                           f"pass --device cpu to {hint}")
+    return device
+
+
 def rank_device(device: torch.device) -> torch.device:
     """This rank's device: under ``nccl`` its own card, else ``device``
     (gloo ranks on one card share it)."""

@@ -120,14 +120,6 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda but no CUDA device is available; "
-                           "pass --device cpu to serve on the host")
-    return device
-
-
 def _enc_len(args, cfg) -> int:
     """The encoder-decoder pool's frames per request: ``--prompt-len``."""
     return args.prompt_len if cfg.family == "encdec" else 0
@@ -177,9 +169,9 @@ def serve_from_args(args, cfg=None, params=None, **overrides):
     from repro_torch.serve import SLO, serve
 
     from repro_torch.exec import MeshSpec
-    from repro_torch.launch.mesh import rank_device
+    from repro_torch.launch.mesh import rank_device, require_device
     mesh_spec = MeshSpec.parse(args.mesh) if args.mesh else None
-    device = rank_device(_device(args.device))
+    device = rank_device(require_device(args.device, "serve on the host"))
     if mesh_spec is not None:
         import torch.distributed as dist
         have = dist.get_world_size() if dist.is_initialized() else 1
@@ -258,9 +250,10 @@ def main(argv=None):
     run joins from the environment (``torchrun``) ends with the run."""
     import torch.distributed as dist
 
-    from repro_torch.launch.mesh import init_from_env
+    from repro_torch.launch.mesh import init_from_env, require_device
     args = build_parser().parse_args(argv)
-    joined = bool(args.mesh) and init_from_env(_device(args.device))
+    joined = bool(args.mesh) and init_from_env(
+        require_device(args.device, "serve on the host"))
     try:
         return _main(args)
     finally:

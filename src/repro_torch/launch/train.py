@@ -140,14 +140,6 @@ def _rank() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 
 
-def _device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda but no CUDA device is available; "
-                           "pass --device cpu to run the plain versions")
-    return device
-
-
 def _resolve_plan(args, key_fields, solve, device):
     """Resolve a plan through the persistent cache when ``--plan-cache``
     is set, else solve directly.  The cost table is measured on, and the
@@ -212,11 +204,13 @@ def train_cnn(args, params=None):
     import torch.distributed as dist
 
     from repro_torch.exec import MeshSpec
-    from repro_torch.launch.mesh import init_from_env, rank_device
+    from repro_torch.launch.mesh import (
+        init_from_env, rank_device, require_device,
+    )
     if args.arch not in CNN_ARCHS:
         raise ValueError(f"--arch {args.arch} is not a CNN; CNN archs: "
                          f"{list(CNN_ARCHS)}")
-    device = _device(args.device)
+    device = require_device(args.device, "run the plain versions")
     mesh_spec = MeshSpec.parse(args.mesh) if args.mesh else None
     if mesh_spec is not None and init_from_env(device):
         try:
@@ -387,8 +381,10 @@ def train_lm(args, cfg=None, params=None):
     import torch.distributed as dist
 
     from repro_torch.exec import MeshSpec
-    from repro_torch.launch.mesh import init_from_env, rank_device
-    device = _device(args.device)
+    from repro_torch.launch.mesh import (
+        init_from_env, rank_device, require_device,
+    )
+    device = require_device(args.device, "run the plain versions")
     mesh_spec = MeshSpec.parse(args.mesh) if args.mesh else None
     if mesh_spec is not None and init_from_env(device):
         try:
