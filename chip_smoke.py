@@ -817,11 +817,9 @@ def _train(torch, tmp, name, *flags, steps, arch="vgg16", lr=TRAIN_LR):
 
 
 def phase_train_kernel(torch, out, tmp):
-    from repro_torch.kernels import ops
-    ops.conv2d.launches = 0
     run = _train(torch, tmp, "kernel", "--strategy", "overlap", "--rows",
                  "4", "--kernel", "cuda", steps=3)
-    launches = ops.conv2d.launches
+    launches = run["counters"].get("conv2d_rows", 0)
     out["launches"] = launches
     out["kernel_run"] = run
     if run["plan"]["engine"] != "overlap_cuda":
@@ -955,18 +953,16 @@ def phase_budget(torch, out, tmp):
 def phase_train_resnet(torch, out, tmp):
     """ResNet-50 at published widths: its config's request, base, and
     overlap N=4 kernelized to overlap_cuda (the stem runs conv2d_rows)."""
-    from repro_torch.kernels import ops
     kw = dict(arch="resnet50", lr=RESNET_LR)
     runs = {"config": _train(torch, tmp, "resnet_config", steps=2, **kw),
             "base": _train(torch, tmp, "resnet_base", "--strategy", "base",
                            steps=2, **kw)}
     _check_plan("resnet config", runs["config"], *RESNET_PLAN,
                 RESNET_SEGMENTS)
-    ops.conv2d.launches = 0
     runs["overlap_cuda"] = _train(torch, tmp, "resnet_kernel", "--strategy",
                                   "overlap", "--rows", "4", "--kernel",
                                   "cuda", steps=3, **kw)
-    launches = ops.conv2d.launches
+    launches = runs["overlap_cuda"]["counters"].get("conv2d_rows", 0)
     out["resnet_launches"] = launches
     _check_plan("resnet overlap_cuda", runs["overlap_cuda"], "overlap_cuda",
                 4)
@@ -1106,22 +1102,22 @@ dist.init_process_group("gloo", init_method="file://" + init, rank=rank,
                         timeout=datetime.timedelta(seconds=float(timeout)))
 res = {}
 try:
-    from repro_torch.kernels import ops
+    from repro_torch import obs
     from repro_torch.launch import train as T
     for name, flags, steps, _ in runs:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        ops.conv2d.launches = 0
-        recs = T.main(["--arch", "vgg16", "--preset", "full", "--steps",
-                       str(steps), "--lr", lr, "--log-every", "1", "--out",
-                       os.path.join(out, name), *flags])
-        torch.cuda.synchronize()
+        with obs.profiling() as cap:
+            recs = T.main(["--arch", "vgg16", "--preset", "full",
+                           "--steps", str(steps), "--lr", lr,
+                           "--log-every", "1", "--out",
+                           os.path.join(out, name), *flags])
         ends = [r["elapsed_s"] for r in recs]
         res[name] = {"losses": [r["loss"] for r in recs],
                      "step_s": [b - a for a, b in zip([0.0] + ends, ends)],
                      "peak": torch.cuda.max_memory_allocated(),
-                     "launches": ops.conv2d.launches,
+                     "launches": cap.count("conv2d_rows"),
                      "backend": dist.get_backend()}
 finally:
     dist.destroy_process_group()
@@ -1394,6 +1390,7 @@ def _ssd_flops(Bt, S, H, P, N, c):
 
 
 def phase_kernel_ssd(torch, out):
+    from repro_torch import obs
     from repro_torch.exec import ExecutionPlan, build_apply
     from repro_torch.exec.planner import kernelize_plan
     from repro_torch.kernels import ops
@@ -1452,11 +1449,10 @@ def phase_kernel_ssd(torch, out):
     # the op-level seq_ssd_cuda engine, forward + backward, counted from 0
     apply = build_apply(None, plan)
     leaves = [x.detach().requires_grad_() for x in ins]
-    ops.ssd_scan.launches = 0
-    y = apply(*leaves)
-    grads = torch.autograd.grad(y.square().sum(), leaves)
-    torch.cuda.synchronize()
-    launches = ops.ssd_scan.launches
+    with obs.profiling() as cap:
+        y = apply(*leaves)
+        grads = torch.autograd.grad(y.square().sum(), leaves)
+    launches = cap.count("ssd_scan")
     finite = [bool(torch.isfinite(g).all()) for g in grads]
     if launches != 1 or not all(finite):
         raise AssertionError(f"seq_ssd_cuda: {launches} launches, finite "
@@ -1506,10 +1502,8 @@ def _train_lm(torch, tmp, name, kernel, steps):
 
 
 def phase_train_lm_kernel(torch, out, tmp):
-    from repro_torch.kernels import ops
-    ops.swa_attention.launches = 0
     run = _train_lm(torch, tmp, "lm_kernel", "cuda", 3)
-    launches = ops.swa_attention.launches
+    launches = run["counters"].get("swa_attention", 0)
     out["swa_launches"] = launches
     out["lm_kernel"] = run
     plan = run["plan"]
@@ -1895,7 +1889,6 @@ res = {}
 try:
     import dataclasses
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
     from repro_torch.launch import train as T
     for name, arch, layers, batch, flags, _ in runs:
         cfg = dataclasses.replace(get_config(arch), n_layers=layers)
@@ -1903,7 +1896,6 @@ try:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        ops.swa_attention.launches = 0
         recs = T.main(["--arch", arch, "--preset", "full", "--batch",
                        str(batch), "--seq", seq, "--steps", steps,
                        "--log-every", "1", "--out", d,
@@ -1912,9 +1904,9 @@ try:
                        os.path.join(d, f"rank{rank}.metrics.json"),
                        *flags], cfg=cfg)
         torch.cuda.synchronize()
-        launches = ops.swa_attention.launches
         with open(os.path.join(d, f"rank{rank}.metrics.json")) as f:
             m = json.load(f)
+        launches = m["counters"].get("swa_attention", 0)
         ends = [r["elapsed_s"] for r in recs]
         res[name] = {"losses": [r["loss"] for r in recs],
                      "step_s": [b - a for a, b in zip([0.0] + ends, ends)],

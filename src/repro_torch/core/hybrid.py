@@ -16,6 +16,10 @@ and save only (params, segment input), so composing per-segment applies
 *is* checkpointing.  Truncating the per-segment depth L is what shrinks the
 halo growth / boundary skew and admits a larger N — the paper's Table I
 effect.
+
+Each segment's forward runs inside a ``segment`` range
+(:func:`repro_torch.obs.profile_range`) whose attributes are the
+segment's index, strategy and row count.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from typing import List, Sequence, Tuple
 
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import obs
 from repro_torch.core import overlap as _ov
 from repro_torch.core import twophase as _tp
 from repro_torch.models.cnn.layers import trunk_heights
@@ -102,8 +107,11 @@ def make_hybrid_apply(modules: Sequence, h0: int,
         seg_fns.append((spec, fn))
 
     def apply(params, x):
-        for spec, fn in seg_fns:
-            x = fn(params[spec.start:spec.end], x)
+        for i, (spec, fn) in enumerate(seg_fns):
+            with obs.profile_range("segment", index=i,
+                                   strategy=spec.strategy,
+                                   n_rows=spec.n_rows):
+                x = fn(params[spec.start:spec.end], x)
         return x
 
     return apply

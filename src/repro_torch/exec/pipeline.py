@@ -42,10 +42,9 @@ which is what ``Planner.estimate_staged`` prices.
 
 With an obs session open each ``(stage, row)`` step the forward runs (the
 sweep, and a recompute residency's regeneration) records a ``stage_row``
-span and bumps ``pipeline.stage_rows``, and the last tick records the
-measured bubble fraction of the schedule grid (``(S-1)/(N+S-1)`` for the
-plain fill/drain ramp) as a ``pipeline_bubble`` event and the
-``pipeline.bubble_fraction`` gauge.
+span, and the last tick records the measured bubble fraction of the
+schedule grid (``(S-1)/(N+S-1)`` for the plain fill/drain ramp) as a
+``pipeline_bubble`` event and the ``pipeline.bubble_fraction`` gauge.
 """
 
 from __future__ import annotations
@@ -138,7 +137,6 @@ class _PipelineBase(RowProgram):
             if trace:
                 obs.span("stage_row", tick=t, stage=s, row=r, n_stages=S,
                          n_rows=N)
-                obs.counter("pipeline.stage_rows").inc()
             y = xr if s == 0 else slots[s - 1]
             y = self._stage_apply(params, y, s, r)
             if s == S - 1:

@@ -77,8 +77,12 @@ per row and a ``recompute_chain`` event per regenerated carry — and counts
 policy, so they are the same on CPU tensors, where no bytes move.  The
 reference emits at jit trace time, once per compile; this eager executor
 emits once per executed step.  Every site is guarded by
-:func:`repro_torch.obs.enabled`.  Each recomputed row also runs inside a
-``row_recompute`` profiler range (:func:`repro_torch.obs.profile_range`).
+:func:`repro_torch.obs.counting`: under a capture
+(:func:`repro_torch.obs.profiling`) the counters count there too, and the
+``fp_row`` / ``bp_row`` calls open timed ranges of the same names around
+the row's work (the row index as the ``tick`` attribute).  Each
+recomputed row runs inside a ``row_recompute`` range, and the host
+fetches of a row's carries inside a ``carry_fetch`` range.
 """
 
 from __future__ import annotations
@@ -145,17 +149,19 @@ def rowprog_forward(prog: RowProgram, args, place=None):
     With ``place(carry, r)`` also returns what it makes of the carry
     entering each row, called before that row runs (right after the row
     that produced it)."""
-    trace = obs.enabled()
+    watch = obs.counting()
     carry = tuple(prog.init_carry(args))
     ys, placed = [], []
     for r in range(prog.n_rows):
-        if trace:
-            obs.span("fp_row", tick=r, n_rows=prog.n_rows,
-                     carry_bytes=sum(int(t.nbytes) for t in carry))
+        row = obs.NULL_RANGE
+        if watch:
+            row = obs.span("fp_row", tick=r, n_rows=prog.n_rows,
+                           carry_bytes=sum(int(t.nbytes) for t in carry))
             obs.counter("rowprog.fp_rows").inc()
-        if place is not None:
-            placed.append(place(carry, r))
-        carry, y = prog.row_step(carry, prog.row_args(args, r), r)
+        with row:
+            if place is not None:
+                placed.append(place(carry, r))
+            carry, y = prog.row_step(carry, prog.row_args(args, r), r)
         carry = tuple(carry)
         ys.append(y)
     out = prog.finish(ys)
@@ -201,7 +207,7 @@ class _Placement:
         self.prog, self.res = prog, res
         self.host = None
         #: (row, offloaded bytes, dropped bytes) per placed carry, kept
-        #: for the obs events while a session is open
+        #: for the obs events and counters while obs counts
         self.moved: List[Tuple[int, int, int]] = []
         if not offload_is_noop(device) and (
                 res.default == "host"
@@ -224,7 +230,7 @@ class _Placement:
                 drop += int(leaf.nbytes)
                 leaf = leaf.new_empty((0,))
             out.append(leaf)
-        if (off or drop) and obs.enabled():
+        if (off or drop) and obs.counting():
             self.moved.append((r, off, drop))
         return tuple(out)
 
@@ -245,14 +251,19 @@ class _Placement:
                    zip(saved, self.policies(saved, r)) if p == "host")
 
     def fetch(self, saved, r: int):
-        """Issue the copies of row ``r``'s host leaves; ``(leaves,
-        events)``, other leaves passed through."""
+        """Issue the copies of row ``r``'s host leaves, inside a
+        ``carry_fetch`` range; ``(leaves, events)``, other leaves passed
+        through."""
+        policies = self.policies(saved, r)
+        if self.host is None or "host" not in policies:
+            return list(saved), []
         leaves, events = [], []
-        for leaf, p in zip(saved, self.policies(saved, r)):
-            if p == "host" and self.host is not None:
-                leaf, done = self.host.fetch(leaf)
-                events.append(done)
-            leaves.append(leaf)
+        with obs.profile_range("carry_fetch", row=r):
+            for leaf, p in zip(saved, policies):
+                if p == "host":
+                    leaf, done = self.host.fetch(leaf)
+                    events.append(done)
+                leaves.append(leaf)
         return leaves, events
 
     def ready(self, fetched) -> list:
@@ -269,7 +280,7 @@ class _Placement:
         policies = self.policies(leaves, r)
         if "recompute" not in policies:
             return tuple(leaves)
-        if obs.enabled():
+        if obs.counting():
             obs.event("recompute_chain", tick=r, rows=r)
             obs.counter("rowprog.recompute_rows").inc(r)
         with torch.no_grad(), obs.profile_range("row_recompute"):
@@ -295,7 +306,7 @@ class _RowProgFunction(torch.autograd.Function):
     def forward(ctx, prog, res, *args):
         place = _Placement(prog, res, args[0].device)
         out, ctx.saved = rowprog_forward(prog, args, place.place)
-        if obs.enabled():
+        if obs.counting():
             place.emit_moved()
         ctx.prog, ctx.place = prog, place
         ctx.save_for_backward(*args)
@@ -323,12 +334,12 @@ class _RowProgFunction(torch.autograd.Function):
         g = gouts[-1]
         dcarry = list(gouts[:-1]) if prog.returns_carry else None
         fetched = {}
-        trace = obs.enabled()
+        watch = obs.counting()
         for r in range(prog.n_rows - 1, -1, -1):
             # ahead-of-use fetch of host carries: rows r .. r - depth
             for rr in range(r, max(-1, r - 1 - depth), -1):
                 if rr not in fetched:
-                    if trace and "host" in place.policies(saved[rr], rr):
+                    if watch and "host" in place.policies(saved[rr], rr):
                         nbytes = place.host_bytes(saved[rr], rr)
                         # depth = how many rows ahead of consumption the
                         # copy is issued (0 = demand fetch)
@@ -339,19 +350,22 @@ class _RowProgFunction(torch.autograd.Function):
                     fetched[rr] = place.fetch(saved[rr], rr)
                     saved[rr] = None
             leaves = place.ready(fetched.pop(r))
-            if trace:
-                obs.span("bp_row", tick=r, n_rows=prog.n_rows,
-                         recomputes="recompute" in place.policies(leaves, r))
+            row = obs.NULL_RANGE
+            if watch:
+                row = obs.span("bp_row", tick=r, n_rows=prog.n_rows,
+                               recomputes="recompute"
+                               in place.policies(leaves, r))
                 obs.counter("rowprog.bp_rows").inc()
-            carry_in = place.regenerate(leaves, args, r)
-            row_args = prog.row_args(args, r)
-            if hasattr(prog, "row_vjp"):
-                drow, dcarry = prog.row_vjp(carry_in, row_args, need, g,
-                                            dcarry, r)
-            else:
-                drow, dcarry = _recompute_vjp(prog, carry_in, row_args, need,
-                                              g, dcarry, r)
-            prog.add_row_grad(dargs, drow, r)
+            with row:
+                carry_in = place.regenerate(leaves, args, r)
+                row_args = prog.row_args(args, r)
+                if hasattr(prog, "row_vjp"):
+                    drow, dcarry = prog.row_vjp(carry_in, row_args, need, g,
+                                                dcarry, r)
+                else:
+                    drow, dcarry = _recompute_vjp(prog, carry_in, row_args,
+                                                  need, g, dcarry, r)
+                prog.add_row_grad(dargs, drow, r)
             # release this row's carry and input gradients (now in dargs)
             # before the next row is recomputed
             del drow, row_args, leaves, carry_in

@@ -1,16 +1,20 @@
-"""Public wrappers for the port's kernels, with their launch counters.
+"""Public wrappers for the port's kernels.
 
 Counterpart of ``repro.kernels.ops``.  A wrapper dispatches on where its
 tensors lie: on the CPU it runs the kernel's plain PyTorch version, on a
-CUDA device it launches the hand-written kernel — and adds one to its
-``launches`` counter, which is the only place that counter moves.  There
-is no fallback from a CUDA tensor to the plain version; any other device
-raises.  The reference's interpret-mode policy has no counterpart: where
-a tensor lies decides.
+CUDA device it launches the hand-written kernel inside a range named
+after it (``conv2d_rows``, ``swa_attention``, ``ssd_scan``;
+:func:`repro_torch.obs.profile_range`) and, once the launch returns, adds
+one to the obs counter of the same name, which is the only place that
+counter moves (it counts while an obs session or capture is open).
+There is no fallback from a CUDA tensor to the plain version; any other
+device raises.  The reference's interpret-mode policy has no
+counterpart: where a tensor lies decides.
 """
 
 from __future__ import annotations
 
+from repro_torch import obs
 from repro_torch.kernels import conv2d_rows as _cr
 from repro_torch.kernels import ssd_chunk as _ssd
 from repro_torch.kernels import swa_attention as _swa
@@ -66,42 +70,36 @@ def _device_kind(t, name: str) -> str:
 
 def conv2d(x, w, stride: int = 1, padding: int = 0, block_h: int = 8):
     """NHWC x HWIO -> NHWC row-block convolution: the CUDA kernel for CUDA
-    tensors (counted in ``conv2d.launches``), its plain version for CPU
+    tensors (range and counter ``conv2d_rows``), its plain version for CPU
     tensors."""
     if _device_kind(x, "conv2d") == "cpu":
         return _cr.conv2d_rows_plain(x, w, stride, padding, block_h)
-    y = _cr.conv2d_rows(x, w, stride=stride, padding=padding,
-                        block_h=block_h)
-    conv2d.launches += 1
+    with obs.profile_range("conv2d_rows"):
+        y = _cr.conv2d_rows(x, w, stride=stride, padding=padding,
+                            block_h=block_h)
+    obs.counter("conv2d_rows").inc()
     return y
-
-
-conv2d.launches = 0
 
 
 def swa_attention(q, k, v, window: int, bq: int = 128, bk: int = 128):
     """(B, H, S, D) causal sliding-window attention: the CUDA kernel for
-    CUDA tensors (counted in ``swa_attention.launches``), its plain
-    version for CPU tensors."""
+    CUDA tensors (range and counter ``swa_attention``), its plain version
+    for CPU tensors."""
     if _device_kind(q, "swa_attention") == "cpu":
         return _swa.swa_attention_plain(q, k, v, window, bq, bk)
-    o = _swa.swa_attention(q, k, v, window=window, bq=bq, bk=bk)
-    swa_attention.launches += 1
+    with obs.profile_range("swa_attention"):
+        o = _swa.swa_attention(q, k, v, window=window, bq=bq, bk=bk)
+    obs.counter("swa_attention").inc()
     return o
-
-
-swa_attention.launches = 0
 
 
 def ssd_scan(x, B, C, a, dt, chunk: int = 128):
     """The Mamba2 SSD scan's ``y`` in chunks of ``min(chunk, S)`` rows: the
-    CUDA kernel for CUDA tensors (counted in ``ssd_scan.launches``), its
-    plain version for CPU tensors."""
+    CUDA kernel for CUDA tensors (range and counter ``ssd_scan``, one a
+    call), its plain version for CPU tensors."""
     if _device_kind(x, "ssd_scan") == "cpu":
         return _ssd.ssd_scan_plain(x, B, C, a, dt, chunk)
-    y = _ssd.ssd_scan(x, B, C, a, dt, chunk=chunk)
-    ssd_scan.launches += 1
+    with obs.profile_range("ssd_scan"):
+        y = _ssd.ssd_scan(x, B, C, a, dt, chunk=chunk)
+    obs.counter("ssd_scan").inc()
     return y
-
-
-ssd_scan.launches = 0

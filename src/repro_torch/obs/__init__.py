@@ -17,13 +17,24 @@ shared :data:`~repro_torch.obs.metrics.NULL_METRIC` no-op — so a disabled
 run pays one attribute load and one truthiness check per call site.  The
 port runs eagerly, so where the reference's executor hooks fire once per
 jit trace, the port's fire once per executed step; every hook site is
-guarded by :func:`enabled`, and no hook touches a tensor's values, so a
-step computes the same bits with obs on or off.
+guarded by :func:`counting` (a session or a capture is open), and no
+hook touches a tensor's values, so a step computes the same bits with
+obs on or off.
 
 Registration is one call per layer (see ROADMAP "Observability"):
 the row-program executor, the serve scheduler and the launch CLIs all
 emit into whatever session is active; no plumbing of sink objects
 through call stacks.
+
+The timed side is :func:`profile_range`, the program's one span
+primitive.  While :func:`profiling` runs (the trainer's
+``--torch-profile``, the benchmark's profiled steps) a range opens a
+``torch.profiler.record_function`` and appends a timed record to the
+capture (:mod:`repro_torch.obs.capture`), and counters count into the
+capture as well as into any session; :func:`last_capture` reads the
+capture once it has closed.  Outside one, a range is a shared null
+context.  :func:`span` emits a session's span record and returns the
+range of the same name, so one call serves both.
 """
 
 from __future__ import annotations
@@ -31,6 +42,9 @@ from __future__ import annotations
 import contextlib
 from typing import Optional
 
+import torch
+
+from repro_torch.obs.capture import Capture, Record
 from repro_torch.obs.metrics import (METRICS_SCHEMA, Counter, Gauge, Histogram,
                                MetricsRegistry, NULL_METRIC, merge_counts)
 from repro_torch.obs.trace import TRACE_SCHEMA, Tracer, read_jsonl
@@ -38,9 +52,9 @@ from repro_torch.obs.trace import TRACE_SCHEMA, Tracer, read_jsonl
 __all__ = [
     "configure", "shutdown", "enabled", "session", "capture",
     "emit", "span", "event", "counter", "gauge", "histogram",
-    "profile_range", "profiling",
-    "Tracer", "MetricsRegistry", "Counter", "Gauge", "Histogram",
-    "NULL_METRIC", "merge_counts", "read_jsonl",
+    "profile_range", "profiling", "last_capture", "counting", "NULL_RANGE",
+    "Capture", "Record", "Tracer", "MetricsRegistry", "Counter", "Gauge",
+    "Histogram", "NULL_METRIC", "merge_counts", "read_jsonl",
     "TRACE_SCHEMA", "METRICS_SCHEMA",
 ]
 
@@ -63,9 +77,12 @@ class Session:
 
 #: the one active session, or None (disabled mode)
 _session: Optional[Session] = None
-#: whether a torch.profiler capture is running (set by ``cli.profiled``):
-#: profiler ranges are opened only then
-_profiling = False
+#: the running capture (:func:`profiling`), or None: ranges open only then
+_capture: Optional[Capture] = None
+#: the last capture to close
+_last: Optional[Capture] = None
+#: what :func:`profile_range` returns outside a capture
+NULL_RANGE = contextlib.nullcontext()
 
 
 def configure(trace: Optional[str] = None, metrics: Optional[str] = None,
@@ -88,6 +105,11 @@ def shutdown() -> None:
 
 def enabled() -> bool:
     return _session is not None
+
+
+def counting() -> bool:
+    """Whether counters count anywhere: a session or a capture is open."""
+    return _session is not None or _capture is not None
 
 
 def session() -> Optional[Session]:
@@ -117,17 +139,38 @@ def emit(kind: str, name: str, tick=None, **attrs) -> None:
         s.tracer.emit(kind, name, tick, **attrs)
 
 
-def span(name: str, tick=None, **attrs) -> None:
+def span(name: str, tick=None, **attrs):
+    """Emit a span record into the session, and return
+    :func:`profile_range` of the same name and attributes, for the work
+    the span stands for."""
     emit("span", name, tick, **attrs)
+    return profile_range(name, tick=tick, **attrs)
 
 
 def event(name: str, tick=None, **attrs) -> None:
     emit("event", name, tick, **attrs)
 
 
+class _Both:
+    """A counter of the session and the same-named one of the capture."""
+
+    __slots__ = ("a", "b")
+
+    def __init__(self, a: Counter, b: Counter):
+        self.a, self.b = a, b
+
+    def inc(self, n: int = 1) -> None:
+        self.a.inc(n)
+        self.b.inc(n)
+
+
 def counter(name: str):
-    s = _session
-    return NULL_METRIC if s is None else s.metrics.counter(name)
+    s, c = _session, _capture
+    if c is None:
+        return NULL_METRIC if s is None else s.metrics.counter(name)
+    if s is None:
+        return c.metrics.counter(name)
+    return _Both(s.metrics.counter(name), c.metrics.counter(name))
 
 
 def gauge(name: str):
@@ -141,25 +184,38 @@ def histogram(name: str):
 
 
 @contextlib.contextmanager
-def profiling():
-    """Mark a torch.profiler capture as running for its extent, so
-    :func:`profile_range` names ranges inside it."""
-    global _profiling
-    _profiling = True
+def profiling(device=None):
+    """Open a :class:`Capture` for the block's extent (yielded; kept for
+    :func:`last_capture` once closed): :func:`profile_range` records into
+    it, and names its ranges to a running ``torch.profiler``.  Device
+    times are recorded where there is a card and ``device`` is a CUDA
+    device or None."""
+    global _capture, _last
+    cuda = torch.cuda.is_available() and (
+        device is None or torch.device(device).type == "cuda")
+    prev, cap = _capture, Capture(cuda=cuda)
+    _capture = cap
     try:
-        yield
+        yield cap
     finally:
-        _profiling = False
+        _capture = prev
+        cap.close()
+        _last = cap
 
 
-def profile_range(name: str):
-    """``torch.profiler.record_function(name)`` while a profiler capture
-    runs (:func:`profiling`), so a profiled run's Chrome trace names the
-    range (a train step and its phases, a recomputed row); a no-op context
-    otherwise, so a traced run without ``--torch-profile`` pays nothing
-    for it.  The port's addition: the reference's ``jax.profiler`` trace
-    names XLA ops."""
-    if not _profiling:
-        return contextlib.nullcontext()
-    import torch
-    return torch.profiler.record_function(name)
+def last_capture() -> Optional[Capture]:
+    """The last capture to close, or None."""
+    return _last
+
+
+def profile_range(name: str, **attrs):
+    """The program's timed range: while a capture runs (:func:`profiling`)
+    a ``torch.profiler.record_function(name)`` range and a record of the
+    capture with ``attrs`` (indices go there, never into the name);
+    :data:`NULL_RANGE` otherwise, so a run without a capture pays one
+    global check for it.  The port's addition: the reference's
+    ``jax.profiler`` trace names XLA ops."""
+    cap = _capture
+    if cap is None:
+        return NULL_RANGE
+    return cap.range(name, attrs)

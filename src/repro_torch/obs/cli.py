@@ -50,7 +50,10 @@ def profiled(args):
     """torch.profiler capture scoped over the run when --torch-profile is
     set (and obs is on — profiling without a sink to cross-reference
     would be unanchored).  The Chrome trace lands in the directory as
-    ``trace.json``."""
+    ``trace.json``; the program's ranges are recorded in an obs capture
+    too (:func:`repro_torch.obs.profiling`, read by
+    :func:`repro_torch.obs.last_capture`), with device times on the run's
+    ``--device`` where it is a card."""
     out_dir = getattr(args, "torch_profile", "")
     if not (out_dir and obs.enabled()):
         yield
@@ -62,6 +65,7 @@ def profiled(args):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(out_dir, exist_ok=True)
-    with profile(activities=activities) as prof, obs.profiling():
+    with profile(activities=activities) as prof, \
+            obs.profiling(getattr(args, "device", None)):
         yield
     prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))

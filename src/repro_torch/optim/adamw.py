@@ -18,6 +18,8 @@ from typing import Callable, List, Optional
 
 import torch
 
+from repro_torch import obs
+
 
 def tree_leaves(tree) -> List[torch.Tensor]:
     if tree is None:
@@ -125,12 +127,8 @@ def sgd_init(params):
 @torch.no_grad()
 def sgd_update(params, grads, state, cfg: SGDConfig, lr_scale=1.0):
     """L2 weight decay added to the gradient, then momentum:
-    ``v = m*v + (g + wd*p)``, ``p = p - lr*v``."""
-    grads = tree_map(lambda g: g.float(), grads)
-    if cfg.clip_norm > 0:
-        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
-    else:
-        gnorm = global_norm(grads)
+    ``v = m*v + (g + wd*p)``, ``p = p - lr*v``; inside an ``sgd_update``
+    range (:func:`repro_torch.obs.profile_range`)."""
     lr = cfg.lr * lr_scale
 
     def momentum(p, g, v):
@@ -139,8 +137,14 @@ def sgd_update(params, grads, state, cfg: SGDConfig, lr_scale=1.0):
     def descend(p, v):
         return (p.float() - lr * v).to(p.dtype)
 
-    vel = tree_map(momentum, params, grads, state["vel"])
-    new_p = tree_map(descend, params, vel)
+    with obs.profile_range("sgd_update"):
+        grads = tree_map(lambda g: g.float(), grads)
+        if cfg.clip_norm > 0:
+            grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+        else:
+            gnorm = global_norm(grads)
+        vel = tree_map(momentum, params, grads, state["vel"])
+        new_p = tree_map(descend, params, vel)
     return new_p, {"vel": vel}, {"grad_norm": gnorm}
 
 

@@ -16,6 +16,7 @@ from repro.kernels import ops as ref_ops
 from repro.kernels.conv2d_rows import conv2d_rows as ref_conv2d_rows
 from repro.kernels.conv2d_rows import halo_ok as ref_halo_ok
 from repro_torch.kernels import conv2d_rows as cr
+from repro_torch import obs
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import conv2d_ref
 
@@ -48,9 +49,9 @@ def test_plain_matches_pallas_interpret(conv_case):
 def test_wrapper_on_cpu_takes_plain_and_counts_nothing(conv_case):
     H, W, Cin, Cout, k, s, p, bh = conv_case
     x, w = _inputs(conv_case, seed=1)
-    before = ops.conv2d.launches
-    got = ops.conv2d(torch.tensor(x), torch.tensor(w), s, p, bh)
-    assert ops.conv2d.launches == before
+    with obs.profiling() as cap:
+        got = ops.conv2d(torch.tensor(x), torch.tensor(w), s, p, bh)
+    assert cap.count("conv2d_rows") == 0 and not cap.records
     want = conv2d_ref(torch.tensor(x), torch.tensor(w), s, p)
     assert _rel(want.numpy(), got.numpy()) < TOL
 

@@ -27,6 +27,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import obs
+
 #: (H, W, Cin, Cout, k, s, p, block_h): the kernel tests' shared geometry
 #: cases, then VGG-16/224 shapes (ragged H_out % 8 at 14, Cin = 3), then
 #: the 28^2 and 14^2 layers with a ragged Cout (500: 16-byte weight copies,
@@ -71,10 +73,11 @@ def test_kernel_matches_plain(case, cuda_device):
                      device=cuda_device)
     w = torch.tensor(rng.normal(size=(k, k, cin, cout)), dtype=torch.float32,
                      device=cuda_device)
-    before = ops.conv2d.launches
-    got = ops.conv2d(x, w, s, p, bh)
-    torch.cuda.synchronize()
-    assert ops.conv2d.launches == before + 1
+    with obs.profiling() as cap:
+        got = ops.conv2d(x, w, s, p, bh)
+    assert cap.count("conv2d_rows") == 1
+    assert [r.name for r in cap.records] == ["conv2d_rows"]
+    assert cap.records[0].device_ns[1] >= cap.records[0].device_ns[0]
     want = cr.conv2d_rows_plain(x, w, s, p, bh)
     assert got.shape == want.shape
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
@@ -113,12 +116,12 @@ def test_overlap_cuda_matches_base(cuda_device):
         apply = build_apply(mods, plan)
         p = [{k: v.detach().clone().requires_grad_() for k, v in d.items()}
              for d in params["trunk"]]
-        before = ops.conv2d.launches
-        loss = head_apply(params["head"], apply(p, x)).square().sum()
-        loss.backward()
+        with obs.profiling() as cap:
+            loss = head_apply(params["head"], apply(p, x)).square().sum()
+            loss.backward()
         results[engine] = (loss.item(), [v.grad for d in p
                                          for v in d.values()],
-                           ops.conv2d.launches - before)
+                           cap.count("conv2d_rows"))
     (lb, gb, nb), (lk, gk, nk) = results["base"], results["overlap_cuda"]
     assert nb == 0 and nk == 7  # one launch per conv, none in backward
     assert abs(lb - lk) / abs(lb) < 1e-5
@@ -176,10 +179,9 @@ def test_swa_kernel_matches_plain(case, dtype, cuda_device):
     if launch_problem(min(bq, S), min(bk, S), D, dtype.itemsize):
         bk = 64  # fp32 at D=256: the planner retiles the same way
     q, k, v = _swa_inputs(S, D, dtype, cuda_device)
-    before = ops.swa_attention.launches
-    got = ops.swa_attention(q, k, v, window, bq, bk)
-    torch.cuda.synchronize()
-    assert ops.swa_attention.launches == before + 1
+    with obs.profiling() as cap:
+        got = ops.swa_attention(q, k, v, window, bq, bk)
+    assert cap.count("swa_attention") == 1
     assert got.stride() == q.stride()
     want = swa_attention_plain(q, k, v, window, bq, bk)
     atol = rtol = 2e-5 if dtype == torch.float32 else 2e-2
@@ -200,10 +202,9 @@ def test_swa_each_instantiation_launches_and_matches(D, dtype, cuda_device):
     from repro_torch.kernels.swa_attention import swa_attention_plain
     S, window, bq, bk = 512, 200, 128, 64
     q, k, v = _swa_inputs(S, D, dtype, cuda_device, B=2, H=2, seed=D)
-    before = ops.swa_attention.launches
-    got = ops.swa_attention(q, k, v, window, bq, bk)
-    torch.cuda.synchronize()
-    assert ops.swa_attention.launches == before + 1
+    with obs.profiling() as cap:
+        got = ops.swa_attention(q, k, v, window, bq, bk)
+    assert cap.count("swa_attention") == 1
     want = swa_attention_plain(q, k, v, window, bq, bk)
     atol, rtol = (2e-5, 2e-5) if dtype == torch.float32 \
         else SWA_GEMMA_BF16_TOL
@@ -225,10 +226,9 @@ def _ssd_inputs(Bt, S, H, P, N, device, seed=1):
 def _ssd_check(ins, chunk):
     from repro_torch.kernels import ops
     from repro_torch.kernels.ssd_chunk import ssd_scan_plain
-    before = ops.ssd_scan.launches
-    got = ops.ssd_scan(*ins, chunk=chunk)
-    torch.cuda.synchronize()
-    assert ops.ssd_scan.launches == before + 1
+    with obs.profiling() as cap:
+        got = ops.ssd_scan(*ins, chunk=chunk)
+    assert cap.count("ssd_scan") == 1
     want = ssd_scan_plain(*ins, chunk=chunk)
     assert bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) <= 1e-3
@@ -290,10 +290,10 @@ def test_ssd_kernel_no_nan_at_tiny_decay(cuda_device):
 def test_ssd_kernel_raises_when_chunk_does_not_divide(cuda_device):
     from repro_torch.kernels import ops
     ins = _ssd_inputs(1, 96, 2, 32, 16, cuda_device)
-    before = ops.ssd_scan.launches
-    with pytest.raises(ValueError, match="does not divide"):
+    with obs.profiling() as cap, \
+            pytest.raises(ValueError, match="does not divide"):
         ops.ssd_scan(*ins, chunk=64)
-    assert ops.ssd_scan.launches == before
+    assert cap.count("ssd_scan") == 0
 
 
 @pytest.mark.requires_cuda
@@ -359,13 +359,13 @@ def test_cuda_engine_on_plain_spec_still_launches(engine, cuda_device):
         plan = ExecutionPlan.explicit(engine, 2, in_shape=shape, kernel=spec)
         args = (params["trunk"], torch.randn((2,) + shape,
                                              device=cuda_device))
-        counter, want = ops.conv2d, 7
+        counter, want = "conv2d_rows", 7
     elif engine == "seq_swa_cuda":
         mods = None
         plan = ExecutionPlan.explicit(engine, kernel=spec, window=64)
         args = [t.transpose(1, 2) for t in
                 _swa_inputs(256, 64, torch.bfloat16, cuda_device)]
-        counter, want = ops.swa_attention, 1
+        counter, want = "swa_attention", 1
     else:
         mods = None
         plan = ExecutionPlan.explicit(engine, kernel=spec)
@@ -373,11 +373,10 @@ def test_cuda_engine_on_plain_spec_still_launches(engine, cuda_device):
         bc = torch.randn(1, 64, 4, device=cuda_device)
         dt = torch.rand(1, 64, 2, device=cuda_device)
         args = (x, bc, bc, torch.exp(-dt), dt)
-        counter, want = ops.ssd_scan, 1
-    before = counter.launches
-    out = build_apply(mods, plan)(*args)
-    torch.cuda.synchronize()
-    assert counter.launches == before + want
+        counter, want = "ssd_scan", 1
+    with obs.profiling() as cap:
+        out = build_apply(mods, plan)(*args)
+    assert cap.count(counter) == want
     assert bool(torch.isfinite(out.float()).all())
 
 
@@ -518,10 +517,10 @@ def test_autotune_winner_launches_its_kernel(kind, cuda_device):
         assert tuned.engine == "overlap_cuda" and tuned.get("autotune_us")
         params, _ = init_trunk(mods, torch.Generator().manual_seed(0),
                                (32, 32, 3), device=cuda_device)
-        before = ops.conv2d.launches
-        build_apply(mods, tuned)(params, torch.ones(2, 32, 32, 3,
-                                                    device=cuda_device))
-        assert ops.conv2d.launches > before
+        with obs.profiling() as cap:
+            build_apply(mods, tuned)(params, torch.ones(2, 32, 32, 3,
+                                                        device=cuda_device))
+        assert cap.count("conv2d_rows") > 0
         return
     if kind == "swa":
         q, k, v = _swa_inputs(256, 64, torch.bfloat16, cuda_device)
@@ -530,7 +529,7 @@ def test_autotune_winner_launches_its_kernel(kind, cuda_device):
         plan = dataclasses.replace(plan, dtype_bytes=2)
         run = lambda c: ops.swa_attention(  # noqa: E731
             q, k, v, 64, bq=c.kernel.bq, bk=c.kernel.bk)
-        counter = ops.swa_attention
+        counter = "swa_attention"
     else:
         g = torch.Generator().manual_seed(0)
         x = torch.randn((1, 256, 4, 16), generator=g).to(cuda_device)
@@ -540,14 +539,13 @@ def test_autotune_winner_launches_its_kernel(kind, cuda_device):
         plan = ExecutionPlan.explicit("seq_ssd_cuda", seq=256, ssm_state=8)
         run = lambda c: ops.ssd_scan(  # noqa: E731
             x, bc, bc, a, dt, chunk=c.kernel.chunk)
-        counter = ops.ssd_scan
+        counter = "ssd_scan"
     tuned = planner.autotune_kernel(
         plan, time_fn=lambda c: _time_us(lambda: run(c)))
     assert tuned.engine.endswith("_cuda") and tuned.get("autotune")
-    before = counter.launches
-    run(tuned)
-    torch.cuda.synchronize()
-    assert counter.launches == before + 1
+    with obs.profiling() as cap:
+        run(tuned)
+    assert cap.count(counter) == 1
 
 
 def _recurrent_fwd_bwd(device, arch, policy):

@@ -20,6 +20,7 @@ from repro.models.cnn.vgg import head_apply as ref_head_apply
 from repro.models.cnn.vgg import vgg16_modules as ref_vgg16_modules
 from repro_torch.core.overlap import plan_overlap
 from repro_torch.exec import ExecutionPlan, MeshSpec, ResidencySpec, build_apply
+from repro_torch import obs
 from repro_torch.kernels import ops
 from repro_torch.optim.adamw import tree_leaves
 from repro_torch.models.cnn.vgg import (
@@ -122,11 +123,12 @@ def test_overlap_matches_reference(n_fp, n_bp):
 
 def test_overlap_cuda_on_cpu_is_plain_and_launches_nothing():
     from repro_torch.exec import KernelSpec
-    before = ops.conv2d.launches
     plan = ExecutionPlan.explicit("overlap_cuda", 4, in_shape=SHAPE,
                                   kernel=KernelSpec(backend="cuda"))
-    _assert_close(_ref("column"), _port_loss_and_grads(plan))
-    assert ops.conv2d.launches == before
+    with obs.profiling() as cap:
+        _assert_close(_ref("column"), _port_loss_and_grads(plan))
+    assert cap.count("conv2d_rows") == 0
+    assert "conv2d_rows" not in {r.name for r in cap.records}
 
 
 @pytest.mark.parametrize("n_rows", [1, 2, 3, 4])

@@ -31,6 +31,7 @@ from repro.models.lm import mlp as ref_mlp
 from repro.models.lm import model as ref_model
 from repro_torch.configs import get_reduced
 from repro_torch.exec import Planner, build_apply
+from repro_torch import obs
 from repro_torch.kernels import ops
 from repro_torch.models.lm import attention, common, mlp, model
 from repro_torch.models.lm.blocks import attn_dims
@@ -162,11 +163,13 @@ def test_lm_loss_and_grads(row_chunks, mode):
     for t in leaves:
         t.requires_grad_()
     tokens, labels = _batch()
-    before = ops.swa_attention.launches
-    loss, aux = loss_fn(params, {"tokens": torch.tensor(tokens),
-                                 "labels": torch.tensor(labels)})
-    grads = torch.autograd.grad(loss, leaves)
-    assert ops.swa_attention.launches == before  # CPU tensors: no launch
+    with obs.profiling() as cap:
+        loss, aux = loss_fn(params, {"tokens": torch.tensor(tokens),
+                                     "labels": torch.tensor(labels)})
+        grads = torch.autograd.grad(loss, leaves)
+    # CPU tensors: no launch, no kernel range
+    assert cap.count("swa_attention") == 0
+    assert "swa_attention" not in {r.name for r in cap.records}
     assert abs(loss.item() - want_loss) / abs(want_loss) < 1e-5
     assert abs(aux["ce"].item() - want_ce) / abs(want_ce) < 1e-5
     for w, g in zip(want_grads, grads):

@@ -24,6 +24,7 @@ from repro.kernels.ref import ssd_scan_ref as jax_ssd_ref
 from repro.kernels.ssd_chunk import ssd_scan as jax_ssd
 from repro_torch.exec import ExecutionPlan, KernelSpec, get_engine
 from repro_torch.exec.planner import kernelize_plan
+from repro_torch import obs
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_chunk
 from repro_torch.kernels.ref import ssd_scan_ref
@@ -48,9 +49,10 @@ def _rel(a, b):
 def test_plain_matches_pallas_interpret(ssd_case):
     Bt, S, H, P, N, chunk = ssd_case
     arrs = _inputs(Bt, S, H, P, N)
-    before = ops.ssd_scan.launches
-    got = ops.ssd_scan(*(torch.tensor(a) for a in arrs), chunk=chunk)
-    assert ops.ssd_scan.launches == before  # CPU: plain, no launch
+    with obs.profiling() as cap:
+        got = ops.ssd_scan(*(torch.tensor(a) for a in arrs), chunk=chunk)
+    # CPU: plain, no launch, no kernel range
+    assert cap.count("ssd_scan") == 0 and not cap.records
     want = jax_ssd(*(jnp.asarray(a) for a in arrs), chunk=chunk,
                    interpret=True)
     assert _rel(want, got.numpy()) < 1e-5

@@ -17,6 +17,7 @@ import torch
 from repro.kernels import ops as ref_ops
 from repro.kernels.ref import swa_attention_ref as jax_swa_ref
 from repro.kernels.swa_attention import swa_attention as jax_swa
+from repro_torch import obs
 from repro_torch.kernels import ops
 from repro_torch.kernels import swa_attention as sw
 from repro_torch.kernels.ref import swa_attention_ref
@@ -46,9 +47,10 @@ def test_plain_matches_pallas_interpret_and_oracle(swa_case, dtype):
     arrs = _inputs(S, D)
     jq, jk, jv = (jnp.asarray(a).astype(jdt) for a in arrs)
     tq, tk, tv = (torch.tensor(a).to(tdt) for a in arrs)
-    before = ops.swa_attention.launches
-    got = ops.swa_attention(tq, tk, tv, window, bq, bk)
-    assert ops.swa_attention.launches == before  # CPU: plain, no launch
+    with obs.profiling() as cap:
+        got = ops.swa_attention(tq, tk, tv, window, bq, bk)
+    # CPU: plain, no launch, no kernel range
+    assert cap.count("swa_attention") == 0 and not cap.records
     assert got.dtype == tdt
     got = got.float().numpy()
     pallas = jax_swa(jq, jk, jv, window=window, bq=bq, bk=bk,
