@@ -26,7 +26,7 @@ and every other module through its plain ``apply``.  As in the reference,
 the trunk runs column-centric: the row tiling is inside the kernel.
 
 The kernel is forward-only.  Its backward pass is the gradient of the
-plain convolution (``aten.convolution_backward`` on NCHW views), wrapped
+plain convolution (``layers.conv_backward`` on NCHW views), wrapped
 in a ``torch.autograd.Function`` — the reference does the same with the
 lax VJP — so loss and grads match the ``base`` engine.
 
@@ -48,7 +48,7 @@ from repro_torch.exec.registry import register_engine
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ssd_scan_ref, swa_attention_ref
 from repro_torch.kernels.conv2d_rows import halo_ok, smem_bytes
-from repro_torch.models.cnn.layers import Conv
+from repro_torch.models.cnn.layers import Conv, conv_backward
 
 
 def plan_kernel(plan: ExecutionPlan) -> KernelSpec:
@@ -99,11 +99,10 @@ class _KernelConv(torch.autograd.Function):
         x, w = ctx.saved_tensors
         m = ctx.m
         need_x, need_w, need_b = ctx.needs_input_grad[:3]
-        gx, gw, gb = torch.ops.aten.convolution_backward(
+        gx, gw, gb = conv_backward(
             g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2),
-            w.permute(3, 2, 0, 1), [w.shape[3]] if need_b else None,
-            [m.s, m.s], [m.p, m.p], [1, 1], False, [0, 0], 1,
-            [need_x, need_w, need_b])
+            w.permute(3, 2, 0, 1), m.s, (m.p, m.p),
+            (need_x, need_w, need_b))
         return (gx.permute(0, 2, 3, 1) if need_x else None,
                 gw.permute(2, 3, 1, 0) if need_w else None,
                 gb if need_b else None, None, None)

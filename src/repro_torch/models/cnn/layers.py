@@ -19,7 +19,9 @@ mode's asymmetric H padding (``pad_for_slice``) by dropping output rows
 where it can (see ``Conv._conv``), the pool by an explicit ``-inf``
 ``F.pad``.  The pool's backward re-derives the argmax from its saved input
 (:class:`_MaxPool2d`) instead of keeping autograd's int64 indices from the
-forward, as the reference's XLA VJP keeps none.
+forward, as the reference's XLA VJP keeps none.  A conv whose input or
+output exceeds :data:`DGRAD_SPLIT_BYTES` computes its data gradient in
+batch chunks (:func:`conv_backward`).
 
 Norm note (as in the reference): ``BatchNorm`` normalises with the running
 statistics held in the parameter tree, so row-centric and column-centric
@@ -39,6 +41,7 @@ import torch.nn.functional as F
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.convmath import (
     Geometry, Interval, backward_intervals, interval_union,
 )
@@ -59,6 +62,116 @@ def _nhwc(x):
 
 def _slice_rows(y, off: int, n: int):
     return y[:, off:off + n]
+
+
+# ---------------------------------------------------------------------------
+# Convolution backward with a batch-split data gradient
+# ---------------------------------------------------------------------------
+
+#: Tensor bytes (the conv's input or output) above which its data gradient
+#: runs in batch chunks.  cuDNN's fast dgrads (FFT, implicit GEMM) want a
+#: workspace of 2-4.5x the tensor.  Where its allocation fails, PyTorch
+#: tries the next engine and keeps for the shape the first that runs; the
+#: last, ``dgrad2d_grouped_direct_kernel``, needs none and runs at ~2.3
+#: TFLOP/s.  In VGG-16's 2PS N=2 step at batch 768, conv1_2's row-0 dgrad
+#: (9.56 GB in and out) asked for 17.2-18.0 GB eight times with 6.0 GB
+#: free and fell back: 5.7 s of an 8.5 s step.  Its row-0 convs of 2.25-4.76
+#: GB got their 6-11 GB there; the limit splits them too, as a margin for
+#: a step with less memory free, at ~9 % of their dgrad time where memory
+#: is ample.  The bytes stand for the workspace, since the forward, which
+#: picks the path, cannot see the memory free at the backward.  The b64
+#: and b256 training steps' largest tensor is 0.82 GB.  (tools/conv_dgrad.py
+#: and an out-of-memory observer on that step; NVIDIA H100 80GB HBM3,
+#: 700 W, cuDNN 9.22.)
+DGRAD_SPLIT_BYTES = 2 ** 31
+#: Most bytes of the larger of a chunk's input and output.  Every chunk
+#: holds a power of two of images (cuDNN picks slow engines for some odd
+#: counts): the largest that fits, and a remainder in its binary digits.
+#: At 1 GiB the six split convs of that step take 209 ms in chunks against
+#: 192 ms in one call each, with 1.8-3.7 GB of workspace a chunk; at
+#: 256 MiB, 318 ms (conv1_2 and conv2_1 drop to implicit-GEMM engines).
+DGRAD_CHUNK_BYTES = 2 ** 30
+
+
+def _pow2_floor(n: int) -> int:
+    return 1 << max(0, n.bit_length() - 1)
+
+
+def _splits_dgrad(x, out_bytes: int) -> bool:
+    return x.shape[0] > 1 and max(x.numel() * x.element_size(),
+                                  out_bytes) > DGRAD_SPLIT_BYTES
+
+
+def conv_backward(g, x, w, stride: int, padding, need):
+    """``(dx, dw, db)`` of ``F.conv2d(x, w, b, stride, padding)`` against
+    ``g`` (NCHW views; ``need``: which of x, w, b want a gradient, the
+    others come back None).
+
+    One ``aten.convolution_backward``, as autograd's
+    ``ConvolutionBackward0`` issues it, unless ``x`` needs a gradient, the
+    batch is above 1 and ``x`` or ``g`` exceeds :data:`DGRAD_SPLIT_BYTES`.
+    Then the weight and bias gradients are still one call over the whole
+    batch, and ``dx``, an NHWC buffer, is filled chunk by chunk along the
+    batch, each chunk an input-gradient call on a power of two of images
+    within :data:`DGRAD_CHUNK_BYTES` (counter ``conv.dgrad_chunks``, range
+    ``conv_dgrad_split``): an image's data gradient depends on that image
+    alone."""
+    padding = list(padding)
+    args = ([stride, stride], padding, [1, 1], False, [0, 0], 1)
+    bias = [w.shape[0]] if need[2] else None
+    if not (need[0] and _splits_dgrad(x, g.numel() * g.element_size())):
+        return torch.ops.aten.convolution_backward(g, x, w, bias, *args,
+                                                   list(need))
+    with obs.profile_range("conv_dgrad_split"):
+        _, dw, db = torch.ops.aten.convolution_backward(
+            g, x, w, bias, *args, [False, need[1], need[2]]) \
+            if need[1] or need[2] else (None, None, None)
+        n, c, h, wd = x.shape
+        dx = x.new_empty((n, h, wd, c)).permute(0, 3, 1, 2)
+        per_image = max(x[0].numel(), g[0].numel()) * x.element_size()
+        step = _pow2_floor(DGRAD_CHUNK_BYTES // per_image)
+        i = 0
+        while i < n:
+            k = min(step, _pow2_floor(n - i))
+            dx[i:i + k].copy_(torch.ops.aten.convolution_backward(
+                g[i:i + k], x[i:i + k], w, None, *args,
+                [True, False, False])[0])
+            i += k
+            obs.counter("conv.dgrad_chunks").inc()
+    return dx, dw, db
+
+
+class _Conv2d(torch.autograd.Function):
+    """``F.conv2d`` on NCHW views whose backward is :func:`conv_backward`;
+    it saves what ``ConvolutionBackward0`` saves, the input and the
+    weight."""
+
+    @staticmethod
+    def forward(ctx, xc, w, b, stride: int, padding):
+        ctx.save_for_backward(xc, w)
+        ctx.stride, ctx.padding = stride, padding
+        return F.conv2d(xc, w, b, stride=stride, padding=padding)
+
+    @staticmethod
+    def backward(ctx, g):
+        xc, w = ctx.saved_tensors
+        dx, dw, db = conv_backward(g, xc, w, ctx.stride, ctx.padding,
+                                   ctx.needs_input_grad[:3])
+        return dx, dw, db, None, None
+
+
+def _conv2d(xc, w, b, stride: int, padding):
+    """``F.conv2d(xc, w, b, stride, padding)`` (``padding`` an (H, W)
+    pair); where autograd will want the input's gradient and
+    :func:`conv_backward` would split it, through :class:`_Conv2d`."""
+    if torch.is_grad_enabled() and xc.requires_grad:
+        n, _, h, wd = xc.shape
+        k = w.shape[-1]
+        ho = (h + 2 * padding[0] - k) // stride + 1
+        wo = (wd + 2 * padding[1] - k) // stride + 1
+        if _splits_dgrad(xc, n * w.shape[0] * ho * wo * xc.element_size()):
+            return _Conv2d.apply(xc, w, b, stride, padding)
+    return F.conv2d(xc, w, b, stride=stride, padding=padding)
 
 
 # ---------------------------------------------------------------------------
@@ -111,10 +224,10 @@ class Conv:
         b = params.get("b") if self.bias else None
         shift, rem = divmod(self.p - pad_h[0], self.s)
         if rem == 0:
-            y = F.conv2d(xc, w, b, stride=self.s, padding=self.p)
+            y = _conv2d(xc, w, b, self.s, (self.p, self.p))
             return _nhwc(y)[:, shift:]
         xc = F.pad(xc, (0, 0, pad_h[0], pad_h[1]))
-        return _nhwc(F.conv2d(xc, w, b, stride=self.s, padding=(0, self.p)))
+        return _nhwc(_conv2d(xc, w, b, self.s, (0, self.p)))
 
     def apply(self, params, x):
         return self._conv(params, x, (self.p, self.p))

@@ -129,6 +129,37 @@ def test_overlap_cuda_matches_base(cuda_device):
         assert float((a - b).abs().max()) <= 1e-5 * float(a.abs().max())
 
 
+@pytest.mark.requires_cuda
+def test_split_dgrad_at_the_budget_cells_conv2_2(cuda_device):
+    """conv2_2's input on row 0 of VGG-16's 2PS N=2 at batch 768 (768 x 128
+    x 107 x 112 fp32, NHWC: 4.7 GB) is over ``DGRAD_SPLIT_BYTES``: its data
+    gradient in chunks of 128 images agrees with one cuDNN call within 1e-5
+    relative, the weight gradient is that call's, and the counter counts
+    the six chunk calls."""
+    from repro_torch.models.cnn import layers
+    n, c, h, w = 768, 128, 107, 112
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+
+    def nhwc(ch):
+        return torch.randn((n, h, w, ch), device=cuda_device,
+                           generator=gen).permute(0, 3, 1, 2)
+
+    x, g = nhwc(c), nhwc(c)
+    wt = torch.randn((3, 3, c, c), device=cuda_device, generator=gen) \
+        .mul_((2.0 / (9 * c)) ** 0.5).permute(3, 2, 0, 1)
+    with obs.capture() as s:
+        dx, dw, db = layers.conv_backward(g, x, wt, 1, (1, 1),
+                                          (True, True, False))
+    torch.cuda.synchronize()
+    assert db is None
+    assert s.metrics.counter("conv.dgrad_chunks").value == 6
+    one, dw1, _ = torch.ops.aten.convolution_backward(
+        g, x, wt, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+        [True, True, False])
+    for a, b in ((one, dx), (dw1, dw)):
+        assert float((a - b).abs().max()) <= 1e-5 * float(a.abs().max())
+
+
 #: (S, D, window, bq, bk): the kernel tests' shared SWA cases, then
 #: Gemma-3 4B's local layers (D 256, window 1024) at the plan's tiles
 SWA_CASES = [

@@ -13,6 +13,7 @@ import torch
 from repro.core import convmath as ref_cm
 from repro.models.cnn import layers as ref_layers
 from repro.models.cnn.vgg import vgg16_modules as ref_vgg16_modules
+from repro_torch import obs
 from repro_torch.core import convmath as pt_cm
 from repro_torch.models.cnn import layers as pt_layers
 from repro_torch.models.cnn.vgg import vgg16_modules as pt_vgg16_modules
@@ -232,3 +233,134 @@ def test_vgg_trunk_saves_no_int64_tensor():
     with saved_tensors_hooks(pack, lambda t: t):
         apply_trunk(mods, params, x).sum().backward()
     assert dtypes and set(dtypes) == {torch.float32}
+
+
+# -- the batch-split data gradient (layers.conv_backward) -------------------
+
+def _graph_names(t):
+    names, todo, seen = set(), [t.grad_fn], set()
+    while todo:
+        f = todo.pop()
+        if f is None or f in seen:
+            continue
+        seen.add(f)
+        names.add(f.name())
+        todo += [n for n, _ in f.next_functions]
+    return names
+
+
+def _conv_grads(m, p, x_full, rows, pad_h, g_seed=3):
+    """``m._conv`` on rows ``rows`` of ``x_full`` (an H-slice of NHWC) and
+    its gradients against a fixed cotangent, under a counting session."""
+    xb = x_full.clone().requires_grad_()
+    pp = {k: v.clone().requires_grad_() for k, v in p.items()}
+    with obs.capture() as s:
+        y = m._conv(pp, xb[:, rows[0]:rows[1]], pad_h)
+        g = torch.randn(y.shape, generator=torch.Generator().manual_seed(
+            g_seed))
+        (y * g).sum().backward()
+    return ([xb.grad, pp["w"].grad] + ([pp["b"].grad] if "b" in pp else []),
+            _graph_names(y), s.metrics.counter("conv.dgrad_chunks").value)
+
+
+def _split_rel(a, b):
+    return float((a - b).abs().max()) / max(float(a.abs().max()), 1e-30)
+
+
+#: (stride, pad_h, bias, rows of the 13-row input the conv reads): the
+#: ``rem == 0`` branch of ``Conv._conv`` (stride 1, or stride 2 with an even
+#: top shift) and its ``F.pad`` branch (stride 2, odd shift); whole and
+#: H-sliced inputs
+SPLIT_CASES = [(1, (1, 1), True, (0, 13)), (1, (0, 1), False, (2, 11)),
+               (1, (1, 0), True, (3, 13)), (2, (1, 1), False, (0, 13)),
+               (2, (1, 1), True, (2, 11)), (2, (0, 1), True, (0, 13)),
+               (2, (0, 1), False, (2, 11)), (2, (0, 0), True, (1, 12))]
+
+
+@pytest.mark.parametrize("s,pad_h,bias,rows", SPLIT_CASES)
+def test_split_dgrad_matches_autograd(monkeypatch, s, pad_h, bias, rows):
+    """Above ``DGRAD_SPLIT_BYTES`` the conv's backward splits its data
+    gradient into batch chunks (batch 5 in chunks of 2: the last is
+    uneven): dx, dw and db equal ``F.conv2d`` autograd's, and the counter
+    counts the chunk calls; below it the graph is autograd's own."""
+    m = pt_layers.Conv(6, k=3, s=s, p=1, bias=bias)
+    p = m.init(torch.Generator().manual_seed(1), (9, 7, 4), "cpu")
+    if bias:
+        p["b"] = torch.randn(6, generator=torch.Generator().manual_seed(2))
+    x_full = torch.randn(5, 13, 7, 4,
+                         generator=torch.Generator().manual_seed(4))
+    want, names, n = _conv_grads(m, p, x_full, rows, pad_h)
+    assert "ConvolutionBackward0" in names and n == 0
+    assert not any("_Conv2d" in k for k in names)
+    # per image: the conv's input rows (+ an explicit pad in the F.pad
+    # branch) and its output rows, the larger of the two in bytes
+    h = rows[1] - rows[0]
+    if (m.p - pad_h[0]) % s:
+        h += pad_h[0] + pad_h[1]
+    ph = 0 if (m.p - pad_h[0]) % s else 1
+    h_out, w_out = (h + 2 * ph - 3) // s + 1, (7 + 2 - 3) // s + 1
+    per_image = 4 * max(h * 7 * 4, h_out * w_out * 6)
+    monkeypatch.setattr(pt_layers, "DGRAD_SPLIT_BYTES", 0)
+    monkeypatch.setattr(pt_layers, "DGRAD_CHUNK_BYTES", 3 * per_image)
+    got, names, n = _conv_grads(m, p, x_full, rows, pad_h)
+    assert "ConvolutionBackward0" not in names
+    assert any("_Conv2d" in k for k in names)
+    assert n == 3  # chunks of 2, 2, 1
+    assert len(got) == len(want)
+    for a, b in zip(want, got):
+        assert _split_rel(a, b) < 1e-6
+
+
+@pytest.mark.parametrize("split", [False, True])
+def test_kernel_conv_backward_uses_the_split_rule(monkeypatch, split):
+    """``overlap_cuda``'s conv (``_KernelConv``, the kernel's plain version
+    on the CPU) takes its backward from ``conv_backward``: one call below
+    ``DGRAD_SPLIT_BYTES``, chunks above, autograd's gradients either way."""
+    from repro_torch.exec.kernel_engines import _kernel_conv
+    m = pt_layers.Conv(6, k=3, s=1, p=1)
+    p = m.init(torch.Generator().manual_seed(1), (9, 7, 4), "cpu")
+    p["b"] = torch.randn(6, generator=torch.Generator().manual_seed(2))
+    x = torch.randn(5, 9, 7, 4, generator=torch.Generator().manual_seed(4))
+    g = torch.randn(5, 9, 7, 6, generator=torch.Generator().manual_seed(3))
+
+    def grads(fn):
+        xa = x.clone().requires_grad_()
+        pp = {k: v.clone().requires_grad_() for k, v in p.items()}
+        with obs.capture() as s:
+            (fn(pp, xa) * g).sum().backward()
+        return ([xa.grad, pp["w"].grad, pp["b"].grad],
+                s.metrics.counter("conv.dgrad_chunks").value)
+
+    want, _ = grads(m.apply)
+    if split:
+        monkeypatch.setattr(pt_layers, "DGRAD_SPLIT_BYTES", 0)
+        monkeypatch.setattr(pt_layers, "DGRAD_CHUNK_BYTES", 2 * 9 * 7 * 6 * 4)
+    got, n = grads(_kernel_conv(m, 4))
+    assert n == (3 if split else 0)
+    for a, b in zip(want, got):
+        assert _split_rel(a, b) < 1e-6
+
+
+@pytest.mark.parametrize("n,fit,calls", [(7, 4, 3), (11, 8, 3), (12, 8, 2),
+                                         (6, 3, 3)])
+def test_split_dgrad_chunks_are_powers_of_two(monkeypatch, n, fit, calls):
+    """``conv_backward`` cuts a batch of ``n`` into chunks of a power of two
+    of images: as many of the largest within ``fit`` images as the batch
+    holds, then the remainder in its binary digits (7 at 4: 4, 2, 1; 11 at
+    8: 8, 2, 1; 6 at 3: 2, 2, 2).  The data gradient equals one call's."""
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(n, 4, 9, 7, generator=gen)
+    g = torch.randn(n, 6, 9, 7, generator=gen)
+    w = torch.randn(6, 4, 3, 3, generator=gen)
+    want = torch.ops.aten.convolution_backward(
+        g, x, w, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+        [True, True, False])
+    monkeypatch.setattr(pt_layers, "DGRAD_SPLIT_BYTES", 0)
+    monkeypatch.setattr(pt_layers, "DGRAD_CHUNK_BYTES", fit * 6 * 9 * 7 * 4)
+    with obs.capture() as s:
+        got = pt_layers.conv_backward(g, x, w, 1, (1, 1),
+                                      (True, True, False))
+    assert s.metrics.counter("conv.dgrad_chunks").value == calls
+    assert got[2] is None
+    for a, b in zip(want[:2], got[:2]):
+        assert _split_rel(a, b) < 1e-6

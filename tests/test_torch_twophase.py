@@ -308,3 +308,39 @@ def test_reduced_vgg_preset_request_raises_in_both():
     with pytest.raises(ValueError, match="granularity bound"):
         ref_tp.make_twophase_apply(ref_vgg16_modules(c.width_mult), c.image,
                                    2)
+
+
+def test_twophase_split_dgrad_matches_column_path(monkeypatch):
+    """2PS N=2 with ``DGRAD_SPLIT_BYTES`` below some of its row convs'
+    tensors (their data gradients in batch chunks of one image) gives the
+    column path's loss and gradients, and ``conv.dgrad_chunks`` counts one
+    chunk an image for each (row, conv) whose input or output exceeds the
+    limit, from the plan's shapes."""
+    from repro_torch import obs
+    from repro_torch.models.cnn import layers
+    from repro_torch.models.cnn.layers import Conv
+    want = _port_loss_and_grads("vgg", "base", 1, "device", 1)
+    _, pt_m = _mods("vgg")
+    plan = pt_tp.module_boundaries(pt_m, H, 2)
+    sizes, cin = [], 3
+    for l, m in enumerate(pt_m):
+        if isinstance(m, Conv):
+            for r in range(2):  # stride 1, padding 1: out rows = in rows
+                px = (plan.bounds[l][r + 1] - plan.need_lo[l][r]) \
+                    * plan.heights[l] * 4
+                sizes.append(max(px * cin, px * m.cout))
+            cin = m.cout
+    limit = 2 * sorted(sizes)[len(sizes) // 2]  # bytes at batch 2
+    monkeypatch.setattr(layers, "DGRAD_SPLIT_BYTES", limit)
+    monkeypatch.setattr(layers, "DGRAD_CHUNK_BYTES", 1)
+    with obs.capture() as s:
+        loss, grads, gx = _port_loss_and_grads("vgg", "twophase", 2,
+                                               "device", 1)
+    n_split = sum(2 * b > limit for b in sizes)
+    assert 0 < n_split < len(sizes)
+    assert s.metrics.counter("conv.dgrad_chunks").value == 2 * n_split
+    assert abs(loss - want[0]) / abs(want[0]) < TOL
+    assert sorted(grads) == sorted(want[1])
+    for k in grads:
+        assert _rel(want[1][k], grads[k]) < TOL, k
+    assert _rel(want[2], gx) < TOL
