@@ -18,7 +18,7 @@ from repro_torch.exec.plan import PlanRequest
 @dataclasses.dataclass(frozen=True)
 class CNNConfig:
     name: str
-    arch: str              # vgg16 | resnet50
+    arch: str              # vgg16 | resnet50 | convnext_b384
     image: int = 224
     channels: int = 3
     n_classes: int = 10

@@ -272,9 +272,12 @@ def audit_ratio_key(source: str, engine: str, residency: str,
 def _module_fwd_flops(m, sin: Tuple[int, int, int],
                       sout: Tuple[int, int, int], batch: int) -> float:
     h_out, w_out, c_out = sout
+    if hasattr(m, "fwd_flops"):  # a block that counts its own (ConvNeXt)
+        return m.fwd_flops(sin, batch)
     if hasattr(m, "cout") and hasattr(m, "k") and hasattr(m, "init"):
-        # Conv: 2*k*k*Cin MACs per output element
-        return 2.0 * m.k * m.k * sin[2] * c_out * h_out * w_out * batch
+        # Conv: 2*k*k*Cin/groups MACs per output element
+        cin = sin[2] // getattr(m, "groups", 1)
+        return 2.0 * m.k * m.k * cin * c_out * h_out * w_out * batch
     if hasattr(m, "cmid"):
         # Bottleneck: 1x1 reduce at input spatial, 3x3 at output spatial,
         # 1x1 expand (+ projection shortcut when present)

@@ -214,8 +214,8 @@ def _shard_cnn(inner, plan: ExecutionPlan, modules, rebuild):
     split = [False] * len(modules)
     if model is not None:
         m_ext = plan.mesh.model
-        split = [isinstance(m, Conv) and m.cout % m_ext == 0
-                 for m in modules]
+        split = [isinstance(m, Conv) and m.groups == 1
+                 and m.cout % m_ext == 0 for m in modules]
         if any(split):
             inner = rebuild([ColumnParallel(m, model) if s else m
                              for m, s in zip(modules, split)])

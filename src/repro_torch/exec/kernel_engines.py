@@ -66,12 +66,14 @@ def conv_tiles(modules: Sequence, in_shape: Tuple[int, int, int],
     path: yields ``(module, in_shape, out_shape, eligible, smem)`` where
     ``eligible`` is the halo precondition at the spec's clamped block and
     ``smem`` one CTA's shared-memory bytes at that block (``None`` for
-    non-Conv modules).  Shared by the engine (which layers launch the
-    kernel) and the planner (what they cost)."""
+    modules other than a dense ``Conv``: the kernel has no groups, so a
+    depthwise conv, and a block holding one, run their plain ``apply``).
+    Shared by the engine (which layers launch the kernel) and the planner
+    (what they cost)."""
     shape = tuple(in_shape)
     for m in modules:
         out = m.out_shape(shape)
-        if isinstance(unwrap(m), Conv):
+        if isinstance(unwrap(m), Conv) and unwrap(m).groups == 1:
             h_out, w_out, _ = out
             eligible = h_out >= 1 and w_out >= 1 \
                 and halo_ok(m.k, m.s, spec.block_h, h_out)

@@ -1,6 +1,6 @@
 """Training driver (counterpart of ``repro.launch.train``).  Two modes:
 
-* CNN (``--arch vgg16`` or ``resnet50``)::
+* CNN (``--arch vgg16``, ``resnet50`` or ``convnext_b384``)::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch vgg16 \\
         --preset full --steps 3
@@ -129,7 +129,7 @@ from repro_torch.optim.adamw import (
     tree_map,
 )
 
-CNN_ARCHS = ("vgg16", "resnet50")
+CNN_ARCHS = ("vgg16", "resnet50", "convnext_b384")
 #: the reference's CNN learning rate; LMs take AdamW's 3e-4
 CNN_LR, LM_LR = 0.05, 3e-4
 
@@ -225,7 +225,7 @@ def _train_cnn(args, params, device, mesh_spec):
     from repro_torch.data.pipeline import device_put_global
     from repro_torch.exec import Planner, build_apply
     from repro_torch.launch.mesh import build_mesh
-    from repro_torch.models.cnn import resnet, vgg
+    from repro_torch.models.cnn import convnext, resnet, vgg
 
     say = print if _rank() == 0 else (lambda *a, **k: None)
     # the parity the port is held to is fp32 (1e-5): cuDNN convolutions
@@ -237,14 +237,13 @@ def _train_cnn(args, params, device, mesh_spec):
     ccfg = cfgmod.reduced() if args.preset == "reduced" else cfgmod.CONFIG
     shape = (ccfg.image, ccfg.image, ccfg.channels)
     gen = torch.Generator().manual_seed(args.seed)
-    if ccfg.arch == "vgg16":
-        mods, init = vgg.init_vgg16(gen, shape, ccfg.width_mult,
-                                    ccfg.n_classes, device=device)
-        head_apply = vgg.head_apply
-    else:
-        mods, init = resnet.init_resnet50(gen, shape, ccfg.width_mult,
-                                          ccfg.n_classes, device=device)
-        head_apply = resnet.head_apply
+    model = {"vgg16": (vgg.init_vgg16, vgg.head_apply),
+             "resnet50": (resnet.init_resnet50, resnet.head_apply),
+             "convnext_b384": (convnext.init_convnext,
+                               convnext.head_apply)}
+    init_fn, head_apply = model[ccfg.arch]
+    mods, init = init_fn(gen, shape, ccfg.width_mult, ccfg.n_classes,
+                         device=device)
     # the steps replace the tree: a second name for the initial one would
     # keep a parameter-sized copy alive for the whole run
     params = init if params is None else params

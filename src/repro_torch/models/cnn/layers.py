@@ -21,7 +21,9 @@ where it can (see ``Conv._conv``), the pool by an explicit ``-inf``
 (:class:`_MaxPool2d`) instead of keeping autograd's int64 indices from the
 forward, as the reference's XLA VJP keeps none.  A conv whose input or
 output exceeds :data:`DGRAD_SPLIT_BYTES` computes its data gradient in
-batch chunks (:func:`conv_backward`).
+batch chunks (:func:`conv_backward`).  A grouped conv (``DepthwiseConv``,
+ConvNeXt's 7x7) runs inside a ``dwconv`` range, forward and backward, and
+counts its forward calls (``conv.depthwise_calls``).
 
 Norm note (as in the reference): ``BatchNorm`` normalises with the running
 statistics held in the parameter tree, so row-centric and column-centric
@@ -32,9 +34,10 @@ for exact global statistics are :func:`batch_moments` and
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import List, Sequence, Tuple
+from typing import ClassVar, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -102,10 +105,10 @@ def _splits_dgrad(x, out_bytes: int) -> bool:
                                   out_bytes) > DGRAD_SPLIT_BYTES
 
 
-def conv_backward(g, x, w, stride: int, padding, need):
-    """``(dx, dw, db)`` of ``F.conv2d(x, w, b, stride, padding)`` against
-    ``g`` (NCHW views; ``need``: which of x, w, b want a gradient, the
-    others come back None).
+def conv_backward(g, x, w, stride: int, padding, need, groups: int = 1):
+    """``(dx, dw, db)`` of ``F.conv2d(x, w, b, stride, padding, groups)``
+    against ``g`` (NCHW views; ``need``: which of x, w, b want a gradient,
+    the others come back None).
 
     One ``aten.convolution_backward``, as autograd's
     ``ConvolutionBackward0`` issues it, unless ``x`` needs a gradient, the
@@ -117,7 +120,7 @@ def conv_backward(g, x, w, stride: int, padding, need):
     ``conv_dgrad_split``): an image's data gradient depends on that image
     alone."""
     padding = list(padding)
-    args = ([stride, stride], padding, [1, 1], False, [0, 0], 1)
+    args = ([stride, stride], padding, [1, 1], False, [0, 0], groups)
     bias = [w.shape[0]] if need[2] else None
     if not (need[0] and _splits_dgrad(x, g.numel() * g.element_size())):
         return torch.ops.aten.convolution_backward(g, x, w, bias, *args,
@@ -144,26 +147,33 @@ def conv_backward(g, x, w, stride: int, padding, need):
 class _Conv2d(torch.autograd.Function):
     """``F.conv2d`` on NCHW views whose backward is :func:`conv_backward`;
     it saves what ``ConvolutionBackward0`` saves, the input and the
-    weight."""
+    weight.  A grouped conv's backward runs inside a ``dwconv`` range."""
 
     @staticmethod
-    def forward(ctx, xc, w, b, stride: int, padding):
+    def forward(ctx, xc, w, b, stride: int, padding, groups: int = 1):
         ctx.save_for_backward(xc, w)
-        ctx.stride, ctx.padding = stride, padding
-        return F.conv2d(xc, w, b, stride=stride, padding=padding)
+        ctx.stride, ctx.padding, ctx.groups = stride, padding, groups
+        return F.conv2d(xc, w, b, stride=stride, padding=padding,
+                        groups=groups)
 
     @staticmethod
     def backward(ctx, g):
         xc, w = ctx.saved_tensors
-        dx, dw, db = conv_backward(g, xc, w, ctx.stride, ctx.padding,
-                                   ctx.needs_input_grad[:3])
-        return dx, dw, db, None, None
+        rng = obs.profile_range("dwconv", phase="bwd") if ctx.groups > 1 \
+            else contextlib.nullcontext()
+        with rng:
+            dx, dw, db = conv_backward(g, xc, w, ctx.stride, ctx.padding,
+                                       ctx.needs_input_grad[:3], ctx.groups)
+        return dx, dw, db, None, None, None
 
 
-def _conv2d(xc, w, b, stride: int, padding):
-    """``F.conv2d(xc, w, b, stride, padding)`` (``padding`` an (H, W)
-    pair); where autograd will want the input's gradient and
-    :func:`conv_backward` would split it, through :class:`_Conv2d`."""
+def _conv2d(xc, w, b, stride: int, padding, groups: int = 1):
+    """``F.conv2d(xc, w, b, stride, padding, groups)`` (``padding`` an (H,
+    W) pair); where autograd will want the input's gradient and
+    :func:`conv_backward` would split it, through :class:`_Conv2d`.  A
+    grouped conv always goes through :func:`_grouped_conv2d`."""
+    if groups > 1:
+        return _grouped_conv2d(xc, w, b, stride, padding, groups)
     if torch.is_grad_enabled() and xc.requires_grad:
         n, _, h, wd = xc.shape
         k = w.shape[-1]
@@ -174,6 +184,19 @@ def _conv2d(xc, w, b, stride: int, padding):
     return F.conv2d(xc, w, b, stride=stride, padding=padding)
 
 
+def _grouped_conv2d(xc, w, b, stride: int, padding, groups: int):
+    """A grouped conv inside a ``dwconv`` range (phase ``fwd``), counted
+    by ``conv.depthwise_calls``; under autograd through :class:`_Conv2d`,
+    so that its backward has its range too."""
+    obs.counter("conv.depthwise_calls").inc()
+    with obs.profile_range("dwconv", phase="fwd"):
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in (xc, w, b)):
+            return _Conv2d.apply(xc, w, b, stride, padding, groups)
+        return F.conv2d(xc, w, b, stride=stride, padding=padding,
+                        groups=groups)
+
+
 # ---------------------------------------------------------------------------
 # Primitive modules
 # ---------------------------------------------------------------------------
@@ -182,20 +205,23 @@ def _conv2d(xc, w, b, stride: int, padding):
 @dataclasses.dataclass(frozen=True)
 class Conv:
     """2-D convolution, square kernel, symmetric W padding, semi-closed H
-    padding in row mode."""
+    padding in row mode.  ``groups`` splits the channels as ``F.conv2d``
+    does, 1 here (see :class:`DepthwiseConv`); the HWIO weight's I is
+    ``cin // groups``."""
 
     cout: int
     k: int = 3
     s: int = 1
     p: int = 1
     bias: bool = True
+    groups: ClassVar[int] = 1
 
     @property
     def geometry(self) -> Geometry:
         return Geometry(self.k, self.s, self.p)
 
     def init(self, generator, in_shape, device="cuda"):
-        _, _, cin = in_shape
+        cin = in_shape[2] // self.groups
         params = {"w": _he_init(generator, (self.k, self.k, cin, self.cout),
                                 self.k * self.k * cin, device)}
         if self.bias:
@@ -224,10 +250,10 @@ class Conv:
         b = params.get("b") if self.bias else None
         shift, rem = divmod(self.p - pad_h[0], self.s)
         if rem == 0:
-            y = _conv2d(xc, w, b, self.s, (self.p, self.p))
+            y = _conv2d(xc, w, b, self.s, (self.p, self.p), self.groups)
             return _nhwc(y)[:, shift:]
         xc = F.pad(xc, (0, 0, pad_h[0], pad_h[1]))
-        return _nhwc(_conv2d(xc, w, b, self.s, (0, self.p)))
+        return _nhwc(_conv2d(xc, w, b, self.s, (0, self.p), self.groups))
 
     def apply(self, params, x):
         return self._conv(params, x, (self.p, self.p))
@@ -240,6 +266,16 @@ class Conv:
         assert off >= 0 and off + n <= y.shape[1], (off, n, y.shape, iv_in,
                                                     out_iv, h_in)
         return _slice_rows(y, off, n)
+
+
+@dataclasses.dataclass(frozen=True)
+class DepthwiseConv(Conv):
+    """One ``k``x``k`` filter per channel (``groups = cin = cout``), as
+    ConvNeXt's 7x7; HWIO weight ``(k, k, 1, cout)``."""
+
+    @property
+    def groups(self) -> int:
+        return self.cout
 
 
 class _MaxPool2d(torch.autograd.Function):
@@ -355,6 +391,55 @@ class BatchNorm:
                            out_iv[1] - out_iv[0])
 
 
+@dataclasses.dataclass(frozen=True)
+class LayerNorm:
+    """Normalisation over the channels of each pixel (ConvNeXt's
+    ``LayerNorm`` in ``channels_last``): exact per row, as no statistic
+    crosses a pixel."""
+
+    eps: float = 1e-6
+
+    def init(self, generator, in_shape, device="cuda"):
+        c = in_shape[-1]
+        return {"scale": torch.ones(c, device=device),
+                "bias": torch.zeros(c, device=device)}
+
+    def out_shape(self, in_shape):
+        return in_shape
+
+    def in_interval(self, out_iv, h_in):
+        return out_iv
+
+    def apply(self, params, x):
+        return F.layer_norm(x, (x.shape[-1],), params["scale"],
+                            params["bias"], self.eps)
+
+    def apply_row(self, params, x, iv_in, h_in, out_iv):
+        off = out_iv[0] - iv_in[0]
+        return self.apply(params, _slice_rows(x, off, out_iv[1] - out_iv[0]))
+
+
+@dataclasses.dataclass(frozen=True)
+class GELU:
+    """The exact (erf) GELU."""
+
+    def init(self, generator, in_shape, device="cuda"):
+        return {}
+
+    def out_shape(self, in_shape):
+        return in_shape
+
+    def in_interval(self, out_iv, h_in):
+        return out_iv
+
+    def apply(self, params, x):
+        return F.gelu(x)
+
+    def apply_row(self, params, x, iv_in, h_in, out_iv):
+        off = out_iv[0] - iv_in[0]
+        return F.gelu(_slice_rows(x, off, out_iv[1] - out_iv[0]))
+
+
 def batch_moments(x):
     """Per-channel (sum, sumsq, count) over (B, H, W) — mergeable."""
     n = x.shape[0] * x.shape[1] * x.shape[2]
@@ -463,6 +548,76 @@ class Bottleneck:
             off = out_iv[0] - sc_g.first_out_of_slice(sc_iv[0])
             r = _slice_rows(xs, off, out_iv[1] - out_iv[0])
         return torch.relu(y + r)
+
+
+# ---------------------------------------------------------------------------
+# Composite: ConvNeXt block (one halo'd conv, then per-pixel layers)
+# ---------------------------------------------------------------------------
+
+
+#: ConvNeXt's initial layer scale (the paper's 1e-6)
+LAYER_SCALE_INIT = 1e-6
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvNeXtBlock:
+    """ConvNeXt's block (Liu et al., 2022): depthwise ``k``x``k`` conv ->
+    LayerNorm -> 1x1 ``dim -> expansion * dim`` -> GELU -> 1x1 back to
+    ``dim`` -> layer scale ``gamma`` -> residual add.  One trunk module, as
+    a ``Bottleneck`` is: its only halo is the depthwise conv's ``k // 2``
+    rows a side, and the rest works pixel by pixel.  The 1x1 convs are
+    matmuls over the NHWC channels (``F.linear``; weights ``(dim,
+    expansion * dim)`` and back), which need no layout copy.  ``gamma``
+    starts at :data:`LAYER_SCALE_INIT`."""
+
+    dim: int
+    k: int = 7
+    expansion: int = 4
+    eps: float = 1e-6
+
+    def _dw(self) -> DepthwiseConv:
+        return DepthwiseConv(self.dim, k=self.k, s=1, p=self.k // 2)
+
+    def init(self, generator, in_shape, device="cuda"):
+        hidden = self.expansion * self.dim
+
+        def linear(cin, cout):
+            return {"w": _he_init(generator, (cin, cout), cin, device),
+                    "b": torch.zeros(cout, device=device)}
+
+        return {"dw": self._dw().init(generator, in_shape, device),
+                "ln": LayerNorm(self.eps).init(generator, in_shape, device),
+                "pw1": linear(self.dim, hidden),
+                "pw2": linear(hidden, self.dim),
+                "gamma": torch.full((self.dim,), LAYER_SCALE_INIT,
+                                    device=device)}
+
+    def out_shape(self, in_shape):
+        return in_shape
+
+    def in_interval(self, out_iv, h_in):
+        return self._dw().in_interval(out_iv, h_in)
+
+    def _branch(self, params, y):
+        y = LayerNorm(self.eps).apply(params["ln"], y)
+        y = F.gelu(F.linear(y, params["pw1"]["w"].t(), params["pw1"]["b"]))
+        y = F.linear(y, params["pw2"]["w"].t(), params["pw2"]["b"])
+        return y * params["gamma"]
+
+    def apply(self, params, x):
+        return x + self._branch(params, self._dw().apply(params["dw"], x))
+
+    def apply_row(self, params, x, iv_in, h_in, out_iv):
+        y = self._dw().apply_row(params["dw"], x, iv_in, h_in, out_iv)
+        r = _slice_rows(x, out_iv[0] - iv_in[0], out_iv[1] - out_iv[0])
+        return r + self._branch(params, y)
+
+    def fwd_flops(self, in_shape, batch: int) -> float:
+        """Forward FLOPs: the depthwise conv's and the two 1x1 convs'
+        multiply-adds, counted twice."""
+        h, w, c = in_shape
+        return 2.0 * batch * h * w * c * (self.k * self.k
+                                          + 2 * self.expansion * c)
 
 
 # ---------------------------------------------------------------------------

@@ -219,3 +219,56 @@ def test_profiled_on_the_cpu_records_no_device_times(tmp_path):
     cap = obs.last_capture()
     assert [r.name for r in cap.records] == ["r"]
     assert cap.records[0].device_ns is None and cap.idle_lag_ns is None
+
+
+# -- the depthwise convs' ranges and counter ---------------------------------
+
+def _trunk(arch):
+    from repro_torch.models.cnn import convnext, resnet
+    mods = {"convnext": lambda: convnext.convnext_modules(1 / 16,
+                                                          [1, 1, 2, 1]),
+            "vgg16": lambda: vgg16_modules(0.125),
+            "resnet50": lambda: resnet.resnet50_modules(0.125, [1, 1, 1, 1])
+            }[arch]()
+    params, _ = init_trunk(mods, torch.Generator().manual_seed(0),
+                           (IMAGE, IMAGE, 3), device="cpu")
+    return mods, params
+
+
+@pytest.mark.parametrize("engine,n", [("base", 1), ("twophase_h", 2)])
+def test_depthwise_convs_open_their_ranges(engine, n):
+    """Each of the ConvNeXt trunk's depthwise convs opens a ``dwconv``
+    range (``phase`` ``fwd``) around its forward call and counts it in
+    ``conv.depthwise_calls``, and opens one (``bwd``) around its
+    gradient; under 2PS-H the rows' forward and their recomputation
+    each call it."""
+    from repro_torch.models.cnn.layers import ConvNeXtBlock
+    mods, params = _trunk("convnext")
+    plan = Planner(mods, (IMAGE, IMAGE, 3), BATCH).plan(engine, n)
+    with obs.profiling() as cap:
+        _step(mods, params, plan)
+    dw = [r for r in cap.records if r.name == "dwconv"]
+    fwd = [r for r in dw if r.attrs == {"phase": "fwd"}]
+    bwd = [r for r in dw if r.attrs == {"phase": "bwd"}]
+    assert len(fwd) + len(bwd) == len(dw)
+    assert cap.count("conv.depthwise_calls") == len(fwd)
+    blocks = sum(isinstance(m, ConvNeXtBlock) for m in mods)
+    if engine == "base":
+        assert len(fwd) == len(bwd) == blocks
+    else:  # each row runs forward, then again under the recomputation
+        rows = sum(n_r * sum(isinstance(m, ConvNeXtBlock)
+                             for m in mods[a:b])
+                   for a, b, n_r in plan.segments)
+        assert len(fwd) == 2 * rows and len(bwd) == rows
+        assert all(cap.records[r.parent].name == "row_recompute"
+                   for r in fwd[rows:] if r.parent is not None)
+
+
+@pytest.mark.parametrize("arch", ["vgg16", "resnet50"])
+def test_dense_trunks_open_no_depthwise_range(arch):
+    mods, params = _trunk(arch)
+    plan = Planner(mods, (IMAGE, IMAGE, 3), BATCH).plan("twophase_h", 2)
+    with obs.profiling() as cap:
+        _step(mods, params, plan)
+    assert not any(r.name == "dwconv" for r in cap.records)
+    assert cap.count("conv.depthwise_calls") == 0
