@@ -20,7 +20,17 @@ printing one line:
                 plain version and ``F.conv2d`` (the library yardstick,
                 never called by the port) at each VGG shape, beside the
                 card's bound; then the same at ResNet-50's stem (batch 32,
-                224² x 3 -> 112² x 64, k 7, s 2, p 3).
+                224² x 3 -> 112² x 64, k 7, s 2, p 3).  Then
+                ``dwconv_wgrad`` at ConvNeXt-B's four depthwise shapes at
+                384² (batch 128: 96² x 128, 48² x 256, 24² x 512, 12² x
+                1024; k 7, padding 3): its ``dw`` and ``db`` within 2e-6
+                relative norm of a float64 sum (cuDNN's fp32 error
+                printed beside it), timed beside its bound, its plain
+                version and cuDNN's weight gradient
+                (``aten.convolution_backward``, the yardstick the port no
+                longer calls); then one ConvNeXt-B training step at 384²
+                (batch 4, ``twophase_h`` N=8), in which every depthwise
+                backward must launch it.
 4. train_kernel the main path: ``repro_torch.launch.train --arch vgg16
                 --preset full --strategy overlap --rows 4 --kernel cuda
                 --steps 3`` (full width, batch 32); the plan must be
@@ -358,6 +368,12 @@ BLOCK_H = 8
 TRAIN_BATCH = 32
 CHECK_BATCH = 2
 KERNEL_TOL = 1e-4
+#: ConvNeXt-B's depthwise 7x7 convs at 384², batch 128: (H, C, convs a
+#: forward) per stage, and dwconv_wgrad's limit, the relative norm error of
+#: dw and db against a float64 sum (fp32 sums in a fixed hierarchy)
+DWCONV_SHAPES = [(96, 128, 3), (48, 256, 3), (24, 512, 27), (12, 1024, 3)]
+DWCONV_BATCH, DWCONV_K = 128, 7
+DWCONV_TOL = 2e-6
 LOSS_TOL = 1e-4
 #: VGG-16 without normalisation diverges at the trainer's default 0.05
 TRAIN_LR = 1e-3
@@ -754,6 +770,7 @@ def phase_kernel(torch, out):
           f"bound/kernel={stem['bound_ms'] / stem['ms']:.3f}", flush=True)
     out["kernel"] = {"max_abs_err": max_err, "rows": rows, "stem": stem,
                      "bound_by": bound_by, **totals}
+    out["dwconv_wgrad"] = kernel_dwconv_wgrad(torch)
     print(f"kernel: conv2d_rows matches plain at {len(VGG_SHAPES)} VGG "
           f"shapes + {len(KERNEL_CONV_CASES)} geometry cases + the ResNet "
           f"stem "
@@ -764,6 +781,125 @@ def phase_kernel(torch, out):
           f"{totals['bound_ms']:.3f} ms (kernel/F.conv2d "
           f"{totals['ms'] / totals['library_ms']:.3f}, bound/kernel "
           f"{totals['bound_ms'] / totals['ms']:.3f})", flush=True)
+
+
+def _rel_norm(got, want):
+    return float((got.double() - want).norm() / want.norm())
+
+
+def _convnext_step_dwconv_launches(torch):
+    """``(dwconv_wgrad launches, depthwise backward ranges)`` of one
+    ConvNeXt-B training step at 384² on the main path (the benchmark cell's
+    widths, depths and plan ``twophase_h`` N=8, batch 4), counted from a
+    capture opened just before it; raises unless every depthwise backward
+    launched the kernel and none copied a tensor."""
+    from repro_torch import obs
+    from repro_torch.exec import Planner, build_apply
+    from repro_torch.kernels import dwconv_wgrad as dk
+    from repro_torch.models.cnn import convnext
+    from repro_torch.models.cnn.layers import flatten_params
+    shape, batch = (384, 384, 3), 4
+    mods, params = convnext.init_convnext(
+        torch.Generator().manual_seed(0), shape, device="cuda")
+    plan = Planner(mods, shape, batch).plan("twophase_h", 8)
+    leaves, _ = flatten_params(params["trunk"])
+    for t in leaves:
+        t.requires_grad_(True)
+    x = torch.randn((batch,) + shape, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(5))
+    with obs.profiling() as cap:
+        loss = convnext.head_apply(params["head"], build_apply(mods, plan)(
+            params["trunk"], x)).square().mean()
+        torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+    bwd = sum(r.name == "dwconv" and r.attrs == {"phase": "bwd"}
+              for r in cap.records)
+    launches = cap.count("dwconv_wgrad")
+    copies = cap.count("dwconv_wgrad.copies")
+    if not (bwd > 0 and launches == dk.LAUNCHES * bwd and copies == 0):
+        raise AssertionError(f"ConvNeXt-B step: {launches} dwconv_wgrad "
+                             f"launches and {copies} copies for {bwd} "
+                             f"depthwise backward ranges")
+    return launches, bwd
+
+
+def kernel_dwconv_wgrad(torch):
+    """``dwconv_wgrad`` through its wrapper at ConvNeXt-B's depthwise
+    shapes: checked against a float64 sum (with its launches and no copy)
+    and timed beside its bound, its plain version and cuDNN's weight
+    gradient; the totals weigh each shape by its convs a forward.  Then
+    one ConvNeXt-B step on the main path, whose launches it counts."""
+    from repro_torch import obs
+    from repro_torch.kernels import dwconv_wgrad as dk
+    from repro_torch.kernels import ops
+    k, p, n = DWCONV_K, DWCONV_K // 2, DWCONV_BATCH
+    rows, worst = [], 0.0
+    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    ops_ms = bytes_ms = 0.0
+    for i, (h, c, mult) in enumerate(DWCONV_SHAPES):
+        gen = torch.Generator(device="cuda").manual_seed(400 + i)
+        x, g = (torch.randn((n, h, h, c), device="cuda", generator=gen)
+                .permute(0, 3, 1, 2) for _ in range(2))
+        w = torch.randn((k, k, 1, c), device="cuda",
+                        generator=gen).permute(3, 2, 0, 1)
+        with obs.profiling() as cap:
+            dw, db = ops.dwconv_wgrad(g, x, (p, p), k)
+            torch.cuda.synchronize()
+        if (cap.count("dwconv_wgrad") != dk.LAUNCHES
+                or cap.count("dwconv_wgrad.copies")):
+            raise AssertionError(
+                f"dwconv_wgrad {h}x{h}x{c}: "
+                f"{cap.count('dwconv_wgrad')} launches and "
+                f"{cap.count('dwconv_wgrad.copies')} copies a call")
+        ref_w, ref_b = dk.dwconv_wgrad_plain(g.double(), x.double(), (p, p),
+                                             k)
+        lib = torch.ops.aten.convolution_backward(
+            g, x, w, [c], [1, 1], [p, p], [1, 1], False, [0, 0], c,
+            [False, True, True])
+        err = max(_rel_norm(dw, ref_w), _rel_norm(db, ref_b))
+        lib_err = max(_rel_norm(lib[1], ref_w), _rel_norm(lib[2], ref_b))
+        del ref_w, ref_b, lib
+        worst = max(worst, err)
+        if not err <= DWCONV_TOL:
+            raise AssertionError(f"dwconv_wgrad {h}x{h}x{c}: relative norm "
+                                 f"error {err} > {DWCONV_TOL}")
+        t = {"ms": _timed_ms(torch, lambda: ops.dwconv_wgrad(g, x, (p, p),
+                                                            k)),
+             "plain_ms": _timed_ms(torch, lambda: dk.dwconv_wgrad_plain(
+                 g, x, (p, p), k), iters=2, warmup=1),
+             "library_ms": _timed_ms(
+                 torch, lambda: torch.ops.aten.convolution_backward(
+                     g, x, w, [c], [1, 1], [p, p], [1, 1], False, [0, 0], c,
+                     [False, True, True]), iters=3, warmup=1)}
+        elems = n * h * h * c
+        t_ops = 1e3 * 2 * k * k * elems / PEAK_FP32_FLOPS
+        t_bytes = 1e3 * 4 * (2 * elems + k * k * c) / PEAK_HBM_BYTES
+        bound_ms, bound_by = _bound(t_ops, t_bytes)
+        rows.append({"shape": [n, h, h, c], "convs_per_forward": mult,
+                     "rel_err": err, "library_rel_err": lib_err,
+                     "bound_ms": bound_ms, "bound_by": bound_by, **t})
+        print(f"  dwconv_wgrad b={n} {h}x{h}x{c} k{k} x{mult}: "
+              f"ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
+              f"library_ms={t['library_ms']:.4f} bound_ms={bound_ms:.4f} "
+              f"({bound_by}) bound/kernel={bound_ms / t['ms']:.3f} "
+              f"rel_err={err:.3e} library_rel_err={lib_err:.3e}",
+              flush=True)
+        for key in totals:
+            totals[key] += mult * t[key]
+        ops_ms += mult * t_ops
+        bytes_ms += mult * t_bytes
+        del x, g, w, dw, db
+    totals["bound_ms"], bound_by = _bound(ops_ms, bytes_ms)
+    launches, bwd = _convnext_step_dwconv_launches(torch)
+    print(f"kernel: dwconv_wgrad within {DWCONV_TOL} of float64 at "
+          f"{len(DWCONV_SHAPES)} ConvNeXt-B shapes (worst {worst:.3e}); one "
+          f"batch-{n} step's 36 convs: kernel {totals['ms']:.3f} ms, plain "
+          f"{totals['plain_ms']:.3f} ms, cuDNN {totals['library_ms']:.3f} "
+          f"ms, bound {totals['bound_ms']:.3f} ms ({bound_by}); a batch-4 "
+          f"ConvNeXt-B step at 384²: {launches} launches for {bwd} "
+          f"depthwise backward ranges", flush=True)
+    return {"rel_err": worst, "rows": rows, "bound_by": bound_by,
+            "launches": launches, **totals}
 
 
 def _obs_flags(tmp, name):
@@ -3686,13 +3822,15 @@ def main() -> int:
                 traceback.print_exc()
                 print(f"FAILED phase {name}: {e}", flush=True)
                 return 1
-    k, sw, sd = out["kernel"], out["swa"], out["ssd"]
+    k, sw, sd, dw = out["kernel"], out["swa"], out["ssd"], \
+        out["dwconv_wgrad"]
     csrc = "src/repro_torch/kernels/csrc/"
 
     def row(name, replaces, launches, r, library_ms):
         return {"name": name, "route": "cuda", "source": f"{csrc}{name}.cu",
                 "replaces": replaces, "launches": launches,
-                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "max_abs_err": r.get("max_abs_err"),
+                "rel_err": r.get("rel_err"), "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": library_ms}
 
@@ -3703,7 +3841,8 @@ def main() -> int:
         row("swa_attention", "src/repro/kernels/swa_attention.py:111",
             out["swa_launches"], sw, sw["library_ms"]),
         row("ssd_scan", "src/repro/kernels/ssd_chunk.py:78",
-            sd["launches"], sd, None)]}))
+            sd["launches"], sd, None),
+        row("dwconv_wgrad", None, dw["launches"], dw, dw["library_ms"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,10 +3,12 @@
 Counterpart of ``repro.kernels.ops``.  A wrapper dispatches on where its
 tensors lie: on the CPU it runs the kernel's plain PyTorch version, on a
 CUDA device it launches the hand-written kernel inside a range named
-after it (``conv2d_rows``, ``swa_attention``, ``ssd_scan``;
-:func:`repro_torch.obs.profile_range`) and, once the launch returns, adds
-one to the obs counter of the same name, which is the only place that
-counter moves (it counts while an obs session or capture is open).
+after it (``conv2d_rows``, ``swa_attention``, ``ssd_scan``,
+``dwconv_wgrad``; :func:`repro_torch.obs.profile_range`) and, once the
+launch returns, adds its launches to the obs counter of the same name (one;
+two for ``dwconv_wgrad``, whose partial sums and their finish are separate
+kernels), which is the only place that counter moves (it counts while an
+obs session or capture is open).
 There is no fallback from a CUDA tensor to the plain version; any other
 device raises.  The reference's interpret-mode policy has no
 counterpart: where a tensor lies decides.
@@ -16,6 +18,7 @@ from __future__ import annotations
 
 from repro_torch import obs
 from repro_torch.kernels import conv2d_rows as _cr
+from repro_torch.kernels import dwconv_wgrad as _dw
 from repro_torch.kernels import ssd_chunk as _ssd
 from repro_torch.kernels import swa_attention as _swa
 
@@ -103,3 +106,22 @@ def ssd_scan(x, B, C, a, dt, chunk: int = 128):
         y = _ssd.ssd_scan(x, B, C, a, dt, chunk=chunk)
     obs.counter("ssd_scan").inc()
     return y
+
+
+def dwconv_wgrad(g, x, padding, k: int):
+    """``(dw, db)`` of a stride-1 depthwise conv (NCHW views ``g`` and
+    ``x``; ``dw`` as the OIHW view of HWIO storage): the CUDA kernel for
+    CUDA tensors (range ``dwconv_wgrad``; counter ``dwconv_wgrad``,
+    :data:`~repro_torch.kernels.dwconv_wgrad.LAUNCHES` a call), after an
+    NHWC copy of a tensor that is not NHWC storage (counter
+    ``dwconv_wgrad.copies``), its plain version for CPU tensors."""
+    if _device_kind(x, "dwconv_wgrad") == "cpu":
+        return _dw.dwconv_wgrad_plain(g, x, padding, k)
+    for t in (g, x):
+        if not _dw.nhwc_strided(t):
+            obs.counter("dwconv_wgrad.copies").inc()
+    g, x = _dw.channels_last(g), _dw.channels_last(x)
+    with obs.profile_range("dwconv_wgrad"):
+        out = _dw.dwconv_wgrad(g, x, padding, k)
+    obs.counter("dwconv_wgrad").inc(_dw.LAUNCHES)
+    return out

@@ -23,7 +23,8 @@ forward, as the reference's XLA VJP keeps none.  A conv whose input or
 output exceeds :data:`DGRAD_SPLIT_BYTES` computes its data gradient in
 batch chunks (:func:`conv_backward`).  A grouped conv (``DepthwiseConv``,
 ConvNeXt's 7x7) runs inside a ``dwconv`` range, forward and backward, and
-counts its forward calls (``conv.depthwise_calls``).
+counts its forward calls (``conv.depthwise_calls``); its weight and bias
+gradients come from the ``dwconv_wgrad`` kernel (:func:`conv_backward`).
 
 Norm note (as in the reference): ``BatchNorm`` normalises with the running
 statistics held in the parameter tree, so row-centric and column-centric
@@ -48,6 +49,8 @@ from repro_torch import obs
 from repro_torch.core.convmath import (
     Geometry, Interval, backward_intervals, interval_union,
 )
+from repro_torch.kernels import dwconv_wgrad as _dwk
+from repro_torch.kernels import ops
 
 
 def _he_init(generator, shape, fan_in, device):
@@ -105,6 +108,16 @@ def _splits_dgrad(x, out_bytes: int) -> bool:
                                   out_bytes) > DGRAD_SPLIT_BYTES
 
 
+def _depthwise_wgrad(x, w, stride: int, groups: int) -> bool:
+    """Whether the conv is one whose weight and bias gradients
+    :func:`repro_torch.kernels.ops.dwconv_wgrad` computes: depthwise
+    (``groups`` = input = output channels), stride 1, an odd square kernel
+    of :data:`~repro_torch.kernels.dwconv_wgrad.KSIZES`."""
+    return (groups > 1 and groups == x.shape[1] == w.shape[0]
+            and w.shape[1] == 1 and stride == 1
+            and w.shape[2] == w.shape[3] in _dwk.KSIZES)
+
+
 def conv_backward(g, x, w, stride: int, padding, need, groups: int = 1):
     """``(dx, dw, db)`` of ``F.conv2d(x, w, b, stride, padding, groups)``
     against ``g`` (NCHW views; ``need``: which of x, w, b want a gradient,
@@ -118,8 +131,19 @@ def conv_backward(g, x, w, stride: int, padding, need, groups: int = 1):
     batch, each chunk an input-gradient call on a power of two of images
     within :data:`DGRAD_CHUNK_BYTES` (counter ``conv.dgrad_chunks``, range
     ``conv_dgrad_split``): an image's data gradient depends on that image
-    alone."""
+    alone.
+
+    A depthwise conv that :func:`_depthwise_wgrad` admits (ConvNeXt's 7x7)
+    takes ``dw`` and ``db`` from :func:`repro_torch.kernels.ops.dwconv_wgrad`
+    in one pass over ``x`` and ``g``, and ``dx`` as above with only the
+    input's gradient asked for (cuDNN's fp32 grouped weight gradient runs
+    hundreds of times over its byte bound at ConvNeXt's shapes)."""
     padding = list(padding)
+    if (need[1] or need[2]) and _depthwise_wgrad(x, w, stride, groups):
+        dw, db = ops.dwconv_wgrad(g, x, padding, w.shape[-1])
+        dx = conv_backward(g, x, w, stride, padding, (True, False, False),
+                           groups)[0] if need[0] else None
+        return dx, dw if need[1] else None, db if need[2] else None
     args = ([stride, stride], padding, [1, 1], False, [0, 0], groups)
     bias = [w.shape[0]] if need[2] else None
     if not (need[0] and _splits_dgrad(x, g.numel() * g.element_size())):

@@ -160,6 +160,168 @@ def test_split_dgrad_at_the_budget_cells_conv2_2(cuda_device):
         assert float((a - b).abs().max()) <= 1e-5 * float(a.abs().max())
 
 
+#: (N, H, W, C, k, padding, row slice (first row, rows) or None):
+#: ConvNeXt-B's four depthwise shapes at 384², batch 128, then rows of stage
+#: 1's map as a 2PS row reads them in place, then the other kernel sizes the
+#: source is built for, on ragged widths with a partly filled channel tile
+DWCONV_CASES = [(128, 96, 96, 128, 7, (3, 3), None),
+                (128, 48, 48, 256, 7, (3, 3), None),
+                (128, 24, 24, 512, 7, (3, 3), None),
+                (128, 12, 12, 1024, 7, (3, 3), None),
+                (128, 96, 96, 128, 7, (3, 3), (21, 30)),
+                (2, 13, 17, 37, 7, (0, 3), None),
+                (2, 13, 11, 37, 5, (2, 2), None),
+                (2, 17, 9, 45, 5, (2, 2), (3, 8)),
+                (2, 13, 11, 37, 3, (1, 1), None),
+                (3, 9, 14, 13, 1, (0, 0), None)]
+#: relative norm error of dw and db against a float64 sum
+DWCONV_TOL = 2e-6
+
+
+def _dwconv_inputs(case, device, seed=0):
+    """NCHW views of NHWC ``x`` and ``g`` (rows of taller maps where the
+    case slices them), and the OIHW view of an HWIO depthwise weight."""
+    n, h, w, c, k, (ph, pw), rows = case
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((n, h, w, c), device=device, generator=gen)
+    hx = rows[1] if rows else h
+    ho, wo = hx + 2 * ph - k + 1, w + 2 * pw - k + 1
+    g = torch.randn((n, ho + h - hx, wo, c), device=device, generator=gen)
+    if rows is not None:
+        x, g = x[:, rows[0]:rows[0] + hx], g[:, rows[0]:rows[0] + ho]
+    wt = torch.randn((k, k, 1, c), device=device, generator=gen)
+    return g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1)
+
+
+def _rel_norm(got, want):
+    return float((got.double() - want).norm() / want.norm())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", DWCONV_CASES,
+                         ids=lambda c: "x".join(map(str, c[:4]))
+                         + f"_k{c[4]}_p{c[5][0]}{c[5][1]}"
+                         + ("_rows" if c[6] else ""))
+def test_dwconv_wgrad_matches_float64(case, cuda_device):
+    """At ConvNeXt-B's stage shapes, on rows of a larger map read in place,
+    and at every kernel size the source is built for, the kernel's ``dw``
+    and ``db`` lie within ``DWCONV_TOL`` of a float64 sum; cuDNN's fp32
+    error is printed beside it.  The wrapper counts both launches."""
+    from repro_torch.kernels import dwconv_wgrad as dk
+    from repro_torch.kernels import ops
+    g, x, w = _dwconv_inputs(case, cuda_device)
+    c, k, padding = x.shape[1], case[4], case[5]
+    with obs.profiling() as cap:
+        dw, db = ops.dwconv_wgrad(g, x, padding, k)
+    assert cap.count("dwconv_wgrad") == dk.LAUNCHES
+    assert cap.count("dwconv_wgrad.copies") == 0
+    assert [r.name for r in cap.records] == ["dwconv_wgrad"]
+    assert dw.shape == w.shape and dw.stride() == w.stride()
+    want_w, want_b = dk.dwconv_wgrad_plain(g.double(), x.double(), padding,
+                                           k)
+    _, lib_w, lib_b = torch.ops.aten.convolution_backward(
+        g, x, w, [c], [1, 1], list(padding), [1, 1], False, [0, 0], c,
+        [False, True, True])
+    err = max(_rel_norm(dw, want_w), _rel_norm(db, want_b))
+    lib_err = max(_rel_norm(lib_w, want_w), _rel_norm(lib_b, want_b))
+    print(f"dwconv_wgrad {tuple(x.shape)} k{k}: relative norm error "
+          f"{err:.3e}, cuDNN's {lib_err:.3e}")
+    assert err <= DWCONV_TOL
+
+
+@pytest.mark.requires_cuda
+def test_dwconv_wgrad_is_deterministic(cuda_device):
+    from repro_torch.kernels import dwconv_wgrad as dk
+    g, x, _ = _dwconv_inputs(DWCONV_CASES[0], cuda_device, seed=1)
+    a = dk.dwconv_wgrad(g, x, (3, 3), 7)
+    b = dk.dwconv_wgrad(g, x, (3, 3), 7)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+class _OversizedGrid:
+    """The kernel library, but asking for more CTAs along y than a grid
+    holds, so that the partial-sum launch is refused."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+    def dwconv_wgrad_parts(self, *args):
+        return 70000
+
+
+@pytest.mark.requires_cuda
+def test_dwconv_wgrad_raises_rather_than_fall_back(cuda_device,
+                                                   monkeypatch):
+    """The launcher raises on a tensor it cannot read and on a refused
+    launch; the wrapper copies a tensor that is not NHWC storage and counts
+    the copy."""
+    from repro_torch.kernels import dwconv_wgrad as dk
+    from repro_torch.kernels import ops
+    g, x, _ = _dwconv_inputs((2, 12, 12, 8, 7, (3, 3), None), cuda_device)
+    with pytest.raises(TypeError, match="fp32"):
+        dk.dwconv_wgrad(g.double(), x.double(), (3, 3), 7)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        dk.dwconv_wgrad(g.cpu(), x.cpu(), (3, 3), 7)
+    with pytest.raises(ValueError, match="NHWC"):
+        dk.dwconv_wgrad(g, x.contiguous(), (3, 3), 7)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        ops.dwconv_wgrad(g.to("meta"), x.to("meta"), (3, 3), 7)
+    with obs.profiling() as cap:
+        got = ops.dwconv_wgrad(g.contiguous(), x.contiguous(), (3, 3), 7)
+    assert cap.count("dwconv_wgrad.copies") == 2
+    assert cap.count("dwconv_wgrad") == dk.LAUNCHES
+    want = dk.dwconv_wgrad(g, x, (3, 3), 7)
+    assert all(torch.equal(u, v) for u, v in zip(got, want))
+    lib = dk._lib()
+    monkeypatch.setattr(dk, "_lib", lambda: _OversizedGrid(lib))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        dk.dwconv_wgrad(g, x, (3, 3), 7)
+
+
+@pytest.mark.requires_cuda
+def test_convnext_step_takes_dwconv_wgrad_in_every_depthwise_backward(
+        cuda_device, monkeypatch):
+    """One ConvNeXt-B training step at 384² (the benchmark cell's widths,
+    depths and plan, batch 4): every depthwise backward calls the wrapper
+    once, which launches the kernel and copies no tensor, and the
+    gradients are finite."""
+    from repro_torch.exec import Planner, build_apply
+    from repro_torch.kernels import dwconv_wgrad as dk
+    from repro_torch.kernels import ops
+    from repro_torch.models.cnn import convnext
+    from repro_torch.models.cnn.layers import flatten_params
+    shape, batch = (384, 384, 3), 4
+    mods, params = convnext.init_convnext(
+        torch.Generator().manual_seed(0), shape, device=cuda_device)
+    plan = Planner(mods, shape, batch).plan("twophase_h", 8)
+    leaves, _ = flatten_params(params["trunk"])
+    for t in leaves:
+        t.requires_grad_(True)
+    x = torch.randn((batch,) + shape, device=cuda_device)
+    calls, wrapped = [], ops.dwconv_wgrad
+
+    def spy(*args):
+        calls.append(args[1].shape)
+        return wrapped(*args)
+
+    monkeypatch.setattr(ops, "dwconv_wgrad", spy)
+    with obs.profiling() as cap:
+        loss = convnext.head_apply(params["head"], build_apply(mods, plan)(
+            params["trunk"], x)).square().mean()
+        grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    bwd = [r for r in cap.records
+           if r.name == "dwconv" and r.attrs == {"phase": "bwd"}]
+    assert len(bwd) >= 36
+    assert len(calls) == len(bwd)
+    assert cap.count("dwconv_wgrad") == dk.LAUNCHES * len(bwd)
+    assert cap.count("dwconv_wgrad.copies") == 0
+    assert all(bool(torch.isfinite(t).all()) for t in grads)
+
+
 #: (S, D, window, bq, bk): the kernel tests' shared SWA cases, then
 #: Gemma-3 4B's local layers (D 256, window 1024) at the plan's tiles
 SWA_CASES = [
