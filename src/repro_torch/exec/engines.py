@@ -207,15 +207,14 @@ def _shard_cnn(inner, plan: ExecutionPlan, modules, rebuild):
     from repro_torch.exec.collectives import ColumnParallel, ReduceGrads
     from repro_torch.launch.sharding import lc, use_ctx
     from repro_torch.models.cnn.layers import (
-        Conv, flatten_params, unflatten_params,
+        dense_conv, flatten_params, unflatten_params,
     )
     ctx = _plan_ctx(plan)
     batch, model = _groups(ctx)
     split = [False] * len(modules)
     if model is not None:
         m_ext = plan.mesh.model
-        split = [isinstance(m, Conv) and m.groups == 1
-                 and m.cout % m_ext == 0 for m in modules]
+        split = [dense_conv(m) and m.cout % m_ext == 0 for m in modules]
         if any(split):
             inner = rebuild([ColumnParallel(m, model) if s else m
                              for m, s in zip(modules, split)])

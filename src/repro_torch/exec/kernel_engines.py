@@ -19,16 +19,18 @@ launch raises) and takes the plain version only for CPU tensors.  The
 planner's kernel fallback leaves a plain engine in place rather than
 swapping a ``*_cuda`` one in.
 
-``overlap_cuda`` runs every conv layer whose halo precondition holds
-(:func:`~repro_torch.kernels.conv2d_rows.halo_ok`, the reference's
+``overlap_cuda`` runs every dense conv layer whose halo precondition
+holds (:func:`~repro_torch.kernels.conv2d_rows.halo_ok`, the reference's
 eligibility rule) through the hand-written ``conv2d_rows`` CUDA kernel,
 and every other module through its plain ``apply``.  As in the reference,
 the trunk runs column-centric: the row tiling is inside the kernel.
 
-The kernel is forward-only.  Its backward pass is the gradient of the
-plain convolution (``layers.conv_backward`` on NCHW views), wrapped
-in a ``torch.autograd.Function`` — the reference does the same with the
-lax VJP — so loss and grads match the ``base`` engine.
+The kernel is forward-only.  A kernel layer is the layer's own conv
+(``Conv.apply`` with the row block), so it runs through the CNN path's
+one conv op, :func:`repro_torch.models.cnn.layers.conv2d`: the kernel
+forward, the plain convolution's gradient (``layers.conv_backward``)
+backward — the reference does the same with the lax VJP — so loss and
+grads match the ``base`` engine.  This module defines no conv Function.
 
 The policy rides on the plan: :class:`~repro_torch.exec.plan.KernelSpec`
 carries the backend and ``block_h``, and the planner
@@ -48,7 +50,7 @@ from repro_torch.exec.registry import register_engine
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ssd_scan_ref, swa_attention_ref
 from repro_torch.kernels.conv2d_rows import halo_ok, smem_bytes
-from repro_torch.models.cnn.layers import Conv, conv_backward
+from repro_torch.models.cnn.layers import Conv, dense_conv
 
 
 def plan_kernel(plan: ExecutionPlan) -> KernelSpec:
@@ -73,7 +75,7 @@ def conv_tiles(modules: Sequence, in_shape: Tuple[int, int, int],
     shape = tuple(in_shape)
     for m in modules:
         out = m.out_shape(shape)
-        if isinstance(unwrap(m), Conv) and unwrap(m).groups == 1:
+        if dense_conv(m):
             h_out, w_out, _ = out
             eligible = h_out >= 1 and w_out >= 1 \
                 and halo_ok(m.k, m.s, spec.block_h, h_out)
@@ -85,37 +87,9 @@ def conv_tiles(modules: Sequence, in_shape: Tuple[int, int, int],
         shape = out
 
 
-class _KernelConv(torch.autograd.Function):
-    """Forward through ``ops.conv2d`` (the CUDA kernel on the card),
-    backward through the plain convolution's gradient."""
-
-    @staticmethod
-    def forward(ctx, x, w, b, m: Conv, block_h: int):
-        ctx.m = m
-        ctx.save_for_backward(x, w)
-        y = ops.conv2d(x.contiguous(), w.contiguous(), m.s, m.p, block_h)
-        return y + b if b is not None else y
-
-    @staticmethod
-    def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        m = ctx.m
-        need_x, need_w, need_b = ctx.needs_input_grad[:3]
-        gx, gw, gb = conv_backward(
-            g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2),
-            w.permute(3, 2, 0, 1), m.s, (m.p, m.p),
-            (need_x, need_w, need_b))
-        return (gx.permute(0, 2, 3, 1) if need_x else None,
-                gw.permute(2, 3, 1, 0) if need_w else None,
-                gb if need_b else None, None, None)
-
-
 def _kernel_conv(m: Conv, block_h: int):
-    def conv(params, x):
-        return _KernelConv.apply(x, params["w"],
-                                 params.get("b") if m.bias else None,
-                                 m, block_h)
-    return conv
+    """``m`` through the ``conv2d_rows`` kernel at row block ``block_h``."""
+    return lambda params, x: m.apply(params, x, block_h)
 
 
 @register_engine("overlap_cuda", kind="cnn",

@@ -19,12 +19,12 @@ mode's asymmetric H padding (``pad_for_slice``) by dropping output rows
 where it can (see ``Conv._conv``), the pool by an explicit ``-inf``
 ``F.pad``.  The pool's backward re-derives the argmax from its saved input
 (:class:`_MaxPool2d`) instead of keeping autograd's int64 indices from the
-forward, as the reference's XLA VJP keeps none.  A conv whose input or
-output exceeds :data:`DGRAD_SPLIT_BYTES` computes its data gradient in
-batch chunks (:func:`conv_backward`).  A grouped conv (``DepthwiseConv``,
-ConvNeXt's 7x7) runs inside a ``dwconv`` range, forward and backward, and
-counts its forward calls (``conv.depthwise_calls``); its weight and bias
-gradients come from the ``dwconv_wgrad`` kernel (:func:`conv_backward`).
+forward, as the reference's XLA VJP keeps none.  Every conv, the
+``overlap_cuda`` engine's kernel layers too, goes through :func:`conv2d`,
+the one place that picks a conv's forward and gradient kernels (with
+:func:`conv_backward`).  A grouped conv (``DepthwiseConv``, ConvNeXt's
+7x7) runs inside a ``dwconv`` range, forward and backward, and counts its
+forward calls (``conv.depthwise_calls``).
 
 Norm note (as in the reference): ``BatchNorm`` normalises with the running
 statistics held in the parameter tree, so row-centric and column-centric
@@ -71,7 +71,7 @@ def _slice_rows(y, off: int, n: int):
 
 
 # ---------------------------------------------------------------------------
-# Convolution backward with a batch-split data gradient
+# The conv op: forward and gradient routing
 # ---------------------------------------------------------------------------
 
 #: Tensor bytes (the conv's input or output) above which its data gradient
@@ -103,9 +103,9 @@ def _pow2_floor(n: int) -> int:
     return 1 << max(0, n.bit_length() - 1)
 
 
-def _splits_dgrad(x, out_bytes: int) -> bool:
-    return x.shape[0] > 1 and max(x.numel() * x.element_size(),
-                                  out_bytes) > DGRAD_SPLIT_BYTES
+def _splits_dgrad(x, out_numel: int) -> bool:
+    return x.shape[0] > 1 and max(x.numel(), out_numel) \
+        * x.element_size() > DGRAD_SPLIT_BYTES
 
 
 def _depthwise_wgrad(x, w, stride: int, groups: int) -> bool:
@@ -121,104 +121,107 @@ def _depthwise_wgrad(x, w, stride: int, groups: int) -> bool:
 def conv_backward(g, x, w, stride: int, padding, need, groups: int = 1):
     """``(dx, dw, db)`` of ``F.conv2d(x, w, b, stride, padding, groups)``
     against ``g`` (NCHW views; ``need``: which of x, w, b want a gradient,
-    the others come back None).
+    the others come back None), chosen apart:
 
-    One ``aten.convolution_backward``, as autograd's
-    ``ConvolutionBackward0`` issues it, unless ``x`` needs a gradient, the
-    batch is above 1 and ``x`` or ``g`` exceeds :data:`DGRAD_SPLIT_BYTES`.
-    Then the weight and bias gradients are still one call over the whole
-    batch, and ``dx``, an NHWC buffer, is filled chunk by chunk along the
-    batch, each chunk an input-gradient call on a power of two of images
-    within :data:`DGRAD_CHUNK_BYTES` (counter ``conv.dgrad_chunks``, range
-    ``conv_dgrad_split``): an image's data gradient depends on that image
-    alone.
+    * ``dw`` and ``db`` from :func:`repro_torch.kernels.ops.dwconv_wgrad`
+      where :func:`_depthwise_wgrad` admits the conv (cuDNN's fp32 grouped
+      weight gradient runs hundreds of times over its byte bound at
+      ConvNeXt's shapes), else from ``aten``;
+    * ``dx`` from ``aten``, or, where the batch is above 1 and ``x`` or
+      ``g`` exceeds :data:`DGRAD_SPLIT_BYTES`, into an NHWC buffer chunk by
+      chunk along the batch (an image's data gradient depends on that
+      image alone), each chunk a power of two of images within
+      :data:`DGRAD_CHUNK_BYTES` (counter ``conv.dgrad_chunks``; range
+      ``conv_dgrad_split`` from the whole-batch call on).
 
-    A depthwise conv that :func:`_depthwise_wgrad` admits (ConvNeXt's 7x7)
-    takes ``dw`` and ``db`` from :func:`repro_torch.kernels.ops.dwconv_wgrad`
-    in one pass over ``x`` and ``g``, and ``dx`` as above with only the
-    input's gradient asked for (cuDNN's fp32 grouped weight gradient runs
-    hundreds of times over its byte bound at ConvNeXt's shapes)."""
-    padding = list(padding)
-    if (need[1] or need[2]) and _depthwise_wgrad(x, w, stride, groups):
-        dw, db = ops.dwconv_wgrad(g, x, padding, w.shape[-1])
-        dx = conv_backward(g, x, w, stride, padding, (True, False, False),
-                           groups)[0] if need[0] else None
-        return dx, dw if need[1] else None, db if need[2] else None
-    args = ([stride, stride], padding, [1, 1], False, [0, 0], groups)
-    bias = [w.shape[0]] if need[2] else None
-    if not (need[0] and _splits_dgrad(x, g.numel() * g.element_size())):
-        return torch.ops.aten.convolution_backward(g, x, w, bias, *args,
-                                                   list(need))
-    with obs.profile_range("conv_dgrad_split"):
-        _, dw, db = torch.ops.aten.convolution_backward(
-            g, x, w, bias, *args, [False, need[1], need[2]]) \
-            if need[1] or need[2] else (None, None, None)
-        n, c, h, wd = x.shape
-        dx = x.new_empty((n, h, wd, c)).permute(0, 3, 1, 2)
-        per_image = max(x[0].numel(), g[0].numel()) * x.element_size()
-        step = _pow2_floor(DGRAD_CHUNK_BYTES // per_image)
-        i = 0
-        while i < n:
-            k = min(step, _pow2_floor(n - i))
-            dx[i:i + k].copy_(torch.ops.aten.convolution_backward(
-                g[i:i + k], x[i:i + k], w, None, *args,
-                [True, False, False])[0])
-            i += k
-            obs.counter("conv.dgrad_chunks").inc()
-    return dx, dw, db
+    What ``aten`` owes is one ``aten.convolution_backward`` over the whole
+    batch, as autograd's ``ConvolutionBackward0`` issues it, after the
+    kernel and before the chunks."""
+    args = ([stride, stride], list(padding), [1, 1], False, [0, 0], groups)
+    kernel = (need[1] or need[2]) and _depthwise_wgrad(x, w, stride, groups)
+    split = need[0] and _splits_dgrad(x, g.numel())
+    owed = [need[0] and not split, need[1] and not kernel,
+            need[2] and not kernel]
+    grads = [None, None, None]
+    if kernel:
+        dw, db = ops.dwconv_wgrad(g, x, args[1], w.shape[-1])
+        grads[1:] = [dw if need[1] else None, db if need[2] else None]
+    with (obs.profile_range("conv_dgrad_split") if split
+          else contextlib.nullcontext()):
+        if any(owed):
+            got = torch.ops.aten.convolution_backward(
+                g, x, w, [w.shape[0]] if owed[2] else None, *args, owed)
+            grads = [a if o else b for a, o, b in zip(got, owed, grads)]
+        if split:
+            n, c, h, wd = x.shape
+            grads[0] = x.new_empty((n, h, wd, c)).permute(0, 3, 1, 2)
+            per_image = max(x[0].numel(), g[0].numel()) * x.element_size()
+            step = _pow2_floor(DGRAD_CHUNK_BYTES // per_image)
+            i = 0
+            while i < n:
+                k = min(step, _pow2_floor(n - i))
+                grads[0][i:i + k].copy_(torch.ops.aten.convolution_backward(
+                    g[i:i + k], x[i:i + k], w, None, *args,
+                    [True, False, False])[0])
+                i += k
+                obs.counter("conv.dgrad_chunks").inc()
+    return tuple(grads)
 
 
 class _Conv2d(torch.autograd.Function):
-    """``F.conv2d`` on NCHW views whose backward is :func:`conv_backward`;
-    it saves what ``ConvolutionBackward0`` saves, the input and the
-    weight.  A grouped conv's backward runs inside a ``dwconv`` range."""
+    """:func:`conv2d`'s Function: forward ``F.conv2d`` or, at a ``block_h``,
+    ``conv2d_rows`` on the views' NHWC/HWIO storage and a bias add; backward
+    :func:`conv_backward` (in a ``dwconv`` range if grouped).  It saves what
+    ``ConvolutionBackward0`` saves, the input and the weight."""
 
     @staticmethod
-    def forward(ctx, xc, w, b, stride: int, padding, groups: int = 1):
+    def forward(ctx, xc, w, b, stride: int, padding, groups: int, block_h):
         ctx.save_for_backward(xc, w)
         ctx.stride, ctx.padding, ctx.groups = stride, padding, groups
-        return F.conv2d(xc, w, b, stride=stride, padding=padding,
-                        groups=groups)
+        if block_h is None:
+            return F.conv2d(xc, w, b, stride=stride, padding=padding,
+                            groups=groups)
+        y = ops.conv2d(_nhwc(xc).contiguous(),
+                       w.permute(2, 3, 1, 0).contiguous(), stride,
+                       padding[1], block_h)
+        return _nchw(y + b if b is not None else y)
 
     @staticmethod
     def backward(ctx, g):
         xc, w = ctx.saved_tensors
-        rng = obs.profile_range("dwconv", phase="bwd") if ctx.groups > 1 \
-            else contextlib.nullcontext()
-        with rng:
-            dx, dw, db = conv_backward(g, xc, w, ctx.stride, ctx.padding,
-                                       ctx.needs_input_grad[:3], ctx.groups)
-        return dx, dw, db, None, None, None
+        with (obs.profile_range("dwconv", phase="bwd") if ctx.groups > 1
+              else contextlib.nullcontext()):
+            grads = conv_backward(g, xc, w, ctx.stride, ctx.padding,
+                                  ctx.needs_input_grad[:3], ctx.groups)
+        return (*grads, None, None, None, None)
 
 
-def _conv2d(xc, w, b, stride: int, padding, groups: int = 1):
-    """``F.conv2d(xc, w, b, stride, padding, groups)`` (``padding`` an (H,
-    W) pair); where autograd will want the input's gradient and
-    :func:`conv_backward` would split it, through :class:`_Conv2d`.  A
-    grouped conv always goes through :func:`_grouped_conv2d`."""
+def _will_split(xc, w, stride: int, padding) -> bool:
+    """Whether autograd will want ``xc``'s gradient, split in chunks."""
+    if not (torch.is_grad_enabled() and xc.requires_grad):
+        return False
+    k = w.shape[-1]
+    hw = [Geometry(k, stride, p).out_size(d)
+          for p, d in zip(padding, xc.shape[2:])]
+    return _splits_dgrad(xc, xc.shape[0] * w.shape[0] * math.prod(hw))
+
+
+def conv2d(xc, w, b, stride: int, padding, groups: int = 1, block_h=None):
+    """The CNN path's one conv, ``F.conv2d(xc, w, b, stride, padding,
+    groups)`` on NCHW views (``padding`` an (H, W) pair), or the
+    ``conv2d_rows`` kernel (symmetric padding) at row block ``block_h``.
+    The kernel, a grouped conv, and a dense conv whose input's gradient
+    autograd will want and :func:`conv_backward` will split go through
+    :class:`_Conv2d`; any other conv is plain ``F.conv2d``, with autograd's
+    own backward.  A grouped conv's forward runs inside a ``dwconv`` range
+    (phase ``fwd``), counted by ``conv.depthwise_calls``."""
     if groups > 1:
-        return _grouped_conv2d(xc, w, b, stride, padding, groups)
-    if torch.is_grad_enabled() and xc.requires_grad:
-        n, _, h, wd = xc.shape
-        k = w.shape[-1]
-        ho = (h + 2 * padding[0] - k) // stride + 1
-        wo = (wd + 2 * padding[1] - k) // stride + 1
-        if _splits_dgrad(xc, n * w.shape[0] * ho * wo * xc.element_size()):
-            return _Conv2d.apply(xc, w, b, stride, padding)
-    return F.conv2d(xc, w, b, stride=stride, padding=padding)
-
-
-def _grouped_conv2d(xc, w, b, stride: int, padding, groups: int):
-    """A grouped conv inside a ``dwconv`` range (phase ``fwd``), counted
-    by ``conv.depthwise_calls``; under autograd through :class:`_Conv2d`,
-    so that its backward has its range too."""
-    obs.counter("conv.depthwise_calls").inc()
-    with obs.profile_range("dwconv", phase="fwd"):
-        if torch.is_grad_enabled() and any(
-                t is not None and t.requires_grad for t in (xc, w, b)):
-            return _Conv2d.apply(xc, w, b, stride, padding, groups)
-        return F.conv2d(xc, w, b, stride=stride, padding=padding,
-                        groups=groups)
+        obs.counter("conv.depthwise_calls").inc()
+        with obs.profile_range("dwconv", phase="fwd"):
+            return _Conv2d.apply(xc, w, b, stride, padding, groups, None)
+    if block_h is None and not _will_split(xc, w, stride, padding):
+        return F.conv2d(xc, w, b, stride=stride, padding=padding)
+    return _Conv2d.apply(xc, w, b, stride, padding, 1, block_h)
 
 
 # ---------------------------------------------------------------------------
@@ -260,8 +263,9 @@ class Conv:
     def in_interval(self, out_iv: Interval, h_in: int) -> Interval:
         return self.geometry.in_interval(out_iv, h_in)
 
-    def _conv(self, params, x, pad_h):
-        """Conv with H padding ``pad_h`` (top, bottom), W padding ``p``.
+    def _conv(self, params, x, pad_h, block_h=None):
+        """Conv with H padding ``pad_h`` (top, bottom), W padding ``p``,
+        through :func:`conv2d`.
 
         A seam's missing padding is had without copying the slice: the
         conv runs with the symmetric ``p`` and the output rows that read
@@ -274,13 +278,15 @@ class Conv:
         b = params.get("b") if self.bias else None
         shift, rem = divmod(self.p - pad_h[0], self.s)
         if rem == 0:
-            y = _conv2d(xc, w, b, self.s, (self.p, self.p), self.groups)
+            y = conv2d(xc, w, b, self.s, (self.p, self.p), self.groups,
+                       block_h)
             return _nhwc(y)[:, shift:]
         xc = F.pad(xc, (0, 0, pad_h[0], pad_h[1]))
-        return _nhwc(_conv2d(xc, w, b, self.s, (0, self.p), self.groups))
+        return _nhwc(conv2d(xc, w, b, self.s, (0, self.p), self.groups))
 
-    def apply(self, params, x):
-        return self._conv(params, x, (self.p, self.p))
+    def apply(self, params, x, block_h=None):
+        """The whole conv; at a ``block_h``, by ``conv2d_rows`` (dense)."""
+        return self._conv(params, x, (self.p, self.p), block_h)
 
     def apply_row(self, params, x, iv_in, h_in, out_iv):
         g = self.geometry
@@ -300,6 +306,14 @@ class DepthwiseConv(Conv):
     @property
     def groups(self) -> int:
         return self.cout
+
+
+def dense_conv(m) -> bool:
+    """Whether ``m`` is a dense :class:`Conv` (``groups`` 1), the only conv
+    the ``conv2d_rows`` kernel and a column split take; seen through a
+    ``ColumnParallel``, which keeps the module it wraps as ``inner``."""
+    m = getattr(m, "inner", m)
+    return isinstance(m, Conv) and m.groups == 1
 
 
 class _MaxPool2d(torch.autograd.Function):

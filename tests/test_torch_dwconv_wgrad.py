@@ -163,3 +163,36 @@ def test_convnext_trunk_takes_the_kernel_in_every_depthwise_backward(
                                      for m in mods[a:b])
                            for a, b, n_r in plan.segments)
     assert len(calls) == len(bwd)
+
+
+@pytest.mark.parametrize("need", [(True, True, True), (True, True, False),
+                                  (True, False, True)],
+                         ids=["all", "no_bias", "no_weight"])
+def test_split_depthwise_backward_takes_the_kernel_before_the_chunks(
+        need, monkeypatch):
+    """Over ``DGRAD_SPLIT_BYTES`` a depthwise call takes the kernel first,
+    before any chunk and outside the ``conv_dgrad_split`` range, then the
+    data gradient in chunks (5 images in 2, 2, 1); the gradients are one
+    ``aten.convolution_backward``'s."""
+    g, x, wt = _inputs(5, 6, 9, 9, 7, (3, 3), None)
+    want = torch.ops.aten.convolution_backward(
+        g, x, wt, [6] if need[2] else None, [1, 1], [3, 3], [1, 1], False,
+        [0, 0], 6, list(need))
+    seen, wrapped = [], ops.dwconv_wgrad
+    monkeypatch.setattr(L, "DGRAD_SPLIT_BYTES", 0)
+    monkeypatch.setattr(L, "DGRAD_CHUNK_BYTES", 2 * 6 * 9 * 9 * 8)
+    with obs.profiling() as cap:
+        def spy(*args):
+            seen.append((cap.count("conv.dgrad_chunks"),
+                         [r.name for r in cap.records]))
+            return wrapped(*args)
+
+        monkeypatch.setattr(ops, "dwconv_wgrad", spy)
+        got = L.conv_backward(g, x, wt, 1, (3, 3), need, 6)
+    assert seen == [(0, [])]
+    assert cap.count("conv.dgrad_chunks") == 3
+    assert [r.name for r in cap.records] == ["conv_dgrad_split"]
+    for a, b, wanted in zip(got, want, need):
+        assert (a is None) == (not wanted)
+        if wanted:
+            assert _rel(a, b) < TOL

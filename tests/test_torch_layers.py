@@ -15,6 +15,7 @@ from repro.models.cnn import layers as ref_layers
 from repro.models.cnn.vgg import vgg16_modules as ref_vgg16_modules
 from repro_torch import obs
 from repro_torch.core import convmath as pt_cm
+from repro_torch.exec.collectives import ColumnParallel
 from repro_torch.models.cnn import layers as pt_layers
 from repro_torch.models.cnn.vgg import vgg16_modules as pt_vgg16_modules
 
@@ -313,9 +314,10 @@ def test_split_dgrad_matches_autograd(monkeypatch, s, pad_h, bias, rows):
 
 @pytest.mark.parametrize("split", [False, True])
 def test_kernel_conv_backward_uses_the_split_rule(monkeypatch, split):
-    """``overlap_cuda``'s conv (``_KernelConv``, the kernel's plain version
-    on the CPU) takes its backward from ``conv_backward``: one call below
-    ``DGRAD_SPLIT_BYTES``, chunks above, autograd's gradients either way."""
+    """``overlap_cuda``'s conv (the kernel's plain version on the CPU) runs
+    through the layers' one conv op, whose Function takes its backward
+    from ``conv_backward``: one call below ``DGRAD_SPLIT_BYTES``, chunks
+    above, autograd's gradients either way."""
     from repro_torch.exec.kernel_engines import _kernel_conv
     m = pt_layers.Conv(6, k=3, s=1, p=1)
     p = m.init(torch.Generator().manual_seed(1), (9, 7, 4), "cpu")
@@ -327,16 +329,20 @@ def test_kernel_conv_backward_uses_the_split_rule(monkeypatch, split):
         xa = x.clone().requires_grad_()
         pp = {k: v.clone().requires_grad_() for k, v in p.items()}
         with obs.capture() as s:
-            (fn(pp, xa) * g).sum().backward()
+            y = fn(pp, xa)
+            (y * g).sum().backward()
         return ([xa.grad, pp["w"].grad, pp["b"].grad],
-                s.metrics.counter("conv.dgrad_chunks").value)
+                s.metrics.counter("conv.dgrad_chunks").value, _graph_names(y))
 
-    want, _ = grads(m.apply)
+    want, _, names = grads(m.apply)
+    assert "ConvolutionBackward0" in names
     if split:
         monkeypatch.setattr(pt_layers, "DGRAD_SPLIT_BYTES", 0)
         monkeypatch.setattr(pt_layers, "DGRAD_CHUNK_BYTES", 2 * 9 * 7 * 6 * 4)
-    got, n = grads(_kernel_conv(m, 4))
+    got, n, names = grads(_kernel_conv(m, 4))
     assert n == (3 if split else 0)
+    assert "ConvolutionBackward0" not in names
+    assert any("_Conv2d" in k for k in names)
     for a, b in zip(want, got):
         assert _split_rel(a, b) < 1e-6
 
@@ -364,3 +370,18 @@ def test_split_dgrad_chunks_are_powers_of_two(monkeypatch, n, fit, calls):
     assert got[2] is None
     for a, b in zip(want[:2], got[:2]):
         assert _split_rel(a, b) < 1e-6
+
+
+@pytest.mark.parametrize("module,dense", [
+    (pt_layers.Conv(8), True),
+    (pt_layers.Conv(8, k=1, p=0, bias=False), True),
+    (pt_layers.DepthwiseConv(8, k=7, p=3), False),
+    (pt_layers.MaxPool(), False),
+    (ColumnParallel(pt_layers.Conv(8), None), True),
+    (ColumnParallel(pt_layers.DepthwiseConv(8, k=7, p=3), None), False),
+], ids=["conv3", "conv1", "depthwise7", "pool", "column_parallel_conv3",
+        "column_parallel_depthwise7"])
+def test_dense_conv_is_the_one_predicate(module, dense):
+    """``dense_conv``, which the kernel engine and the column split ask,
+    holds for a dense ``Conv`` alone, and sees through ``ColumnParallel``."""
+    assert pt_layers.dense_conv(module) is dense
