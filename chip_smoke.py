@@ -28,9 +28,18 @@ printing one line:
                 printed beside it), timed beside its bound, its plain
                 version and cuDNN's weight gradient
                 (``aten.convolution_backward``, the yardstick the port no
-                longer calls); then one ConvNeXt-B training step at 384²
-                (batch 4, ``twophase_h`` N=8), in which every depthwise
-                backward must launch it.
+                longer calls).  Then ``dwconv2d`` at the same shapes,
+                forward (with a bias) and data gradient (the flipped conv
+                of the output's gradient), and on rows of stage 1's map
+                read in place: within 2e-6 relative norm of a float64 sum,
+                two launches bit-equal, timed beside its bound, its plain
+                version and cuDNN's (``F.conv2d``, and
+                ``aten.convolution_backward`` for ``dx`` alone), with each
+                pass's 36-conv sum.  Then one ConvNeXt-B training step at
+                384² (batch 4, ``twophase_h`` N=8), in which every depthwise
+                backward must launch ``dwconv_wgrad``, and every depthwise
+                forward call and every depthwise backward that owes ``dx``
+                ``dwconv2d``, with no copy.
 4. train_kernel the main path: ``repro_torch.launch.train --arch vgg16
                 --preset full --strategy overlap --rows 4 --kernel cuda
                 --steps 3`` (full width, batch 32); the plan must be
@@ -771,6 +780,8 @@ def phase_kernel(torch, out):
     out["kernel"] = {"max_abs_err": max_err, "rows": rows, "stem": stem,
                      "bound_by": bound_by, **totals}
     out["dwconv_wgrad"] = kernel_dwconv_wgrad(torch)
+    out["dwconv2d"] = kernel_dwconv2d(torch)
+    kernel_dwconv_step(torch, out)
     print(f"kernel: conv2d_rows matches plain at {len(VGG_SHAPES)} VGG "
           f"shapes + {len(KERNEL_CONV_CASES)} geometry cases + the ResNet "
           f"stem "
@@ -788,15 +799,18 @@ def _rel_norm(got, want):
 
 
 def _convnext_step_dwconv_launches(torch):
-    """``(dwconv_wgrad launches, depthwise backward ranges)`` of one
-    ConvNeXt-B training step at 384² on the main path (the benchmark cell's
-    widths, depths and plan ``twophase_h`` N=8, batch 4), counted from a
-    capture opened just before it; raises unless every depthwise backward
-    launched the kernel and none copied a tensor."""
+    """``(dwconv_wgrad launches, depthwise backward ranges, dwconv2d
+    launches, depthwise forward calls)`` of one ConvNeXt-B training step at
+    384² on the main path (the benchmark cell's widths, depths and plan
+    ``twophase_h`` N=8, batch 4), counted from a capture opened just before
+    it; raises unless every depthwise backward launched ``dwconv_wgrad``,
+    every depthwise forward call and every depthwise backward that owes
+    ``dx`` launched ``dwconv2d`` once, and neither copied a tensor."""
     from repro_torch import obs
     from repro_torch.exec import Planner, build_apply
     from repro_torch.kernels import dwconv_wgrad as dk
     from repro_torch.models.cnn import convnext
+    from repro_torch.models.cnn import layers
     from repro_torch.models.cnn.layers import flatten_params
     shape, batch = (384, 384, 3), 4
     mods, params = convnext.init_convnext(
@@ -807,11 +821,22 @@ def _convnext_step_dwconv_launches(torch):
         t.requires_grad_(True)
     x = torch.randn((batch,) + shape, device="cuda",
                     generator=torch.Generator(device="cuda").manual_seed(5))
-    with obs.profiling() as cap:
-        loss = convnext.head_apply(params["head"], build_apply(mods, plan)(
-            params["trunk"], x)).square().mean()
-        torch.autograd.grad(loss, leaves)
-        torch.cuda.synchronize()
+    owes, backward = [], layers.conv_backward
+
+    def spy(g, x, w, stride, padding, need, groups=1):
+        if groups > 1:
+            owes.append(need[0])
+        return backward(g, x, w, stride, padding, need, groups)
+
+    layers.conv_backward = spy
+    try:
+        with obs.profiling() as cap:
+            loss = convnext.head_apply(params["head"], build_apply(mods, plan)(
+                params["trunk"], x)).square().mean()
+            torch.autograd.grad(loss, leaves)
+            torch.cuda.synchronize()
+    finally:
+        layers.conv_backward = backward
     bwd = sum(r.name == "dwconv" and r.attrs == {"phase": "bwd"}
               for r in cap.records)
     launches = cap.count("dwconv_wgrad")
@@ -820,7 +845,17 @@ def _convnext_step_dwconv_launches(torch):
         raise AssertionError(f"ConvNeXt-B step: {launches} dwconv_wgrad "
                              f"launches and {copies} copies for {bwd} "
                              f"depthwise backward ranges")
-    return launches, bwd
+    fwd = cap.count("conv.depthwise_calls")
+    conv_launches = cap.count("dwconv2d")
+    if not (fwd > 0 and len(owes) == bwd
+            and conv_launches == fwd + sum(owes)
+            and cap.count("dwconv2d.copies") == 0):
+        raise AssertionError(
+            f"ConvNeXt-B step: {conv_launches} dwconv2d launches and "
+            f"{cap.count('dwconv2d.copies')} copies for {fwd} depthwise "
+            f"forward calls and {sum(owes)} of {len(owes)} backward ranges "
+            f"owing dx")
+    return launches, bwd, conv_launches, fwd
 
 
 def kernel_dwconv_wgrad(torch):
@@ -890,16 +925,144 @@ def kernel_dwconv_wgrad(torch):
         bytes_ms += mult * t_bytes
         del x, g, w, dw, db
     totals["bound_ms"], bound_by = _bound(ops_ms, bytes_ms)
-    launches, bwd = _convnext_step_dwconv_launches(torch)
     print(f"kernel: dwconv_wgrad within {DWCONV_TOL} of float64 at "
           f"{len(DWCONV_SHAPES)} ConvNeXt-B shapes (worst {worst:.3e}); one "
           f"batch-{n} step's 36 convs: kernel {totals['ms']:.3f} ms, plain "
           f"{totals['plain_ms']:.3f} ms, cuDNN {totals['library_ms']:.3f} "
-          f"ms, bound {totals['bound_ms']:.3f} ms ({bound_by}); a batch-4 "
-          f"ConvNeXt-B step at 384²: {launches} launches for {bwd} "
-          f"depthwise backward ranges", flush=True)
-    return {"rel_err": worst, "rows": rows, "bound_by": bound_by,
-            "launches": launches, **totals}
+          f"ms, bound {totals['bound_ms']:.3f} ms ({bound_by})", flush=True)
+    return {"rel_err": worst, "rows": rows, "bound_by": bound_by, **totals}
+
+
+#: dwconv2d's passes: (name, flip); the forward with a bias
+DWCONV2D_PASSES = [("fwd", False), ("dgrad", True)]
+
+
+def _dwconv2d_check(torch, x, w, b, pad, flip, what):
+    """``ops.dwconv2d`` once through its wrapper: one launch, no copy,
+    within ``DWCONV_TOL`` of the plain version in float64, and a second
+    launch bit-equal; returns the relative norm error."""
+    from repro_torch import obs
+    from repro_torch.kernels import dwconv2d as dc
+    from repro_torch.kernels import ops
+    with obs.profiling() as cap:
+        y = ops.dwconv2d(x, w, b, pad, flip)
+        torch.cuda.synchronize()
+    if cap.count("dwconv2d") != dc.LAUNCHES or cap.count("dwconv2d.copies"):
+        raise AssertionError(f"dwconv2d {what}: {cap.count('dwconv2d')} "
+                             f"launches and {cap.count('dwconv2d.copies')} "
+                             f"copies a call")
+    ref = dc.dwconv2d_plain(x.double(), w.double(),
+                            None if b is None else b.double(), pad, flip)
+    err = _rel_norm(y, ref)
+    del ref
+    if not err <= DWCONV_TOL:
+        raise AssertionError(f"dwconv2d {what}: relative norm error {err} "
+                             f"> {DWCONV_TOL}")
+    if not torch.equal(y, ops.dwconv2d(x, w, b, pad, flip)):
+        raise AssertionError(f"dwconv2d {what}: two launches differ")
+    return err
+
+
+def kernel_dwconv2d(torch):
+    """``dwconv2d`` through its wrapper at ConvNeXt-B's depthwise shapes,
+    forward and data gradient: each checked against a float64 sum (one
+    launch, no copy, two launches bit-equal) and timed beside its bound,
+    its plain version and cuDNN's (``F.conv2d``; ``dx`` alone from
+    ``aten.convolution_backward``); the totals weigh each shape by its
+    convs a forward, a pass over all 36.  Then the forward and data
+    gradient of rows 21-51 of stage 1's map, read in place, against
+    float64."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import dwconv2d as dc
+    from repro_torch.kernels import ops
+    k, p, n = DWCONV_K, DWCONV_K // 2, DWCONV_BATCH
+    rows, worst = [], 0.0
+    totals = {f"{name}_{key}": 0.0 for name, _ in DWCONV2D_PASSES
+              for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    for i, (h, c, mult) in enumerate(DWCONV_SHAPES):
+        gen = torch.Generator(device="cuda").manual_seed(500 + i)
+        x, g = (torch.randn((n, h, h, c), device="cuda", generator=gen)
+                .permute(0, 3, 1, 2) for _ in range(2))
+        w = torch.randn((k, k, 1, c), device="cuda",
+                        generator=gen).permute(3, 2, 0, 1)
+        b = torch.randn(c, device="cuda", generator=gen)
+        library = {
+            "fwd": lambda: F.conv2d(x, w, b, padding=p, groups=c),
+            "dgrad": lambda: torch.ops.aten.convolution_backward(
+                g, x, w, None, [1, 1], [p, p], [1, 1], False, [0, 0], c,
+                [True, False, False])}
+        elems = n * h * h * c
+        t_ops = 1e3 * 2 * k * k * elems / PEAK_FP32_FLOPS
+        t_bytes = 1e3 * 4 * (2 * elems + k * k * c + c) / PEAK_HBM_BYTES
+        bound_ms, bound_by = _bound(t_ops, t_bytes)
+        row = {"shape": [n, h, h, c], "convs_per_forward": mult,
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        for name, flip in DWCONV2D_PASSES:
+            src, bb = (g, None) if flip else (x, b)
+            pad = (k - 1 - p,) * 2 if flip else (p, p)
+            err = _dwconv2d_check(torch, src, w, bb, pad, flip,
+                                  f"{name} {h}x{h}x{c}")
+            worst = max(worst, err)
+            t = {"ms": _timed_ms(torch, lambda: ops.dwconv2d(
+                     src, w, bb, pad, flip), iters=10),
+                 "plain_ms": _timed_ms(torch, lambda: dc.dwconv2d_plain(
+                     src, w, bb, pad, flip), iters=2, warmup=1),
+                 "library_ms": _timed_ms(torch, library[name], iters=10)}
+            row[name] = {"rel_err": err, **t}
+            for key in t:
+                totals[f"{name}_{key}"] += mult * t[key]
+            totals[f"{name}_bound_ms"] += mult * bound_ms
+            print(f"  dwconv2d {name} b={n} {h}x{h}x{c} k{k} x{mult}: "
+                  f"ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
+                  f"library_ms={t['library_ms']:.4f} bound_ms={bound_ms:.4f} "
+                  f"({bound_by}) bound/kernel={bound_ms / t['ms']:.3f} "
+                  f"kernel/library={t['ms'] / t['library_ms']:.3f} "
+                  f"rel_err={err:.3e}", flush=True)
+        rows.append(row)
+        del x, g, w, b
+    # rows 21-51 of stage 1's map and of its output's gradient, in place
+    h, c, _ = DWCONV_SHAPES[0]
+    gen = torch.Generator(device="cuda").manual_seed(510)
+    x, g = (torch.randn((8, h, h, c), device="cuda", generator=gen)
+            [:, 21:51].permute(0, 3, 1, 2) for _ in range(2))
+    w = torch.randn((k, k, 1, c), device="cuda",
+                    generator=gen).permute(3, 2, 0, 1)
+    b = torch.randn(c, device="cuda", generator=gen)
+    worst = max(worst, _dwconv2d_check(torch, x, w, b, (p, p), False,
+                                       "fwd rows 21-51"),
+                _dwconv2d_check(torch, g, w, None, (k - 1 - p,) * 2, True,
+                                "dgrad rows 21-51"))
+    del x, g, w, b
+    print(f"kernel: dwconv2d within {DWCONV_TOL} of float64 at "
+          f"{len(DWCONV_SHAPES)} ConvNeXt-B shapes and a row slice, forward "
+          f"and data gradient, two launches bit-equal (worst {worst:.3e}); "
+          + "; ".join(
+              f"a batch-{n} {name} pass over the 36 convs: kernel "
+              f"{totals[name + '_ms']:.3f} ms, plain "
+              f"{totals[name + '_plain_ms']:.3f} ms, cuDNN "
+              f"{totals[name + '_library_ms']:.3f} ms, bound "
+              f"{totals[name + '_bound_ms']:.3f} ms (bound/kernel "
+              f"{totals[name + '_bound_ms'] / totals[name + '_ms']:.3f})"
+              for name, _ in DWCONV2D_PASSES), flush=True)
+    return {"rel_err": worst, "rows": rows, "bound_by": "bytes",
+            "ms": totals["fwd_ms"] + totals["dgrad_ms"],
+            "plain_ms": totals["fwd_plain_ms"] + totals["dgrad_plain_ms"],
+            "library_ms": totals["fwd_library_ms"]
+            + totals["dgrad_library_ms"],
+            "bound_ms": totals["fwd_bound_ms"] + totals["dgrad_bound_ms"],
+            **totals}
+
+
+def kernel_dwconv_step(torch, out):
+    """One ConvNeXt-B step on the main path: the launches of both
+    depthwise kernels, into ``out``'s rows."""
+    launches, bwd, conv_launches, fwd = _convnext_step_dwconv_launches(torch)
+    out["dwconv_wgrad"]["launches"] = launches
+    out["dwconv2d"]["launches"] = conv_launches
+    print(f"kernel: a batch-4 ConvNeXt-B step at 384²: {launches} "
+          f"dwconv_wgrad launches for {bwd} depthwise backward ranges; "
+          f"{conv_launches} dwconv2d launches for {fwd} depthwise forward "
+          f"calls and the backward ranges owing dx", flush=True)
 
 
 def _obs_flags(tmp, name):
@@ -3842,7 +4005,9 @@ def main() -> int:
             out["swa_launches"], sw, sw["library_ms"]),
         row("ssd_scan", "src/repro/kernels/ssd_chunk.py:78",
             sd["launches"], sd, None),
-        row("dwconv_wgrad", None, dw["launches"], dw, dw["library_ms"])]}))
+        row("dwconv_wgrad", None, dw["launches"], dw, dw["library_ms"]),
+        row("dwconv2d", None, out["dwconv2d"]["launches"], out["dwconv2d"],
+            out["dwconv2d"]["library_ms"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

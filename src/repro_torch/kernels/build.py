@@ -26,7 +26,8 @@ from typing import Dict, Sequence
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 #: every kernel source of the port, by name (``csrc/<name>.cu``)
-KERNELS = ("conv2d_rows", "swa_attention", "ssd_scan", "dwconv_wgrad")
+KERNELS = ("conv2d_rows", "swa_attention", "ssd_scan", "dwconv_wgrad",
+           "dwconv2d")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

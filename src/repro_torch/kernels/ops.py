@@ -4,11 +4,11 @@ Counterpart of ``repro.kernels.ops``.  A wrapper dispatches on where its
 tensors lie: on the CPU it runs the kernel's plain PyTorch version, on a
 CUDA device it launches the hand-written kernel inside a range named
 after it (``conv2d_rows``, ``swa_attention``, ``ssd_scan``,
-``dwconv_wgrad``; :func:`repro_torch.obs.profile_range`) and, once the
-launch returns, adds its launches to the obs counter of the same name (one;
-two for ``dwconv_wgrad``, whose partial sums and their finish are separate
-kernels), which is the only place that counter moves (it counts while an
-obs session or capture is open).
+``dwconv_wgrad``, ``dwconv2d``; :func:`repro_torch.obs.profile_range`)
+and, once the launch returns, adds its launches to the obs counter of the
+same name (one; two for ``dwconv_wgrad``, whose partial sums and their
+finish are separate kernels), which is the only place that counter moves
+(it counts while an obs session or capture is open).
 There is no fallback from a CUDA tensor to the plain version; any other
 device raises.  The reference's interpret-mode policy has no
 counterpart: where a tensor lies decides.
@@ -18,6 +18,7 @@ from __future__ import annotations
 
 from repro_torch import obs
 from repro_torch.kernels import conv2d_rows as _cr
+from repro_torch.kernels import dwconv2d as _dc
 from repro_torch.kernels import dwconv_wgrad as _dw
 from repro_torch.kernels import ssd_chunk as _ssd
 from repro_torch.kernels import swa_attention as _swa
@@ -125,3 +126,21 @@ def dwconv_wgrad(g, x, padding, k: int):
         out = _dw.dwconv_wgrad(g, x, padding, k)
     obs.counter("dwconv_wgrad").inc(_dw.LAUNCHES)
     return out
+
+
+def dwconv2d(x, w, b, padding, flip: bool = False):
+    """A stride-1 depthwise conv (NCHW view ``x``, OIHW view ``w`` of HWIO
+    storage, bias ``b`` or None; with ``flip``, the filter flipped: the
+    data gradient): the CUDA kernel for CUDA tensors (range and counter
+    ``dwconv2d``, one a call), after an NHWC copy of an ``x`` that is not
+    NHWC storage (counter ``dwconv2d.copies``), its plain version for CPU
+    tensors."""
+    if _device_kind(x, "dwconv2d") == "cpu":
+        return _dc.dwconv2d_plain(x, w, b, padding, flip)
+    if not _dw.nhwc_strided(x):
+        obs.counter("dwconv2d.copies").inc()
+        x = _dw.channels_last(x)
+    with obs.profile_range("dwconv2d"):
+        y = _dc.dwconv2d(x, w, b, padding, flip)
+    obs.counter("dwconv2d").inc(_dc.LAUNCHES)
+    return y

@@ -24,7 +24,8 @@ forward, as the reference's XLA VJP keeps none.  Every conv, the
 the one place that picks a conv's forward and gradient kernels (with
 :func:`conv_backward`).  A grouped conv (``DepthwiseConv``, ConvNeXt's
 7x7) runs inside a ``dwconv`` range, forward and backward, and counts its
-forward calls (``conv.depthwise_calls``).
+forward calls (``conv.depthwise_calls``); a stride-1 depthwise one runs on
+the port's depthwise kernels in both (:func:`_depthwise`).
 
 Norm note (as in the reference): ``BatchNorm`` normalises with the running
 statistics held in the parameter tree, so row-centric and column-centric
@@ -49,7 +50,7 @@ from repro_torch import obs
 from repro_torch.core.convmath import (
     Geometry, Interval, backward_intervals, interval_union,
 )
-from repro_torch.kernels import dwconv_wgrad as _dwk
+from repro_torch.kernels import dwconv2d as _dwc
 from repro_torch.kernels import ops
 
 
@@ -108,14 +109,19 @@ def _splits_dgrad(x, out_numel: int) -> bool:
         * x.element_size() > DGRAD_SPLIT_BYTES
 
 
-def _depthwise_wgrad(x, w, stride: int, groups: int) -> bool:
-    """Whether the conv is one whose weight and bias gradients
-    :func:`repro_torch.kernels.ops.dwconv_wgrad` computes: depthwise
-    (``groups`` = input = output channels), stride 1, an odd square kernel
-    of :data:`~repro_torch.kernels.dwconv_wgrad.KSIZES`."""
+def _depthwise(x, w, stride: int, padding, groups: int) -> bool:
+    """Whether the conv is one the depthwise kernels compute, its forward
+    and data gradient (:func:`repro_torch.kernels.ops.dwconv2d`) and its
+    weight and bias gradients (:func:`repro_torch.kernels.ops.
+    dwconv_wgrad`): depthwise (``groups`` = input = output channels),
+    stride 1, an odd square kernel ``k`` of
+    :data:`~repro_torch.kernels.dwconv2d.KSIZES`, ``0 <= padding <= k -
+    1``."""
+    k = w.shape[-1]
     return (groups > 1 and groups == x.shape[1] == w.shape[0]
             and w.shape[1] == 1 and stride == 1
-            and w.shape[2] == w.shape[3] in _dwk.KSIZES)
+            and w.shape[2] == k in _dwc.KSIZES
+            and all(0 <= p < k for p in padding))
 
 
 def conv_backward(g, x, w, stride: int, padding, need, groups: int = 1):
@@ -123,29 +129,37 @@ def conv_backward(g, x, w, stride: int, padding, need, groups: int = 1):
     against ``g`` (NCHW views; ``need``: which of x, w, b want a gradient,
     the others come back None), chosen apart:
 
-    * ``dw`` and ``db`` from :func:`repro_torch.kernels.ops.dwconv_wgrad`
-      where :func:`_depthwise_wgrad` admits the conv (cuDNN's fp32 grouped
-      weight gradient runs hundreds of times over its byte bound at
-      ConvNeXt's shapes), else from ``aten``;
-    * ``dx`` from ``aten``, or, where the batch is above 1 and ``x`` or
-      ``g`` exceeds :data:`DGRAD_SPLIT_BYTES`, into an NHWC buffer chunk by
-      chunk along the batch (an image's data gradient depends on that
-      image alone), each chunk a power of two of images within
-      :data:`DGRAD_CHUNK_BYTES` (counter ``conv.dgrad_chunks``; range
-      ``conv_dgrad_split`` from the whole-batch call on).
+    * where :func:`_depthwise` admits the conv (cuDNN's fp32 depthwise
+      gradients run ten to hundreds of times over their byte bound at
+      ConvNeXt's shapes), ``dw`` and ``db`` from
+      :func:`repro_torch.kernels.ops.dwconv_wgrad`, then ``dx`` from
+      :func:`repro_torch.kernels.ops.dwconv2d`: the conv of ``g`` with the
+      filter flipped at padding ``k - 1 - p``, which needs no workspace;
+    * else all three from ``aten``; ``dx``, where the batch is above 1 and
+      ``x`` or ``g`` exceeds :data:`DGRAD_SPLIT_BYTES`, into an NHWC
+      buffer chunk by chunk along the batch (an image's data
+      gradient depends on that image alone), each chunk a power of two of
+      images within :data:`DGRAD_CHUNK_BYTES` (counter
+      ``conv.dgrad_chunks``; range ``conv_dgrad_split`` from the
+      whole-batch call on).
 
     What ``aten`` owes is one ``aten.convolution_backward`` over the whole
-    batch, as autograd's ``ConvolutionBackward0`` issues it, after the
-    kernel and before the chunks."""
+    batch, as autograd's ``ConvolutionBackward0`` issues it, before the
+    chunks."""
     args = ([stride, stride], list(padding), [1, 1], False, [0, 0], groups)
-    kernel = (need[1] or need[2]) and _depthwise_wgrad(x, w, stride, groups)
-    split = need[0] and _splits_dgrad(x, g.numel())
-    owed = [need[0] and not split, need[1] and not kernel,
+    kernel = _depthwise(x, w, stride, padding, groups)
+    split = need[0] and not kernel and _splits_dgrad(x, g.numel())
+    owed = [need[0] and not (kernel or split), need[1] and not kernel,
             need[2] and not kernel]
     grads = [None, None, None]
     if kernel:
-        dw, db = ops.dwconv_wgrad(g, x, args[1], w.shape[-1])
-        grads[1:] = [dw if need[1] else None, db if need[2] else None]
+        k = w.shape[-1]
+        if need[1] or need[2]:
+            dw, db = ops.dwconv_wgrad(g, x, args[1], k)
+            grads[1:] = [dw if need[1] else None, db if need[2] else None]
+        if need[0]:
+            grads[0] = ops.dwconv2d(g, w, None, [k - 1 - p for p in padding],
+                                    flip=True)
     with (obs.profile_range("conv_dgrad_split") if split
           else contextlib.nullcontext()):
         if any(owed):
@@ -169,15 +183,18 @@ def conv_backward(g, x, w, stride: int, padding, need, groups: int = 1):
 
 
 class _Conv2d(torch.autograd.Function):
-    """:func:`conv2d`'s Function: forward ``F.conv2d`` or, at a ``block_h``,
-    ``conv2d_rows`` on the views' NHWC/HWIO storage and a bias add; backward
-    :func:`conv_backward` (in a ``dwconv`` range if grouped).  It saves what
-    ``ConvolutionBackward0`` saves, the input and the weight."""
+    """:func:`conv2d`'s Function: forward the ``dwconv2d`` kernel where
+    :func:`_depthwise` admits the conv, ``F.conv2d`` or, at a ``block_h``,
+    ``conv2d_rows`` on the views' NHWC/HWIO storage and a bias add;
+    backward :func:`conv_backward` (in a ``dwconv`` range if grouped).  It
+    saves what ``ConvolutionBackward0`` saves, the input and the weight."""
 
     @staticmethod
     def forward(ctx, xc, w, b, stride: int, padding, groups: int, block_h):
         ctx.save_for_backward(xc, w)
         ctx.stride, ctx.padding, ctx.groups = stride, padding, groups
+        if _depthwise(xc, w, stride, padding, groups):
+            return ops.dwconv2d(xc, w, b, padding)
         if block_h is None:
             return F.conv2d(xc, w, b, stride=stride, padding=padding,
                             groups=groups)

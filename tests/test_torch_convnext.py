@@ -271,16 +271,19 @@ def test_kernel_request_declines_the_depthwise_convs():
 def test_grouped_conv_backward_splits_its_data_gradient(monkeypatch):
     """At ``groups = C`` the batch-split path of ``conv_backward`` gives
     autograd's gradients, chunk by chunk (batch 5 in chunks of 2, 2, 1),
-    inside the ``dwconv`` backward range."""
-    m = L.DepthwiseConv(C, k=7, s=1, p=3)
+    inside the ``dwconv`` backward range: a stride-2 depthwise conv, which
+    the depthwise kernels do not take (a stride-1 one takes them and never
+    splits, ``tests/test_torch_dwconv_wgrad.py``)."""
+    m = L.DepthwiseConv(C, k=7, s=2, p=3)
     prm = m.init(torch.Generator().manual_seed(1), (9, 9, C), "cpu")
     prm["b"] = torch.randn(C, generator=torch.Generator().manual_seed(2))
     x = torch.randn((5, 9, 9, C), generator=torch.Generator().manual_seed(3))
-    g = torch.randn((5, 9, 9, C), generator=torch.Generator().manual_seed(4))
+    g = torch.randn((5, 5, 5, C), generator=torch.Generator().manual_seed(4))
 
     def ref(xs, q):
         return F.conv2d(xs.permute(0, 3, 1, 2), q["w"].permute(3, 2, 0, 1),
-                        q["b"], padding=3, groups=C).permute(0, 2, 3, 1)
+                        q["b"], stride=2, padding=3,
+                        groups=C).permute(0, 2, 3, 1)
 
     _, want = _grads(ref, x, prm, g)
     monkeypatch.setattr(L, "DGRAD_SPLIT_BYTES", 0)

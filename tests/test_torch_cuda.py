@@ -322,6 +322,159 @@ def test_convnext_step_takes_dwconv_wgrad_in_every_depthwise_backward(
     assert all(bool(torch.isfinite(t).all()) for t in grads)
 
 
+#: ``dwconv2d``'s cases (as DWCONV_CASES): ConvNeXt-B's four depthwise
+#: shapes at batch 4, rows of stage 1's map read in place, then the other
+#: kernel sizes and paddings on ragged widths
+DWCONV2D_CASES = [(4,) + c[1:] for c in DWCONV_CASES[:5]] + DWCONV_CASES[5:] \
+    + [(2, 11, 13, 40, 5, (4, 4), None)]
+
+
+def _dwconv2d_ids(c):
+    return ("x".join(map(str, c[:4])) + f"_k{c[4]}_p{c[5][0]}{c[5][1]}"
+            + ("_rows" if c[6] else ""))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("flip", [False, True], ids=["fwd", "dgrad"])
+@pytest.mark.parametrize("case", DWCONV2D_CASES, ids=_dwconv2d_ids)
+def test_dwconv2d_matches_float64(case, flip, cuda_device):
+    """The forward (with a bias) and the data gradient (the flipped conv
+    of ``g`` at padding ``k - 1 - p``) lie within ``DWCONV_TOL`` of a
+    float64 sum, rows of a larger map read in place; the wrapper launches
+    once, copies nothing and returns the NCHW view of NHWC storage."""
+    from repro_torch.kernels import dwconv2d as dc
+    from repro_torch.kernels import dwconv_wgrad as dk
+    from repro_torch.kernels import ops
+    g, x, w = _dwconv_inputs(case, cuda_device)
+    c, k, padding = x.shape[1], case[4], case[5]
+    b = torch.randn(c, device=cuda_device,
+                    generator=torch.Generator(device=cuda_device).manual_seed(3))
+    src, bias, pad = (g, None, [k - 1 - p for p in padding]) if flip \
+        else (x, b, padding)
+    with obs.profiling() as cap:
+        y = ops.dwconv2d(src, w, bias, pad, flip)
+    assert cap.count("dwconv2d") == dc.LAUNCHES
+    assert cap.count("dwconv2d.copies") == 0
+    assert [r.name for r in cap.records] == ["dwconv2d"]
+    assert y.shape == (x if flip else g).shape and dk.nhwc_strided(y)
+    want = dc.dwconv2d_plain(src.double(), w.double(),
+                             None if bias is None else bias.double(), pad,
+                             flip)
+    if flip:
+        lib = torch.ops.aten.convolution_backward(
+            g, x, w, None, [1, 1], list(padding), [1, 1], False, [0, 0], c,
+            [True, False, False])[0]
+    else:
+        lib = torch.nn.functional.conv2d(x, w, b, padding=padding, groups=c)
+    err = _rel_norm(y, want)
+    print(f"dwconv2d {'dgrad' if flip else 'fwd'} {tuple(src.shape)} k{k}: "
+          f"relative norm error {err:.3e}, cuDNN's "
+          f"{_rel_norm(lib, want):.3e}")
+    assert err <= DWCONV_TOL
+
+
+@pytest.mark.requires_cuda
+def test_dwconv2d_is_deterministic(cuda_device):
+    from repro_torch.kernels import dwconv2d as dc
+    g, x, w = _dwconv_inputs(DWCONV2D_CASES[2], cuda_device, seed=1)
+    b = torch.randn(x.shape[1], device=cuda_device)
+    assert torch.equal(dc.dwconv2d(x, w, b, (3, 3)),
+                       dc.dwconv2d(x, w, b, (3, 3)))
+    assert torch.equal(dc.dwconv2d(g, w, None, (3, 3), flip=True),
+                       dc.dwconv2d(g, w, None, (3, 3), flip=True))
+
+
+class _RefusedK:
+    """The kernel library, but launching with a kernel size it has no
+    kernel for, so that the library refuses the launch."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+    def dwconv2d_launch(self, *args):
+        args = list(args)
+        args[12] = 2  # K
+        return self._lib.dwconv2d_launch(*args)
+
+
+@pytest.mark.requires_cuda
+def test_dwconv2d_raises_rather_than_fall_back(cuda_device, monkeypatch):
+    """The launcher raises on a tensor it cannot read and on a refused
+    launch; the wrapper copies an ``x`` that is not NHWC storage and
+    counts the copy."""
+    from repro_torch.kernels import dwconv2d as dc
+    from repro_torch.kernels import ops
+    _, x, w = _dwconv_inputs((2, 12, 12, 8, 7, (3, 3), None), cuda_device)
+    b = torch.randn(8, device=cuda_device)
+    with pytest.raises(TypeError, match="fp32"):
+        dc.dwconv2d(x.double(), w.double(), b.double(), (3, 3))
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        dc.dwconv2d(x.cpu(), w.cpu(), b.cpu(), (3, 3))
+    with pytest.raises(ValueError, match="NHWC"):
+        dc.dwconv2d(x.contiguous(), w, b, (3, 3))
+    with pytest.raises(ValueError, match="HWIO"):
+        dc.dwconv2d(x, w.contiguous(), b, (3, 3))
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        ops.dwconv2d(x.to("meta"), w.to("meta"), b.to("meta"), (3, 3))
+    with obs.profiling() as cap:
+        got = ops.dwconv2d(x.contiguous(), w, b, (3, 3))
+    assert cap.count("dwconv2d.copies") == 1
+    assert cap.count("dwconv2d") == dc.LAUNCHES
+    assert torch.equal(got, dc.dwconv2d(x, w, b, (3, 3)))
+    lib = dc._lib()
+    monkeypatch.setattr(dc, "_lib", lambda: _RefusedK(lib))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        dc.dwconv2d(x, w, b, (3, 3))
+
+
+@pytest.mark.requires_cuda
+def test_convnext_step_takes_dwconv2d_in_every_depthwise_conv(
+        cuda_device, monkeypatch):
+    """One ConvNeXt-B training step at 384² (the benchmark cell's widths,
+    depths and plan, batch 4): ``dwconv2d`` launches once for every
+    depthwise forward call and every depthwise backward that owes ``dx``,
+    copies no tensor, and the profile shows neither of cuDNN's depthwise
+    kernels (``conv2d_c1_k1_nhwc``, ``dgrad2d_c1_k1_nhwc*``)."""
+    from repro_torch.exec import Planner, build_apply
+    from repro_torch.models.cnn import convnext
+    from repro_torch.models.cnn import layers as L
+    shape, batch = (384, 384, 3), 4
+    mods, params = convnext.init_convnext(
+        torch.Generator().manual_seed(0), shape, device=cuda_device)
+    plan = Planner(mods, shape, batch).plan("twophase_h", 8)
+    leaves, _ = L.flatten_params(params["trunk"])
+    for t in leaves:
+        t.requires_grad_(True)
+    x = torch.randn((batch,) + shape, device=cuda_device)
+    owes, backward = [], L.conv_backward
+
+    def spy(g, x, w, stride, padding, need, groups=1):
+        if groups > 1:
+            owes.append(need[0])
+        return backward(g, x, w, stride, padding, need, groups)
+
+    monkeypatch.setattr(L, "conv_backward", spy)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof, \
+            obs.profiling() as cap:
+        loss = convnext.head_apply(params["head"], build_apply(mods, plan)(
+            params["trunk"], x)).square().mean()
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+    fwd = cap.count("conv.depthwise_calls")
+    assert fwd >= 36 and sum(owes) >= 36
+    assert cap.count("dwconv2d") == fwd + sum(owes)
+    assert cap.count("dwconv2d.copies") == 0
+    kernels = {e.key for e in prof.key_averages()}
+    assert any("dwconv2d_kernel" in k for k in kernels)
+    assert not any("conv2d_c1_k1_nhwc" in k or "dgrad2d_c1_k1_nhwc" in k
+                   for k in kernels)
+    assert all(bool(torch.isfinite(t).all()) for t in grads)
+
+
 #: (S, D, window, bq, bk): the kernel tests' shared SWA cases, then
 #: Gemma-3 4B's local layers (D 256, window 1024) at the plan's tiles
 SWA_CASES = [

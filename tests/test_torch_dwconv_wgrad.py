@@ -9,7 +9,9 @@ convs pass (``(3, 3)``, and ``(0, 3)`` after ``Conv._conv``'s explicit
 through ``kernels.ops.dwconv_wgrad`` (its calls read by a spy; the
 wrapper's counter counts launches, and the CPU launches none) and gives what
 one ``aten.convolution_backward`` gives, within 1e-12 in float64; dense,
-strided and other grouped convs keep the one call.  The kernel itself runs
+strided and other grouped convs keep the one call.  A depthwise call over
+``DGRAD_SPLIT_BYTES`` takes the weight-gradient kernel, then the
+data-gradient one (``tests/test_torch_dwconv2d.py``), and no chunk.  The kernel itself runs
 only on the card (``tests/test_torch_cuda.py``).
 """
 
@@ -170,28 +172,32 @@ def test_convnext_trunk_takes_the_kernel_in_every_depthwise_backward(
                          ids=["all", "no_bias", "no_weight"])
 def test_split_depthwise_backward_takes_the_kernel_before_the_chunks(
         need, monkeypatch):
-    """Over ``DGRAD_SPLIT_BYTES`` a depthwise call takes the kernel first,
-    before any chunk and outside the ``conv_dgrad_split`` range, then the
-    data gradient in chunks (5 images in 2, 2, 1); the gradients are one
-    ``aten.convolution_backward``'s."""
+    """Over ``DGRAD_SPLIT_BYTES`` a depthwise call takes both kernels, the
+    weight gradient first, then the data gradient: no chunk and no
+    ``conv_dgrad_split`` range (the data-gradient kernel needs no
+    workspace); the gradients are one ``aten.convolution_backward``'s."""
     g, x, wt = _inputs(5, 6, 9, 9, 7, (3, 3), None)
     want = torch.ops.aten.convolution_backward(
         g, x, wt, [6] if need[2] else None, [1, 1], [3, 3], [1, 1], False,
         [0, 0], 6, list(need))
-    seen, wrapped = [], ops.dwconv_wgrad
+    seen, wgrad, dgrad = [], ops.dwconv_wgrad, ops.dwconv2d
     monkeypatch.setattr(L, "DGRAD_SPLIT_BYTES", 0)
     monkeypatch.setattr(L, "DGRAD_CHUNK_BYTES", 2 * 6 * 9 * 9 * 8)
     with obs.profiling() as cap:
-        def spy(*args):
-            seen.append((cap.count("conv.dgrad_chunks"),
-                         [r.name for r in cap.records]))
-            return wrapped(*args)
+        def spy_w(*args):
+            seen.append("wgrad")
+            return wgrad(*args)
 
-        monkeypatch.setattr(ops, "dwconv_wgrad", spy)
+        def spy_d(*args, **kw):
+            seen.append("dgrad")
+            return dgrad(*args, **kw)
+
+        monkeypatch.setattr(ops, "dwconv_wgrad", spy_w)
+        monkeypatch.setattr(ops, "dwconv2d", spy_d)
         got = L.conv_backward(g, x, wt, 1, (3, 3), need, 6)
-    assert seen == [(0, [])]
-    assert cap.count("conv.dgrad_chunks") == 3
-    assert [r.name for r in cap.records] == ["conv_dgrad_split"]
+    assert seen == ["wgrad", "dgrad"]
+    assert cap.count("conv.dgrad_chunks") == 0
+    assert [r.name for r in cap.records] == []
     for a, b, wanted in zip(got, want, need):
         assert (a is None) == (not wanted)
         if wanted:
